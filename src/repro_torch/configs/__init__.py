@@ -1,0 +1,11 @@
+"""Architecture configs (``--arch <id>``). Importing this package registers
+the architectures the port serves so far: qwen3-8b."""
+from repro_torch.configs.base import ModelConfig, LayerSpec, ScanGroup, REGISTRY, get_config, reduced, register
+
+# register all ported architectures
+from repro_torch.configs.qwen3_8b import QWEN3_8B
+
+__all__ = [
+    "ModelConfig", "LayerSpec", "ScanGroup", "REGISTRY", "get_config",
+    "reduced", "register",
+]

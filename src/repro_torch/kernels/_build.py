@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel library is one ``csrc/*.cu`` file with a plain C interface,
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library at first
+use and loaded with ``ctypes``. The library lands in
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+its source and flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises; nothing falls back.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under the CUDA home
+    PyTorch was built against."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+def build(source: pathlib.Path) -> pathlib.Path:
+    """Compile ``source`` unless its library already exists; returns the
+    library's path. Raises with the compiler's output on failure."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}) building "
+                               f"{source.name}:\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library compiled from
+    ``source``, a path to a ``.cu`` file. One handle per process."""
+    return ctypes.CDLL(str(build(pathlib.Path(source))))

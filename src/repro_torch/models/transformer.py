@@ -1,0 +1,235 @@
+"""Model assembly for dense attention stacks on the paged compute plane:
+embeddings -> layer groups -> head.
+
+The parameter tree keeps ``repro.models.transformer``'s paths and stacked
+layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
+group's repeats — so the JAX tree carries across leaf for leaf. Where JAX
+runs a group under ``lax.scan``, the port loops over the layer index: layer
+``i`` takes ``leaf[i]`` of every parameter and writes ``pool[i]`` of its
+page pool in place.
+
+Entry points (paged mode only; DESIGN.md §10):
+- ``paged_prefill`` — the first chunk of a prompt at positions 0..S-1;
+- ``paged_extend``  — a later chunk at ``offset + [0, S)``;
+- ``paged_decode``  — one batched decode step at per-row positions.
+Other mixer families, MoE and the ring-cache path raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import param as prm
+from repro_torch.models.attention import attention_sublayer, attn_defs
+from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
+
+_UNPORTED = {"mla": "MLA (ROADMAP A.7)", "ssm": "SSM (ROADMAP A.8)",
+             "hybrid": "hybrid (ROADMAP A.8)"}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn":
+            raise NotImplementedError(f"{cfg.name}: {_UNPORTED[spec.kind]} "
+                                      "is not ported yet")
+        if spec.mlp == "moe":
+            raise NotImplementedError(f"{cfg.name}: MoE (ROADMAP A.9) is not "
+                                      "ported yet")
+    if cfg.frontend is not None or cfg.n_meta_tokens or cfg.n_codebooks > 1:
+        raise NotImplementedError(f"{cfg.name}: frontends and meta tokens "
+                                  "(ROADMAP A.9) are not ported yet")
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    defs: dict = {"norm1": rmsnorm_def(cfg.d_model)}
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{_UNPORTED[spec.kind]} is not ported yet")
+    defs["mixer"] = attn_defs(cfg)
+    if cfg.post_norms:
+        defs["post_norm1"] = rmsnorm_def(cfg.d_model)
+    if spec.mlp != "none":
+        if spec.mlp == "moe":
+            raise NotImplementedError("MoE (ROADMAP A.9) is not ported yet")
+        defs["norm2"] = rmsnorm_def(cfg.d_model)
+        defs["mlp"] = mlp_defs(cfg, cfg.d_ff)
+        if cfg.post_norms:
+            defs["post_norm2"] = rmsnorm_def(cfg.d_model)
+    return defs
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    groups = []
+    for g in cfg.scan_groups():
+        unit_defs = tuple(prm.stack_defs(block_defs(cfg, spec), g.repeats) for spec in g.unit)
+        groups.append(unit_defs)
+    return {
+        "embed": embed_defs(cfg),
+        "groups": tuple(groups),
+        "final_norm": rmsnorm_def(cfg.d_model),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
+                device=None):
+    """Random parameters on ``device`` (default ``cuda``), drawn like
+    ``repro.models.transformer.init_params``. ``generator`` is a seed or
+    a ``torch.Generator`` on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    return prm.materialize(model_defs(cfg), generator, dev, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
+                cache, mode, cur_pos=None, decode_active=None, page_table=None):
+    """Pre-norm residual block over one layer's parameters and page pool.
+    Returns (x, cache)."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    h, new_cache = attention_sublayer(cfg, p["mixer"], h, positions=positions,
+                                      window=spec.window, cache=cache,
+                                      mode=mode, cur_pos=cur_pos,
+                                      decode_active=decode_active,
+                                      page_table=page_table)
+    if cfg.post_norms:
+        h = rmsnorm(h, p["post_norm1"], cfg.norm_eps)
+    x = x + h
+    if spec.mlp != "none":
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        h = mlp(cfg, p["mlp"], h)
+        if cfg.post_norms:
+            h = rmsnorm(h, p["post_norm2"], cfg.norm_eps)
+        x = x + h
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Page pools
+# ---------------------------------------------------------------------------
+
+
+def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
+                      dtype=torch.bfloat16, device=None):
+    """Per-group tuple of per-unit page pools, each leaf stacked over the
+    group's repeats: ``{"kv_pages": (repeats, P, ps, 2*Hkv, D)}`` — the JAX
+    package's layout, page axis 1. Page id 0 is the reserved null page."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (n_pages, page_tokens, 2 * cfg.n_kv_heads, cfg.resolved_head_dim)
+    return tuple(
+        tuple({"kv_pages": torch.zeros((g.repeats,) + shape, dtype=dtype,
+                                       device=dev)}
+              for _ in g.unit)
+        for g in cfg.scan_groups())
+
+
+# ---------------------------------------------------------------------------
+# Trunk
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch: dict):
+    """tokens -> x (B, S, d), and the index of the first 'real' position
+    (always 0: frontends and meta tokens are not ported yet)."""
+    return embed(cfg, params["embed"], batch["tokens"]), 0
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked-repeats tree: ``leaf[i]`` of every leaf."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
+                 cur_pos=None, decode_active=None, page_table=None):
+    """Run every layer in order. Each layer's pool slice ``pool[i]`` is a
+    contiguous view written in place, so the caches come back as the same
+    tensors. Returns (x, caches)."""
+    for gi, g in enumerate(cfg.scan_groups()):
+        gp, gc = params["groups"][gi], caches[gi]
+        for i in range(g.repeats):
+            for u, spec in enumerate(g.unit):
+                x, _ = apply_block(cfg, spec, _layer(gp[u], i), x,
+                                   positions=positions, cache=_layer(gc[u], i),
+                                   mode=mode, cur_pos=cur_pos,
+                                   decode_active=decode_active,
+                                   page_table=page_table)
+    return x, caches
+
+
+def supports_extend(cfg: ModelConfig) -> bool:
+    """Chunked prefill (``extend``) capability probe, as in the JAX
+    package: every mixer family supports it."""
+    return all(spec.kind in ("attn", "mla", "ssm", "hybrid")
+               for spec in cfg.layer_specs())
+
+
+def snapshot_kind(cfg: ModelConfig) -> str:
+    """How a published prefix of this stack may be reused (DESIGN.md §8):
+    ``"positional"`` for attention/MLA, ``"point"`` for SSM/hybrid."""
+    if any(spec.kind in ("ssm", "hybrid") for spec in cfg.layer_specs()):
+        return "point"
+    return "positional"
+
+
+# ---------------------------------------------------------------------------
+# Paged serving steps (DESIGN.md §10): compute in place on the page pool
+# ---------------------------------------------------------------------------
+
+
+def _head(cfg: ModelConfig, params, x):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params["embed"], x)
+
+
+def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table):
+    """First chunk on the paged plane: the prompt at absolute positions
+    0..S-1, KV written straight into the pool pages named by
+    ``page_table`` (B, W). Returns (last_logits, caches)."""
+    x, _ = _embed_inputs(cfg, params, batch)
+    S_tot = x.shape[1]
+    positions = torch.arange(S_tot, dtype=torch.int32, device=x.device)
+    x, caches = apply_groups(cfg, params, x, positions=positions,
+                             caches=caches, mode="extend",
+                             page_table=page_table)
+    return _head(cfg, params, x[:, -1]), caches
+
+
+def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table):
+    """Later chunks on the paged plane: ``tokens`` (B, S) at absolute
+    positions ``offset + [0, S)``; earlier context is whatever the pages in
+    ``page_table`` hold — including pages spliced in from a prefix hit."""
+    x = embed(cfg, params["embed"], tokens)
+    S = x.shape[1]
+    positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
+    x, caches = apply_groups(cfg, params, x, positions=positions,
+                             caches=caches, mode="extend",
+                             page_table=page_table)
+    return _head(cfg, params, x[:, -1]), caches
+
+
+def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
+                 page_table, active=None):
+    """One batched decode step on the paged plane. cur_pos: (B,) absolute
+    positions; rows where ``active`` is False neither write their pages
+    nor advance (their page-table row may be all null pages)."""
+    x = embed(cfg, params["embed"], last_tokens)
+    cp = cur_pos.to(torch.int32)
+    x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
+                             caches=caches, mode="decode", cur_pos=cp,
+                             decode_active=active, page_table=page_table)
+    return _head(cfg, params, x[:, 0]), caches
