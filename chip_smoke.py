@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
-Hopper card.
+Hopper card: both serving paths, dense attention (qwen3-8b) and SSM
+(mamba2-2.7b), and their two kernels.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
 Phases, each printing one JSON line:
 
-1. device  — requires CUDA; the card's name and power limit (nvidia-smi);
-2. build   — builds every kernel of the main path from ``src/`` with nvcc
-             into ``build/repro_torch_kernels/``;
-3. kernel  — holds each kernel against its plain PyTorch version at the
-             main path's geometry (fp32 and bf16, decode / sparse table /
-             extend / softcap / window), checks bit-equality under trailing
-             null table slots, checks the model's paged steps on a reduced
-             fp32 config against the CPU path, and times the kernel, its
-             plain version and one PyTorch library call (CUDA events);
-4. serve   — drives the main path once at full width and depth:
-             qwen3-8b (36 layers, d 4096, vocab 151936, bf16, random weights
-             from a seed) served through ``ServeEngine`` with the serve
-             driver's defaults, 8 requests x 16 new tokens behind a shared
-             32-token head; checks the results and that every layer of every
-             model call launched the kernel.
+1. device      — requires CUDA; the card's name and power limit (nvidia-smi);
+2. build       — builds both kernels (ragged paged attention, SSD chunk
+                 scan) from ``src/`` with one nvcc each, started together,
+                 into ``build/repro_torch_kernels/``;
+3. kernel      — holds ragged paged attention against its plain PyTorch
+                 version at the qwen3-8b path's geometry (fp32 and bf16,
+                 decode / sparse table / extend / softcap / window), checks
+                 bit-equality under trailing null table slots, and times the
+                 kernel, its plain version and one PyTorch library call
+                 (CUDA events, L2 flushed);
+4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
+                 final state) at the mamba2-2.7b path's geometry (H 80, P
+                 64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
+                 batch, zero and random initial states, fp32 and bf16;
+                 checks that two launches are bit-equal; times the kernel
+                 and its plain version (no single PyTorch call computes an
+                 SSD scan);
+5. reduced     — the models' paged prefill / extend / decode on reduced fp32
+                 qwen3-8b and mamba2-2.7b, CUDA (the kernels) against the
+                 CPU path (the plain versions), same weights; and on CUDA a
+                 reduced mamba2 engine's prefix hit decodes the tokens of a
+                 cold start;
+6. serve       — qwen3-8b at full width and depth (36 layers, d 4096,
+                 vocab 151936, bf16, random weights from a seed) through
+                 ``ServeEngine`` with ``launch/serve.py``'s defaults, 8 requests
+                 x 16 new tokens behind a shared 32-token head; every layer
+                 of every model call launched the attention kernel;
+7. ssm serve   — the same for mamba2-2.7b (64 layers, d 2560, 80 SSD heads
+                 of 64, state 128, vocab 50280, bf16), after the qwen3-8b
+                 engine is freed; every layer of every prefill chunk
+                 launched the SSD kernel, and a prefix hit resumed from a
+                 state page with zero copy bytes.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches, error and
 times, the card's ``nvidia-smi`` name/power line, and last
@@ -29,6 +47,7 @@ non-zero and prints no result line. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -46,6 +65,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / fp32 (no TF
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 # fp32: the kernel sums in another order than the plain version;
 # bf16: about two bf16 ulps at magnitude 1 (both round the fp32 result once)
+SSD_H, SSD_P, SSD_N = 80, 64, 128   # mamba2-2.7b: 80 SSD heads of 64, state 128
+SSD_CHUNK = 256                     # its ssm_chunk
+SSD_TOL = 2e-4
+# fp32 y and every final state: the reference's own SSD tolerance
+# (tests/test_kernels.py), atol and rtol; bf16 y: rtol 2**-6 (two bf16 ulps
+# of the value: both versions round one fp32 result once) and atol SSD_TOL
+# times the largest |y| (fp32 sums taken in another order before rounding)
 
 
 def emit(phase: str, **kw) -> None:
@@ -226,6 +252,108 @@ def kernel_phase(torch, ops, ref, smi):
     return max_err, timing
 
 
+# ---------------------------------------------------------------------------
+# SSD chunk scan at the mamba2-2.7b path's geometry
+# ---------------------------------------------------------------------------
+
+
+def ssd_case(torch, S, dtype, *, B=1, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
+             state=True, seed=0):
+    """Inputs drawn as the model forms them: x, b, c ~ N(0, 1) in the model
+    dtype, dt ~ U[1e-3, 1e-1] and A ~ U[1, 16) (the initialisers' ranges),
+    and a random fp32 carried state (or None: zeros)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((B, S, H), generator=g)
+    a = -(1.0 + 15.0 * torch.rand((H,), generator=g))
+    b = torch.randn((B, S, G, N), generator=g)
+    c = torch.randn((B, S, G, N), generator=g)
+    init = torch.randn((B, H, P, N), generator=g) if state else None
+    return ([x.to(dtype).cuda(), dt.cuda(), a.cuda(), b.to(dtype).cuda(),
+             c.to(dtype).cuda()], None if init is None else init.cuda())
+
+
+def ssd_work(case, init, dtype_name, block=32):
+    """(bytes, flops, bound_ms, bound_by) of the scan on this input: x, b,
+    c, dt, a and the initial state read once, y and the final state written
+    once; per (batch, head) and block of L tokens (the kernel's 32) the
+    lower triangle of C.B^T (N*L*(L+1)) and of its product with x*dt
+    (P*L*(L+1)), and the carried-state output and state update (2*L*P*N
+    each)."""
+    x, dt, a, b, c = case
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    item = x.element_size()
+    n_bytes = (2 * x.numel() * item + (b.numel() + c.numel()) * item
+               + 4 * (dt.numel() + a.numel() + B * H * P * N)
+               + (0 if init is None else 4 * init.numel()))
+    flops = 0
+    for t0 in range(0, S, block):
+        L = min(block, S - t0)
+        flops += N * L * (L + 1) + P * L * (L + 1) + 4 * L * P * N
+    flops *= B * H
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
+    return (n_bytes, flops, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_kernel_phase(torch, sops, sref, smi):
+    scan, plain = sops.ssd_scan, sref.ssd_scan_ref
+    cases = [(f"S{S}_{'state' if st else 'zero'}", S, {"state": st})
+             for S in (1, 9, 32) for st in (False, True)]
+    cases += [("S512_multichunk", 512, {}),
+              ("B2_G4_S40", 40, {"B": 2, "H": 8, "G": 4, "N": 64})]
+    errs, max_err = {}, {"float32": 0.0, "bfloat16": 0.0}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for i, (name, S, kw) in enumerate(cases):
+            case, init = ssd_case(torch, S, dtype, seed=i, **kw)
+            y, state = scan(*case, chunk=SSD_CHUNK, init_state=init)
+            y2, state2 = scan(*case, chunk=SSD_CHUNK, init_state=init)
+            want_y, want_state = plain(*case, chunk=SSD_CHUNK, init_state=init)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(state, state2)):
+                raise AssertionError(f"ssd {dname}/{name}: two launches on "
+                                     "the same input differ")
+            err_y = (y.float() - want_y.float()).abs().max().item()
+            err_s = (state - want_state).abs().max().item()
+            errs[f"{dname}/{name}"] = {"y": err_y, "state": err_s}
+            max_err[dname] = max(max_err[dname], err_y)
+            if dname == "float32":
+                ok_y = torch.allclose(y, want_y, atol=SSD_TOL, rtol=SSD_TOL)
+            else:
+                scale = want_y.float().abs().max().item()
+                ok_y = torch.allclose(y.float(), want_y.float(), rtol=2 ** -6,
+                                      atol=SSD_TOL * scale)
+            ok_s = torch.allclose(state, want_state, atol=SSD_TOL, rtol=SSD_TOL)
+            if not (ok_y and ok_s):
+                raise AssertionError(f"ssd {dname}/{name}: kernel vs plain max "
+                                     f"abs err y {err_y}, state {err_s}")
+    emit("kernel_check", kernel="ssd_scan", max_abs_err=errs,
+         tolerance={"float32": SSD_TOL, "bfloat16_y": "rtol 2**-6, atol "
+                    f"{SSD_TOL} x max|y|", "state": SSD_TOL},
+         launches_bit_equal=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    for S in (32, 9):
+        case, init = ssd_case(torch, S, torch.bfloat16, seed=100 + S)
+        n_bytes, flops, bound_ms, bound_by = ssd_work(case, init, "bfloat16")
+        timing[f"S{S}"] = {
+            "shape": [1, S, SSD_H, SSD_P, SSD_N], "bytes": n_bytes,
+            "flops": flops,
+            "ms": time_ms(torch, lambda: scan(*case, chunk=SSD_CHUNK,
+                                              init_state=init), flush),
+            "plain_ms": time_ms(torch, lambda: plain(*case, chunk=SSD_CHUNK,
+                                                     init_state=init),
+                                flush, iters=20),
+            "library_ms": None,   # no single PyTorch call computes an SSD scan
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    emit("kernel_time", kernel="ssd_scan", dtype="bfloat16", nvidia_smi=smi,
+         shapes=timing)
+    return max_err, timing
+
+
 def reduced_model_phase(torch, cfg_mod, tfm, param):
     """The model's paged steps on a reduced fp32 qwen3-8b: CUDA (the
     kernel) against the CPU path (the plain version), same weights."""
@@ -263,7 +391,71 @@ def reduced_model_phase(torch, cfg_mod, tfm, param):
                                  f"logit error {rel}")
         if not torch.isfinite(a).all():
             raise AssertionError("non-finite logits on CUDA")
-    emit("reduced_model_check", relative_logit_err=errs, tolerance=1e-4)
+    emit("reduced_model_check", arch="qwen3-8b", relative_logit_err=errs,
+         tolerance=1e-4)
+
+
+def reduced_ssm_phase(torch, cfg_mod, tfm, param, serve):
+    """Reduced fp32 mamba2-2.7b: paged prefill (page 0), extend (page 1) and
+    a batched decode with an inactive row, CUDA (the SSD kernel) against
+    the CPU path, same weights; then, on CUDA, an engine whose prefix hits
+    resume from state pages decodes the tokens of a cold start."""
+    full = cfg_mod.get_config("mamba2-2.7b")
+    cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
+    params = tfm.init_params(cfg, 0, device="cuda")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = param.tree_map(lambda a: a.to(dev), params)
+        caches = tfm.init_paged_caches(cfg, 8, PAGE, torch.float32, device=dev)
+        g = torch.Generator().manual_seed(2)
+        toks = torch.randint(2, cfg.vocab_size, (1, PAGE), generator=g).to(dev)
+        ext = torch.randint(2, cfg.vocab_size, (1, 9), generator=g).to(dev)
+        last = torch.randint(2, cfg.vocab_size, (2, 1), generator=g).to(dev)
+        tbl = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32, device=dev)
+        tbl2 = torch.tensor([[1, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32,
+                            device=dev)
+        res = []
+        lg, caches = tfm.paged_prefill(cfg, p, {"tokens": toks}, caches, tbl,
+                                       page_tokens=PAGE)
+        res.append(lg)
+        lg, caches = tfm.paged_extend(cfg, p, caches, ext, PAGE, tbl,
+                                      page_tokens=PAGE)
+        res.append(lg)
+        lg, caches = tfm.paged_decode(cfg, p, caches, last,
+                                      torch.tensor([PAGE + 9, 0], device=dev),
+                                      tbl2, page_tokens=PAGE,
+                                      active=torch.tensor([True, False], device=dev))
+        res.append(lg[:1])
+        outs[dev] = [r.float().cpu() for r in res]
+    errs = []
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        errs.append(rel)
+        if not rel < 1e-4:
+            raise AssertionError(f"reduced mamba2 on CUDA vs CPU: relative "
+                                 f"logit error {rel}")
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits on CUDA")
+
+    runs = {}
+    for name, flags in (("hit", []), ("cold", ["--no-prefix-caching"])):
+        args = serve.parser().parse_args(["--arch", "mamba2-2.7b", *flags])
+        eng = serve.build_engine(args, cfg, full, params, device="cuda")
+        eng.ecfg.eos_token = -1
+        prompts = serve.make_prompts(cfg, 4, 32, args.seed)
+        eng.submit(prompts[0], max_new_tokens=6)
+        eng.run_until_idle()
+        for pr in prompts[1:]:
+            eng.submit(pr, max_new_tokens=6)
+        rep = eng.run_until_idle()
+        runs[name] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
+    hits = runs["hit"][1]["prefix"]["compute_hits"]
+    if runs["hit"][0] != runs["cold"][0] or hits < 1:
+        raise AssertionError(f"reduced mamba2 on CUDA: prefix hit ({hits} "
+                             "hits) does not decode the cold-start tokens")
+    emit("reduced_model_check", arch="mamba2-2.7b", relative_logit_err=errs,
+         tolerance=1e-4, hit_equals_cold=True, compute_hits=hits,
+         prefill_tokens_skipped=runs["hit"][1]["prefill_tokens_skipped"])
 
 
 # ---------------------------------------------------------------------------
@@ -271,17 +463,22 @@ def reduced_model_phase(torch, cfg_mod, tfm, param):
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(torch, cfg_mod, tfm, serve, ops, param, smi):
-    full = cfg_mod.get_config("qwen3-8b")
-    cfg = full                               # nothing reduced
-    args = serve.parser().parse_args([])     # the serve driver's defaults
+def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
+    """Drive one serving path once at full width and depth: ``arch`` with
+    nothing reduced, random weights from ``launch/serve.py``'s seed and
+    defaults, 8 requests x 16 new tokens behind a shared 32-token
+    head (the first alone, publishing the head; then the rest). Every
+    kernel wrapper in ``kernels`` has its launch count set to 0 just before
+    the run and read just after. Returns (cfg, report, launches, stats)."""
+    cfg = cfg_mod.get_config(arch)           # nothing reduced
+    args = serve.parser().parse_args(["--arch", arch])   # serve defaults
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, args.seed, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in param.tree_leaves(params))
-    eng = serve.build_engine(args, cfg, full, params, device="cuda")
+    eng = serve.build_engine(args, cfg, cfg, params, device="cuda")
     # random weights may emit the default eos (1) and end a request early;
     # the config object is shared by the engine's parts
     eng.ecfg.eos_token = -1
@@ -306,7 +503,8 @@ def serve_phase(torch, cfg_mod, tfm, serve, ops, param, smi):
 
     eng.backend.run_decode = timed_decode
     torch.cuda.reset_peak_memory_stats()
-    ops.ragged_paged_attention.launches = 0
+    for fn in kernels:
+        fn.launches = 0
     eng.backend.model_calls = 0
     t0 = time.perf_counter()
     eng.submit(prompts[0], max_new_tokens=args.max_new)
@@ -317,37 +515,81 @@ def serve_phase(torch, cfg_mod, tfm, serve, ops, param, smi):
     rep = eng.run_until_idle()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = ops.ragged_paged_attention.launches
-    calls = eng.backend.model_calls
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    decode_tokens = rep["tokens_generated"] - rep["finished"]
+    stats = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes,
+        pool_bytes=sum(t.numel() * t.element_size()
+                       for t in param.tree_leaves(eng.backend.paged_caches)),
+        init_s=init_s, first_request_s=first_s, wall_s=wall_s,
+        decode_s=decode_s[0], decode_tokens=decode_tokens,
+        decode_tokens_per_s=decode_tokens / decode_s[0],
+        tokens_per_s=rep["tokens_generated"] / wall_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        model_calls=eng.backend.model_calls, kernel_launches=launches,
+        finished=rep["finished"], tokens_generated=rep["tokens_generated"],
+        prefill_chunks=rep["prefill_chunks"],
+        prefill_tokens_skipped=rep["prefill_tokens_skipped"],
+        compute_hits=rep["prefix"]["compute_hits"],
+        snapshot_kind=rep["prefix"]["snapshot_kind"],
+        kernel_read_bytes=rep["kernel_read_bytes"],
+        seed_copy_bytes=rep["seed_copy_bytes"],
+        finite_logits=bool(finite) and all(finite))
+    return cfg, rep, launches, stats
 
+
+def _require(phase: str, checks: dict) -> None:
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+def serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+    """qwen3-8b: every layer of every model call launched the attention
+    kernel."""
+    cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
+                                       "qwen3-8b", kernels)
+    n = launches["ragged_paged_attention"]
+    calls = st["model_calls"]
     checks = {
         "finished": rep["finished"] == 8,
-        "tokens_generated": rep["tokens_generated"] == 8 * args.max_new,
-        "finite_logits": bool(finite) and all(finite),
-        "launches": launches == cfg.num_layers * calls and calls > 0,
+        "tokens_generated": rep["tokens_generated"] == 8 * 16,
+        "finite_logits": st["finite_logits"],
+        "launches": n == cfg.num_layers * calls and calls > 0,
         "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
         "kernel_read_bytes": rep["kernel_read_bytes"] > 0,
         "compute_hits": rep["prefix"]["compute_hits"] >= 1,
     }
-    decode_tokens = rep["tokens_generated"] - rep["finished"]
-    emit("serve", nvidia_smi=smi, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes,
-         init_s=init_s, first_request_s=first_s, wall_s=wall_s,
-         decode_s=decode_s[0], decode_tokens=decode_tokens,
-         decode_tokens_per_s=decode_tokens / decode_s[0],
-         tokens_per_s=rep["tokens_generated"] / wall_s,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         model_calls=calls, kernel_launches=launches,
-         finished=rep["finished"], tokens_generated=rep["tokens_generated"],
-         prefill_chunks=rep["prefill_chunks"],
-         prefill_tokens_skipped=rep["prefill_tokens_skipped"],
-         compute_hits=rep["prefix"]["compute_hits"],
-         kernel_read_bytes=rep["kernel_read_bytes"],
-         seed_copy_bytes=rep["seed_copy_bytes"], checks=checks)
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"main path checks failed: {failed}")
-    return launches
+    emit("serve", nvidia_smi=smi, **st, checks=checks)
+    _require("qwen3-8b serve", checks)
+    return n
+
+
+def ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+    """mamba2-2.7b: every layer of every prefill chunk launched the SSD
+    kernel (decode runs the plain recurrence); prefix hits resumed from
+    state pages with zero copy bytes."""
+    cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
+                                       "mamba2-2.7b", kernels)
+    n = launches["ssd_scan"]
+    chunks = rep["prefill_chunks"]
+    checks = {
+        "finished": rep["finished"] == 8,
+        "tokens_generated": rep["tokens_generated"] == 8 * 16,
+        "finite_logits": st["finite_logits"],
+        "full_width": (cfg.num_layers, cfg.d_model, cfg.ssm_nheads,
+                       cfg.ssm_headdim, cfg.ssm_state, cfg.dtype)
+        == (64, 2560, SSD_H, SSD_P, SSD_N, "bfloat16"),
+        "launches": n == cfg.num_layers * chunks and chunks > 0,
+        "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
+        "snapshot_kind": rep["prefix"]["snapshot_kind"] == "point",
+        "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+    }
+    emit("ssm_serve", nvidia_smi=smi, **st,
+         state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
+    _require("mamba2-2.7b serve", checks)
+    return n
 
 
 def main() -> int:
@@ -359,6 +601,8 @@ def main() -> int:
     from repro_torch import configs as cfg_mod
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.launch import serve
     from repro_torch.models import param
     from repro_torch.models import transformer as tfm
@@ -372,23 +616,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    lib = _build.build(ops.SOURCE)
-    emit("build", kernel="ragged_paged_attention",
-         library=str(lib.relative_to(ROOT)), build_s=time.perf_counter() - t0)
+    libs = _build.build_all([ops.SOURCE, sops.SOURCE])
+    emit("build", kernels=["ragged_paged_attention", "ssd_scan"],
+         libraries=[str(lib.relative_to(ROOT)) for lib in libs],
+         build_s=time.perf_counter() - t0)
 
+    kernels = [ops.ragged_paged_attention, sops.ssd_scan]
     max_err, timing = kernel_phase(torch, ops, ref, smi)
+    ssd_err, ssd_timing = ssd_kernel_phase(torch, sops, sref, smi)
     reduced_model_phase(torch, cfg_mod, tfm, param)
-    launches = serve_phase(torch, cfg_mod, tfm, serve, ops, param, smi)
+    reduced_ssm_phase(torch, cfg_mod, tfm, param, serve)
+    rpa_launches = serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi)
+    gc.collect()                     # the qwen3-8b engine and weights
+    torch.cuda.empty_cache()
+    ssd_launches = ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels,
+                                   smi)
 
-    dec = timing["decode"]
+    dec, ssd = timing["decode"], ssd_timing["S32"]
     print(json.dumps({"kernels": [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": str(ops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/paged_attention/kernel.py:225",
-        "launches": launches, "max_abs_err": max_err["bfloat16"],
+        "launches": rpa_launches, "max_abs_err": max_err["bfloat16"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"]}]}), flush=True)
+        "library_ms": dec["library_ms"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": str(sops.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",
+        "launches": ssd_launches, "max_abs_err": ssd_err["bfloat16"],
+        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

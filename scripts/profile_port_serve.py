@@ -3,15 +3,17 @@
 
     python3 scripts/profile_port_serve.py
 
-Builds the main path of ``chip_smoke.py`` (qwen3-8b at full width and
-depth, serve defaults, random weights from a seed), serves its 8 requests
-once to warm up, then serves them again under
-``torch.profiler`` and prints one JSON line: wall time, device-busy time
-and idle share, time per model call, and the top operators by device time
-and by host time, with the card's name and power limit. Needs one card.
+For each serving path of ``chip_smoke.py`` in turn — qwen3-8b, then
+mamba2-2.7b, each at full width and depth with the serve defaults and
+random weights from a seed — serves its 8 requests once to warm up, then
+serves them again under ``torch.profiler`` and prints one JSON line: wall
+time, device-busy time and idle share, time per model call, launch and
+host-sync counts, and the top operators by device time and by host time,
+with the card's name and power limit. Needs one card.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -23,9 +25,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 REQUESTS = 8
 TOP = 15
+ARCHS = ("qwen3-8b", "mamba2-2.7b")
 
 
-def main() -> int:
+def profile_arch(arch: str, smi: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -33,14 +36,8 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    cfg = get_config("qwen3-8b")
-    args = serve.parser().parse_args([])
+    cfg = get_config(arch)
+    args = serve.parser().parse_args(["--arch", arch])
     params = tfm.init_params(cfg, args.seed, device="cuda")
 
     def run(eng):
@@ -75,17 +72,32 @@ def main() -> int:
                 "self_host_ms": e.self_cpu_time_total / 1e3}
 
     print(json.dumps({
-        "nvidia_smi": smi, "layers": cfg.num_layers,
+        "nvidia_smi": smi, "arch": arch, "layers": cfg.num_layers,
         "requests": REQUESTS, "tokens_generated": rep["tokens_generated"],
         "model_calls": eng.backend.model_calls, "wall_s": wall,
         "ms_per_model_call": wall * 1e3 / eng.backend.model_calls,
         "device_busy_s": dev_us / 1e6,
         "device_idle_share": 1 - dev_us / 1e6 / wall,
         "calls": {e.key: e.count for e in events
-                  if e.key in ("cudaLaunchKernel", "aten::nonzero")},
+                  if e.key in ("cudaLaunchKernel", "aten::nonzero",
+                               "aten::item", "aten::_local_scalar_dense")},
         "top_by_device": [row(e) for e in by_dev[:TOP]],
         "top_by_host": [row(e) for e in by_cpu[:TOP]],
     }), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    for arch in ARCHS:
+        profile_arch(arch, smi)
+        gc.collect()                # free one model before the next
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -46,26 +46,48 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
+def build_all(sources) -> list:
+    """Compile every source in ``sources`` whose library does not exist
+    yet, one ``nvcc`` process per source, all started together; returns
+    the libraries' paths in order. Raises with the compiler's output if
+    any build fails; every process started is waited for or killed."""
+    sources = [pathlib.Path(s) for s in sources]
+    outs = [library_path(s) for s in sources]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src, out in zip(sources, outs):
+            if out.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((src, out, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, out, tmp, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}) building "
+                              f"{src.name}:\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, out)   # atomic: a concurrent build never sees a torn file
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return outs
+
+
 def build(source: pathlib.Path) -> pathlib.Path:
     """Compile ``source`` unless its library already exists; returns the
     library's path. Raises with the compiler's output on failure."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                               f"{source.name}:\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_all([source])[0]
 
 
 @functools.lru_cache(maxsize=None)

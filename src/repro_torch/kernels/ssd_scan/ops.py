@@ -1,0 +1,111 @@
+"""Wrapper for the Hopper SSD chunk-scan kernel (``csrc/ssd_scan.cu``).
+
+``ssd_scan`` checks its inputs, allocates y and the final state and
+launches the kernel on the current CUDA stream. Tensors on the CPU take
+the plain version (``ref.ssd_scan_ref``); a CUDA tensor launches the
+kernel or raises — there is no fallback. Each launch adds one to
+``ssd_scan.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import Optional
+
+import torch
+
+from .ref import ssd_scan_ref
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_STATE = 256
+
+
+def _library():
+    from repro_torch.kernels import _build
+    lib = _build.load(str(SOURCE))
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, P, P, P, P, P,   # x dt a b c init y final
+                       I, I, I, I, I, I,         # B S H P G N
+                       L, L, L, L, L, L,         # x/b/c batch and seq strides
+                       I, P]                     # dtype stream
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, a, b, c, init_state):
+    dev = x.device
+    named = (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c))
+    if init_state is not None:
+        named += (("init_state", init_state),)
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x/b/c dtypes {x.dtype}/{b.dtype}/{c.dtype}: all "
+                        "float32 or all bfloat16")
+    for name, t in (("dt", dt), ("a", a), ("init_state", init_state)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
+        raise ValueError("x (B, S, H, P), b and c (B, S, G, N)")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if b.shape[:2] != (B, S) or G == 0 or H % G:
+        raise ValueError(f"b/c {tuple(b.shape)} do not match x {tuple(x.shape)}")
+    if dt.shape != (B, S, H) or a.shape != (H,):
+        raise ValueError(f"dt must be (B, S, H) = {(B, S, H)} and a (H,)")
+    if init_state is not None and init_state.shape != (B, H, P, N):
+        raise ValueError(f"init_state must be (B, H, P, N) = {(B, H, P, N)}")
+    if S < 1 or not 0 < N <= _MAX_STATE or B * H > 65535:
+        raise ValueError(f"S {S} must be >= 1, N {N} in (0, {_MAX_STATE}] "
+                         f"and B*H {B * H} <= 65535")
+    # x, b, c may be views into a wider projection: only their (H, P) and
+    # (G, N) inner dimensions need be dense
+    if x.stride(3) != 1 or x.stride(2) != P:
+        raise ValueError("x must be dense over (H, P)")
+    for name, t in (("b", b), ("c", c)):
+        if t.stride(3) != 1 or t.stride(2) != N:
+            raise ValueError(f"{name} must be dense over (G, N)")
+    for name, t in (("dt", dt), ("a", a), ("init_state", init_state)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD scan in the model layout, continuing from ``init_state``.
+
+    x: (B, S, H, P) fp32 or bf16; dt: (B, S, H) fp32 (post-softplus);
+    a: (H,) fp32, negative; b/c: (B, S, G, N) in x's dtype, H % G == 0;
+    ``init_state``: (B, H, P, N) fp32, or None for zeros. Returns (y
+    (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32). ``chunk``
+    is the plain version's chunk length (``ssm_chunk``); the kernel walks
+    the sequence in blocks of its own, so the two agree within fp32
+    rounding, not bit for bit."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan for device {x.device}")
+    _check(x, dt, a, b, c, init_state)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), None if init_state is None else init_state.data_ptr(),
+                y.data_ptr(), final.data_ptr(), B, S, H, P, G, N,
+                x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+                c.stride(0), c.stride(1), _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
+    ssd_scan.launches += 1
+    return y, final
+
+
+ssd_scan.launches = 0

@@ -6,10 +6,13 @@ report as ``repro.launch.serve``, plus ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 8 --max-new 16 --shared-prefix-tokens 32
 
+``--arch`` takes the architectures the port registers: ``qwen3-8b`` (dense
+attention on KV pages) and ``mamba2-2.7b`` (SSM on point-state pages).
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: ``--replicas > 1`` (the cluster, A.11), ``--paged-kernel
-off`` (the ring path, A.10), ``--inject-rber`` (faults, A.12) and the TPU
-autotuner's ``--kernel-block-q/--kernel-block-kv/--kernel-buffers``.
+ROADMAP item: other architectures (A.7-A.9), ``--replicas > 1`` (the
+cluster, A.11), ``--paged-kernel off`` (the ring path, A.10),
+``--inject-rber`` (faults, A.12) and the TPU autotuner's
+``--kernel-block-q/--kernel-block-kv/--kernel-buffers``.
 """
 from __future__ import annotations
 
@@ -59,7 +62,9 @@ def build_engine(args, cfg, full, params, device=None):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="architecture: qwen3-8b or mamba2-2.7b (the ones "
+                         "the port registers)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "
                          "without a card; 'cpu' runs the kernels' plain "

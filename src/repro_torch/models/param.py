@@ -27,7 +27,7 @@ from repro_torch.device import resolve_device
 class ParamDef:
     shape: Tuple[int, ...]
     logical_axes: Tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros | ones (| a_log | dt_bias: SSM, not ported)
+    init: str = "normal"  # normal | zeros | ones | a_log | dt_bias
     std: Optional[float] = None  # None => fan-in 1/sqrt(shape[-2 or -1])
     dtype: Optional[str] = None
 
@@ -137,8 +137,14 @@ def materialize(defs, generator: torch.Generator, device: torch.device,
             return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=device)
-        if d.init != "normal":   # a_log / dt_bias: the SSM slice (ROADMAP A.8)
-            raise NotImplementedError(f"init {d.init!r} is not ported yet")
+        if d.init == "a_log":    # mamba2: A ~ U[1, 16), stored as a log
+            u = torch.rand(d.shape, generator=generator, device=device)
+            return torch.log(1.0 + 15.0 * u).to(dt)
+        if d.init == "dt_bias":  # softplus^-1 of dt ~ U[1e-3, 1e-1]
+            u = torch.rand(d.shape, generator=generator, device=device)
+            return torch.log(torch.expm1(1e-3 + (1e-1 - 1e-3) * u)).to(dt)
+        if d.init != "normal":
+            raise ValueError(f"unknown init {d.init!r}")
         out = torch.empty(d.shape, dtype=dt, device=device)
         std = _fan_in_std(d)
         _fill(out, lambda n: torch.randn(n, generator=generator,

@@ -1,5 +1,5 @@
-"""Model assembly for dense attention stacks on the paged compute plane:
-embeddings -> layer groups -> head.
+"""Model assembly for dense attention and SSM stacks on the paged compute
+plane: embeddings -> layer groups -> head.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
 layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
@@ -12,8 +12,11 @@ Entry points (paged mode only; DESIGN.md §10):
 - ``paged_prefill`` — the first chunk of a prompt at positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
 - ``paged_decode``  — one batched decode step at per-row positions.
-Other mixer families, MoE and the ring-cache path raise
-``NotImplementedError`` naming their ROADMAP item.
+Attention layers compute on KV pages, SSM layers on point-state pages
+(conv left-context + SSD state at page boundaries); a point stack's
+prefill or extend chunk must lie within one page. MLA, hybrid, MoE,
+frontends and the ring-cache path raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,14 +29,14 @@ from repro_torch.device import resolve_device
 from repro_torch.models import param as prm
 from repro_torch.models.attention import attention_sublayer, attn_defs
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
+from repro_torch.models.ssm import ssm_defs, ssm_paged_init, ssm_sublayer
 
-_UNPORTED = {"mla": "MLA (ROADMAP A.7)", "ssm": "SSM (ROADMAP A.8)",
-             "hybrid": "hybrid (ROADMAP A.8)"}
+_UNPORTED = {"mla": "MLA (ROADMAP A.7)", "hybrid": "hybrid (ROADMAP A.8)"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.kind != "attn":
+        if spec.kind in _UNPORTED:
             raise NotImplementedError(f"{cfg.name}: {_UNPORTED[spec.kind]} "
                                       "is not ported yet")
         if spec.mlp == "moe":
@@ -50,9 +53,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     defs: dict = {"norm1": rmsnorm_def(cfg.d_model)}
-    if spec.kind != "attn":
+    if spec.kind in _UNPORTED:
         raise NotImplementedError(f"{_UNPORTED[spec.kind]} is not ported yet")
-    defs["mixer"] = attn_defs(cfg)
+    defs["mixer"] = ssm_defs(cfg) if spec.kind == "ssm" else attn_defs(cfg)
     if cfg.post_norms:
         defs["post_norm1"] = rmsnorm_def(cfg.d_model)
     if spec.mlp != "none":
@@ -95,15 +98,25 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
 
 
 def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
-                cache, mode, cur_pos=None, decode_active=None, page_table=None):
-    """Pre-norm residual block over one layer's parameters and page pool.
-    Returns (x, cache)."""
+                cache, mode, cur_pos=None, decode_active=None, page_table=None,
+                page_tokens=None):
+    """Pre-norm residual block over one layer's parameters and page pool
+    (``page_tokens`` is the page size SSM layers need to resolve their
+    state-page slots). Returns (x, cache)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    h, new_cache = attention_sublayer(cfg, p["mixer"], h, positions=positions,
-                                      window=spec.window, cache=cache,
-                                      mode=mode, cur_pos=cur_pos,
-                                      decode_active=decode_active,
-                                      page_table=page_table)
+    if spec.kind == "ssm":
+        h, new_cache = ssm_sublayer(cfg, p["mixer"], h, cache=cache, mode=mode,
+                                    decode_active=decode_active,
+                                    positions=positions, cur_pos=cur_pos,
+                                    page_table=page_table,
+                                    page_tokens=page_tokens)
+    else:
+        h, new_cache = attention_sublayer(cfg, p["mixer"], h,
+                                          positions=positions,
+                                          window=spec.window, cache=cache,
+                                          mode=mode, cur_pos=cur_pos,
+                                          decode_active=decode_active,
+                                          page_table=page_table)
     if cfg.post_norms:
         h = rmsnorm(h, p["post_norm1"], cfg.norm_eps)
     x = x + h
@@ -121,18 +134,33 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
 # ---------------------------------------------------------------------------
 
 
+def _paged_unit_cache(cfg: ModelConfig, spec: LayerSpec, n_pages: int,
+                      page_tokens: int, dtype, device) -> dict:
+    """One unit's paged-plane pool, unstacked. Attention pages hold fused
+    head-interleaved KV; SSM pages hold the conv left-context + SSD
+    recurrent state after the last written token of the page."""
+    if spec.kind == "ssm":
+        return ssm_paged_init(cfg, n_pages, dtype, device)
+    shape = (n_pages, page_tokens, 2 * cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
                       dtype=torch.bfloat16, device=None):
     """Per-group tuple of per-unit page pools, each leaf stacked over the
-    group's repeats: ``{"kv_pages": (repeats, P, ps, 2*Hkv, D)}`` — the JAX
-    package's layout, page axis 1. Page id 0 is the reserved null page."""
+    group's repeats — the JAX package's layout, page axis 1:
+    ``{"kv_pages": (R, P, ps, 2*Hkv, D)}`` for attention, ``{"conv_pages":
+    (R, P, cw-1, conv_dim), "state_pages": (R, P, nh, hd, ns) fp32}`` for
+    SSM. Page id 0 is the reserved null page."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    shape = (n_pages, page_tokens, 2 * cfg.n_kv_heads, cfg.resolved_head_dim)
+    meta = torch.device("meta")   # shapes and dtypes only: nothing allocated
     return tuple(
-        tuple({"kv_pages": torch.zeros((g.repeats,) + shape, dtype=dtype,
-                                       device=dev)}
-              for _ in g.unit)
+        tuple(prm.tree_map(
+            lambda a, r=g.repeats: torch.zeros((r,) + a.shape, dtype=a.dtype,
+                                               device=dev),
+            _paged_unit_cache(cfg, spec, n_pages, page_tokens, dtype, meta))
+              for spec in g.unit)
         for g in cfg.scan_groups())
 
 
@@ -155,7 +183,8 @@ def _layer(tree, i: int):
 
 
 def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
-                 cur_pos=None, decode_active=None, page_table=None):
+                 cur_pos=None, decode_active=None, page_table=None,
+                 page_tokens=None):
     """Run every layer in order. Each layer's pool slice ``pool[i]`` is a
     contiguous view written in place, so the caches come back as the same
     tensors. Returns (x, caches)."""
@@ -167,7 +196,8 @@ def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
                                    positions=positions, cache=_layer(gc[u], i),
                                    mode=mode, cur_pos=cur_pos,
                                    decode_active=decode_active,
-                                   page_table=page_table)
+                                   page_table=page_table,
+                                   page_tokens=page_tokens)
     return x, caches
 
 
@@ -196,34 +226,53 @@ def _head(cfg: ModelConfig, params, x):
     return lm_logits(cfg, params["embed"], x)
 
 
-def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table):
+def _check_point_chunk(cfg: ModelConfig, offset: int, S: int,
+                       page_tokens) -> None:
+    """A point stack's chunk reads one state page and writes one: it must
+    lie within the page of its first position (the engine chunks point
+    stacks on the page grid)."""
+    if snapshot_kind(cfg) != "point":
+        return
+    if page_tokens is None:
+        raise ValueError(f"{cfg.name}: paged SSM layers need page_tokens")
+    if offset // page_tokens != (offset + S - 1) // page_tokens:
+        raise ValueError(f"{cfg.name}: a chunk at positions [{offset}, "
+                         f"{offset + S}) crosses a {page_tokens}-token page "
+                         "boundary; point stacks chunk on the page grid")
+
+
+def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table,
+                  page_tokens=None):
     """First chunk on the paged plane: the prompt at absolute positions
-    0..S-1, KV written straight into the pool pages named by
+    0..S-1, KV or state written straight into the pool pages named by
     ``page_table`` (B, W). Returns (last_logits, caches)."""
     x, _ = _embed_inputs(cfg, params, batch)
     S_tot = x.shape[1]
+    _check_point_chunk(cfg, 0, S_tot, page_tokens)
     positions = torch.arange(S_tot, dtype=torch.int32, device=x.device)
     x, caches = apply_groups(cfg, params, x, positions=positions,
                              caches=caches, mode="extend",
-                             page_table=page_table)
+                             page_table=page_table, page_tokens=page_tokens)
     return _head(cfg, params, x[:, -1]), caches
 
 
-def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table):
+def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table,
+                 page_tokens=None):
     """Later chunks on the paged plane: ``tokens`` (B, S) at absolute
     positions ``offset + [0, S)``; earlier context is whatever the pages in
     ``page_table`` hold — including pages spliced in from a prefix hit."""
     x = embed(cfg, params["embed"], tokens)
     S = x.shape[1]
+    _check_point_chunk(cfg, int(offset), S, page_tokens)
     positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
     x, caches = apply_groups(cfg, params, x, positions=positions,
                              caches=caches, mode="extend",
-                             page_table=page_table)
+                             page_table=page_table, page_tokens=page_tokens)
     return _head(cfg, params, x[:, -1]), caches
 
 
 def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
-                 page_table, active=None):
+                 page_table, active=None, page_tokens=None):
     """One batched decode step on the paged plane. cur_pos: (B,) absolute
     positions; rows where ``active`` is False neither write their pages
     nor advance (their page-table row may be all null pages)."""
@@ -231,5 +280,6 @@ def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
     cp = cur_pos.to(torch.int32)
     x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
                              caches=caches, mode="decode", cur_pos=cp,
-                             decode_active=active, page_table=page_table)
+                             decode_active=active, page_table=page_table,
+                             page_tokens=page_tokens)
     return _head(cfg, params, x[:, 0]), caches

@@ -9,7 +9,9 @@ explicit :class:`StepPlan` / :class:`StepReport` interface:
   array per cache family on the device, chunked prefill (``paged_prefill``
   / ``paged_extend``) and one batched decode step per engine step with
   per-slot positions. Attention reads the pool through the Hopper ragged
-  paged-attention kernel on CUDA.
+  paged-attention kernel on CUDA; SSM layers keep point-state pages (conv
+  left-context + SSD state at page boundaries) and run every prefill and
+  extend chunk through the Hopper SSD chunk-scan kernel.
 - :class:`MemoryPlane`  — the MRM control plane: weights live in a region
   of the chosen tier; KV pages go through :class:`PagedKVManager` (DCM
   retention = expected session lifetime, capacity pressure resolved by an
@@ -20,10 +22,11 @@ the matched pages in the memory plane and splices the same compute pages
 into the borrower's page table (zero copy bytes); extend resumes from the
 boundary. Prompts always run unpadded (DESIGN.md §5).
 
-What this slice leaves out raises ``NotImplementedError`` naming its
+What the port leaves out raises ``NotImplementedError`` naming its
 ROADMAP item: the ring-cache path (``paged_kernel=False``, A.10), fault
-injection (``inject_rber``, A.12) and the TPU autotuner's launch overrides
-(``kernel_block_q/kv``, ``kernel_buffers``).
+injection (``inject_rber``, A.12), the TPU autotuner's launch overrides
+(``kernel_block_q/kv``, ``kernel_buffers``) and, in the model, the MLA,
+hybrid, MoE and frontend stacks (A.7-A.9).
 """
 from __future__ import annotations
 
@@ -149,9 +152,18 @@ class _SlotPrefill:
     key: Optional[np.ndarray]     # radix key
     match: Optional[PrefixMatch]
     done: int = 0   # tokens of `tokens` already in the slot's pages
+    grid: Optional[int] = None    # point stacks: page-aligned chunking
 
     def next_chunk(self, slot: int, prefix_len: int) -> PrefillChunk:
         end = min(self.done + self.chunk, len(self.tokens))
+        if self.grid:
+            # point-state stacks chunk on the position-space page grid:
+            # every chunk reads one state page and writes one, and warm,
+            # cold and migrated runs cut prompts identically (a seeded
+            # resumption stays bit-equal to a cold run, DESIGN.md §8)
+            nxt = ((prefix_len + self.done) // self.grid + 1) * self.grid \
+                - prefix_len
+            end = min(end, max(nxt, self.done + 1))
         return PrefillChunk(slot, self.req.request_id,
                             self.tokens[self.done:end],
                             offset=prefix_len + self.done,
@@ -267,10 +279,12 @@ class ComputeBackend:
         tbl = self._tensor(page_table)[None]
         if ck.first:
             logits, self.paged_caches = tfm.paged_prefill(
-                self.cfg, self.params, {"tokens": toks}, self.paged_caches, tbl)
+                self.cfg, self.params, {"tokens": toks}, self.paged_caches, tbl,
+                page_tokens=self.page_tokens)
         else:
             logits, self.paged_caches = tfm.paged_extend(
-                self.cfg, self.params, self.paged_caches, toks, ck.offset, tbl)
+                self.cfg, self.params, self.paged_caches, toks, ck.offset, tbl,
+                page_tokens=self.page_tokens)
         self.model_calls += 1
         if not ck.last:
             return None
@@ -300,7 +314,7 @@ class ComputeBackend:
         logits, self.paged_caches = tfm.paged_decode(
             self.cfg, self.params, self.paged_caches,
             self._tensor(self.last_tokens), pos, self._tensor(page_tables),
-            active=self._tensor(act, torch.bool))
+            active=self._tensor(act, torch.bool), page_tokens=self.page_tokens)
         self.model_calls += 1
         if before is not None:
             # paged clobbering guard: a decode round writes exactly one row
@@ -625,7 +639,10 @@ class ServeEngine:
         tokens used). The matched pages ARE the compute state: the hit is a
         page-table splice; only a sub-page tail copies (page rows,
         DESIGN.md §9). At least one token always runs — the last
-        position's logits seed the first sampled token."""
+        position's logits seed the first sampled token. Point stacks have
+        no mid-page state, so tails stay off and resumption is clamped down
+        to the last page boundary (the state page there holds the exact
+        boundary state)."""
         plen = self.backend.prefix_len()
         L = toks.shape[0]
         if match.tokens == 0:
@@ -635,6 +652,9 @@ class ServeEngine:
                 else 0)
         reuse = max(0, min(match.tokens + tail - plen, L - 1))
         tail = max(0, min(tail, reuse - (match.tokens - plen)))
+        if self.snapshot_kind == "point":
+            pt = self.ecfg.page_tokens
+            reuse = max(0, ((plen + reuse) // pt) * pt - plen)
         return (reuse, tail) if reuse else (0, 0)
 
     def _admit(self, slot: int, req: Request) -> _SlotPrefill:
@@ -646,8 +666,9 @@ class ServeEngine:
         if ecfg.prefix_caching:
             match = self.kv.match_prefix(key)
             reuse, tail = self._compute_reuse(match, toks)
+        grid = ecfg.page_tokens if self.snapshot_kind == "point" else None
         st = _SlotPrefill(req=req, tokens=toks, chunk=chunk,
-                          key=key, match=match, done=reuse)
+                          key=key, match=match, done=reuse, grid=grid)
         if reuse:
             self.prefix_compute_hits += 1
             self.prefill_tokens_skipped += reuse

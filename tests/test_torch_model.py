@@ -1,6 +1,6 @@
 """The port's model (repro_torch.models) against the JAX package on
 reduced qwen3-8b: the weight bridge keeps every parameter path, shape and
-dtype; init_params draws the same shapes and scales; and the paged
+dtype (of reduced mamba2-2.7b too); init_params draws the same shapes and scales; and the paged
 prefill -> extend -> decode logits and page pools agree in fp32 within
 1e-5 of the reference's largest magnitude."""
 import jax
@@ -23,14 +23,19 @@ def _walk(tree, path):
     return tree
 
 
-def _np_params(dtype):
-    cfg = jax_reduced(jax_get_config("qwen3-8b"), dtype=dtype, param_dtype=dtype)
+def _np_params(dtype, arch="qwen3-8b"):
+    cfg = jax_reduced(jax_get_config(arch), dtype=dtype, param_dtype=dtype)
     return cfg, jax.tree.map(np.asarray, jtfm.init_params(cfg, jax.random.key(0)))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_params_from_numpy_keeps_paths_shapes_dtypes(dtype):
-    _, tree = _np_params(dtype)
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("qwen3-8b", "float32", id="float32"),
+    pytest.param("qwen3-8b", "bfloat16", id="bfloat16"),
+    pytest.param("mamba2-2.7b", "float32", id="mamba2-2.7b-float32"),
+    pytest.param("mamba2-2.7b", "bfloat16", id="mamba2-2.7b-bfloat16"),
+])
+def test_params_from_numpy_keeps_paths_shapes_dtypes(arch, dtype):
+    _, tree = _np_params(dtype, arch)
     port = params_from_numpy(tree, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     assert len(flat) == len(tree_leaves(port))
