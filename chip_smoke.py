@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 Hopper card: both serving paths, dense attention (qwen3-8b) and SSM
-(mamba2-2.7b), and their two kernels.
+(mamba2-2.7b), the training path (gemma-2b), and their five kernels.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
 Phases, each printing one JSON line:
 
 1. device      — requires CUDA; the card's name and power limit (nvidia-smi);
-2. build       — builds both kernels (ragged paged attention, SSD chunk
-                 scan) from ``src/`` with one nvcc each, started together,
-                 into ``build/repro_torch_kernels/``;
+2. build       — builds the three kernel libraries (ragged paged
+                 attention, SSD chunk scan, flash attention) from ``src/``
+                 with one nvcc each, started together, into
+                 ``build/repro_torch_kernels/``;
 3. kernel      — holds ragged paged attention against its plain PyTorch
                  version at the qwen3-8b path's geometry (fp32 and bf16,
                  decode / sparse table / extend / softcap / window), checks
@@ -24,21 +25,49 @@ Phases, each printing one JSON line:
                  checks that two launches are bit-equal; times the kernel
                  and its plain version (no single PyTorch call computes an
                  SSD scan);
-5. reduced     — the models' paged prefill / extend / decode on reduced fp32
+5. flash       — holds the flash-attention forward and both backward
+                 kernels against their plain versions and against autograd
+                 through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
+                 Hkv 1, D 256) and qwen3-8b (H 32, Hkv 8, D 128) geometries,
+                 with softcap 50 + window 64 and at a ragged S 1000, fp32 and
+                 bf16; checks that repeat launches are bit-equal; times the
+                 three kernels, their plain versions and
+                 ``scaled_dot_product_attention`` (forward, forward +
+                 backward) at the gemma-2b shape;
+6. reduced     — the models' paged prefill / extend / decode on reduced fp32
                  qwen3-8b and mamba2-2.7b, CUDA (the kernels) against the
                  CPU path (the plain versions), same weights; and on CUDA a
                  reduced mamba2 engine's prefix hit decodes the tokens of a
                  cold start;
-6. serve       — qwen3-8b at full width and depth (36 layers, d 4096,
+7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
+                 (wq and wk conditioned, see ``conditioned``): three AdamW
+                 steps on CUDA (the flash kernels) against the CPU (the
+                 plain versions) within 1e-4, and on CUDA a save / restore
+                 / resume that continues the loss;
+8. full-width grads — gemma-2b at full width, 6 layers, fp32, 1 x 512
+                 tokens: loss and every gradient leaf on CUDA (the kernels)
+                 against the CPU (the plain versions) within 1e-4, with
+                 conditioned wq/wk; for both initialisations it records the
+                 plain versions against themselves on weights moved by half
+                 an ulp, and attention alone at that initialisation's
+                 scales, kernels and plain versions against float64;
+9. serve       — qwen3-8b at full width and depth (36 layers, d 4096,
                  vocab 151936, bf16, random weights from a seed) through
                  ``ServeEngine`` with ``launch/serve.py``'s defaults, 8 requests
                  x 16 new tokens behind a shared 32-token head; every layer
                  of every model call launched the attention kernel;
-7. ssm serve   — the same for mamba2-2.7b (64 layers, d 2560, 80 SSD heads
+10. ssm serve  — the same for mamba2-2.7b (64 layers, d 2560, 80 SSD heads
                  of 64, state 128, vocab 50280, bf16), after the qwen3-8b
                  engine is freed; every layer of every prefill chunk
                  launched the SSD kernel, and a prefix hit resumed from a
-                 state page with zero copy bytes.
+                 state page with zero copy bytes;
+11. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
+                 8/1 at head_dim 256, GeGLU d_ff 16384, vocab 256000, bf16,
+                 ``remat="full"``, AdamW) through ``repro_torch.launch.train``:
+                 4 steps of 4 x 2048 tokens, after the serving engines are
+                 freed; every layer of every step launched the forward
+                 kernel twice (forward and recompute) and each backward
+                 kernel once.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches, error and
 times, the card's ``nvidia-smi`` name/power line, and last
@@ -354,6 +383,172 @@ def ssd_kernel_phase(torch, sops, sref, smi):
     return max_err, timing
 
 
+# ---------------------------------------------------------------------------
+# Flash attention at the training path's geometry
+# ---------------------------------------------------------------------------
+
+FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
+    ("gemma2b", 4, 2048, 8, 1, 256, None, None),
+    ("qwen3_8b", 1, 2048, 32, 8, 128, None, None),
+    ("cap50_window64", 2, 1024, 8, 1, 256, 50.0, 64),
+    ("ragged_S1000", 2, 1000, 8, 1, 256, None, None),
+]
+FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
+# fp32: the reference's own flash tolerances — values 3e-5 atol and rtol
+# (tests/test_kernels.py), gradients 2e-4 (tests/test_models.py); sums run
+# in another order. bf16: 2e-2 of the largest |value| (the reference's bf16
+# flash tolerance, taken relative: gradients summed over 2048 rows grow
+# well past 1, and each side rounds its own fp32 result to bf16).
+
+
+def flash_case(torch, B, S, H, Hkv, D, dtype, seed=0):
+    """q, k, v and the output cotangent dO, ~N(0, 1), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)]
+    return [torch.randn(s, generator=g).to(dtype).cuda() for s in shapes]
+
+
+def flash_work(B, S, H, Hkv, D, item):
+    """(flops, bytes) of each kernel's function on these causal shapes:
+    every input read once, every output written once; per visible (query,
+    key) pair (S(S+1)/2 per head) and head, 2*D flops per matrix product —
+    the forward does two (QKᵀ, PV), the dK/dV kernel four (QKᵀ, dO Vᵀ,
+    Pᵀ dO, dSᵀ Q), the dQ kernel three (QKᵀ, dO Vᵀ, dS K)."""
+    pairs = S * (S + 1) // 2 * B * H
+    q = B * S * H * D * item
+    kv = B * S * Hkv * D * item
+    stats = B * H * S * 4
+    return {"flash_attention_fwd": (4 * D * pairs, 2 * q + 2 * kv + 2 * stats),
+            "flash_attention_bwd_dkdv": (8 * D * pairs, 2 * q + 4 * kv + 3 * stats),
+            "flash_attention_bwd_dq": (6 * D * pairs, 3 * q + 2 * kv + 3 * stats)}
+
+
+def _bound(flops, n_bytes, dtype_name):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_kernel_phase(torch, fops, fref, smi):
+    """The forward and both backward kernels against their plain versions
+    (``flash_fwd_ref``/``flash_bwd_ref``) and against autograd through the
+    naive oracle ``attention_ref``; repeat launches bit-equal; times."""
+    errs = {}
+    max_err = {k: {"float32": 0.0, "bfloat16": 0.0}
+               for k in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                         "flash_attention_bwd_dq")}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for name, B, S, H, Hkv, D, cap, window in FA_CASES:
+            q, k, v, do = flash_case(torch, B, S, H, Hkv, D, dtype)
+            kw = dict(scale=D ** -0.5, cap=cap, window=window)
+            out, m, l = fops.flash_attention_fwd(q, k, v, **kw)
+            grads = fops.flash_attention_bwd(q, k, v, out, m, l, do, **kw)
+            out2, m2, l2 = fops.flash_attention_fwd(q, k, v, **kw)
+            grads2 = fops.flash_attention_bwd(q, k, v, out, m, l, do, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in
+                       zip((out, m, l, *grads), (out2, m2, l2, *grads2))):
+                raise AssertionError(f"flash {dname}/{name}: two launches on "
+                                     "the same input differ")
+            want, wm, wl = fref.flash_fwd_ref(q, k, v, **kw)
+            delta = (do.float() * want.float()).sum(-1).transpose(1, 2).contiguous()
+            plain = fref.flash_bwd_ref(q, k, v, wm, wl, do, delta, **kw)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            naive = fref.attention_ref(*leaves, **kw)
+            auto = torch.autograd.grad(naive, leaves, do)
+            naive = naive.detach()
+            del leaves
+            got = {"out": out, "dq": grads[0], "dk": grads[1], "dv": grads[2]}
+            refs = {"plain": {"out": want, "dq": plain[0], "dk": plain[1], "dv": plain[2]},
+                    "autograd": {"out": naive, "dq": auto[0], "dk": auto[1], "dv": auto[2]}}
+            case_err = {}
+            for oracle, ref in refs.items():
+                for key, a in got.items():
+                    b = ref[key].float()
+                    err = (a.float() - b).abs().max().item()
+                    if dname == "float32":
+                        tol = FA_TOL[dname]["values" if key == "out" else "grads"]
+                        ok = torch.allclose(a, b, atol=tol, rtol=tol)
+                        case_err[f"{oracle}/{key}"] = err
+                    else:
+                        rel = err / b.abs().max().item()
+                        ok = rel <= FA_TOL[dname]
+                        case_err[f"{oracle}/{key}"] = {"abs": err, "relative": rel}
+                    if not ok:
+                        raise AssertionError(f"flash {dname}/{name}: {key} vs "
+                                             f"{oracle} error {case_err[f'{oracle}/{key}']}")
+                    kern = {"out": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                            "dk": "flash_attention_bwd_dkdv",
+                            "dv": "flash_attention_bwd_dkdv"}[key]
+                    if oracle == "plain":
+                        max_err[kern][dname] = max(max_err[kern][dname], err)
+            errs[f"{dname}/{name}"] = case_err
+            del q, k, v, do, out, m, l, grads, out2, m2, l2, grads2, want, plain, auto
+    emit("kernel_check", kernel="flash_attention", max_abs_err=errs,
+         tolerance={"float32": FA_TOL["float32"],
+                    "bfloat16": "2e-2 of the largest |value|"},
+         launches_bit_equal=True)
+
+    # -- times at the gemma-2b training shape, bf16 ----------------------
+    _, B, S, H, Hkv, D, _, _ = FA_CASES[0]
+    q, k, v, do = flash_case(torch, B, S, H, Hkv, D, torch.bfloat16, seed=7)
+    scale = D ** -0.5
+    out, m, l = fops.flash_attention_fwd(q, k, v, scale=scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    bwd_args = (q, k, v, m, l, do, delta)
+    plain_bwd_ms = time_ms(torch, lambda: fref.flash_bwd_ref(*bwd_args, scale=scale),
+                           flush, iters=5, warmup=1)
+    timing = {
+        "flash_attention_fwd": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_fwd(q, k, v, scale=scale), flush),
+            "plain_ms": time_ms(torch, lambda: fref.flash_fwd_ref(q, k, v, scale=scale),
+                                flush, iters=5, warmup=1)},
+        "flash_attention_bwd_dkdv": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dkdv(*bwd_args, scale=scale),
+                          flush),
+            "plain_ms": plain_bwd_ms},
+        "flash_attention_bwd_dq": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dq(*bwd_args, scale=scale),
+                          flush),
+            "plain_ms": plain_bwd_ms},
+    }
+    for name, (flops, n_bytes) in flash_work(B, S, H, Hkv, D, 2).items():
+        bound_ms, bound_by = _bound(flops, n_bytes, "bfloat16")
+        timing[name].update(flops=flops, bytes=n_bytes, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+    # the yardstick, never called by the port: one SDPA call (B, H, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+
+    def lib_fwd():
+        return sdpa(qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = sdpa(*leaves, is_causal=True, scale=scale, enable_gqa=True)
+        return torch.autograd.grad(o, leaves, dos)
+
+    from torch.profiler import ProfilerActivity, profile
+    backends = {}
+    for name, fn in (("forward", lib_fwd), ("forward_backward", lib_fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        backends[name] = sorted({e.key[:90] for e in prof.key_averages()
+                                 if e.self_device_time_total > 0})
+    timing["flash_attention_fwd"]["library_ms"] = time_ms(torch, lib_fwd, flush)
+    sdpa_fwd_bwd_ms = time_ms(torch, lib_fwd_bwd, flush, iters=20)
+    emit("kernel_time", kernel="flash_attention", dtype="bfloat16",
+         shape=[B, S, H, Hkv, D], causal=True, nvidia_smi=smi, kernels=timing,
+         sdpa_forward_ms=timing["flash_attention_fwd"]["library_ms"],
+         sdpa_forward_backward_ms=sdpa_fwd_bwd_ms, sdpa_device_kernels=backends,
+         flash_backward_both_ms=timing["flash_attention_bwd_dkdv"]["ms"]
+         + timing["flash_attention_bwd_dq"]["ms"])
+    return max_err, timing
+
+
 def reduced_model_phase(torch, cfg_mod, tfm, param):
     """The model's paged steps on a reduced fp32 qwen3-8b: CUDA (the
     kernel) against the CPU path (the plain version), same weights."""
@@ -592,18 +787,248 @@ def ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
     return n
 
 
+# ---------------------------------------------------------------------------
+# Training: reduced gemma-2b CUDA vs CPU, then full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=6)
+
+
+def conditioned(tree, d_model):
+    """``tree`` with every wq and wk rescaled to std d_model^-1/2. The
+    reference's fan-in rule gives gemma-2b's single KV head wk std 1, so
+    its attention scores have std ~sqrt(head_dim) and saturate; there fp32
+    gradients are ill-conditioned and two sound implementations (the same
+    function summed in another order) part after Adam's first step. With
+    scores of std ~1 they agree to ~1e-6."""
+    if isinstance(tree, dict):
+        return {k: v * (d_model ** -0.5 / float(v.float().std()))
+                if k in ("wq", "wk") else conditioned(v, d_model)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(conditioned(v, d_model) for v in tree)
+    return tree
+
+
+def reduced_train_phase(torch, cfg_mod, tfm, param, optim, train, data, ckpt):
+    """Reduced gemma-2b (head_dim 256, fp32, conditioned wq/wk): three AdamW
+    steps on CUDA (the flash kernels) against the CPU (the plain versions),
+    same weights and batches, losses and grad norms within 1e-4 relative
+    (the tolerance of tests/test_torch_train.py against JAX); then on CUDA,
+    a checkpoint after step 2 restored into fresh tensors continues steps
+    2-3 with the losses of the run that saved it."""
+    import math
+    import tempfile
+    cfg = cfg_mod.reduced(cfg_mod.get_config("gemma-2b"), dtype="float32",
+                          param_dtype="float32", head_dim=256)
+    weights = conditioned(tfm.init_params(cfg, 0, device="cpu"), cfg.d_model)
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=128, global_batch=2,
+                                                       seed=3))
+    batches = [pipe.batch_at(s) for s in range(4)]
+    oc = optim.OptConfig(**TRAIN_OPT)
+
+    def run(dev, steps, state=None, start=0, save_to=None):
+        if state is None:
+            p = param.tree_map(lambda a: a.to(dev, copy=True), weights)
+            state = (p, optim.init_opt_state(p))
+        p, o = state
+        step = train.make_train_step(cfg, oc)
+        out = []
+        for s in range(start, steps):
+            p, o, m = step(p, o, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batches[s].items()})
+            out.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            if save_to is not None and s == 1:
+                ckpt.save(save_to, 2, (p, o), extra={"step": 2})
+        return out
+
+    cuda, cpu = run("cuda", 3), run("cpu", 3)
+    rows = []
+    for s in range(3):
+        for key in ("loss", "grad_norm"):
+            want = cpu[s][key]
+            rel = abs(cuda[s][key] - want) / abs(want)
+            rows.append({"step": s, "metric": key, "cuda": cuda[s][key],
+                         "cpu": want, "rel_err": rel})
+            if not (rel <= 1e-4 and math.isfinite(cuda[s][key])):
+                raise AssertionError(f"reduced train on CUDA vs CPU: {rows[-1]}")
+
+    with tempfile.TemporaryDirectory() as d:
+        saved = run("cuda", 4, save_to=d)
+        fresh = tfm.init_params(cfg, 1, device="cuda")
+        state, extra = ckpt.restore(d, 2, (fresh, optim.init_opt_state(fresh)))
+        resumed = run("cuda", 4, state=state, start=extra["step"])
+    resume_err = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                  for a, b in zip(resumed, saved[2:])]
+    if not (len(resumed) == 2 and max(resume_err) <= 1e-5):
+        raise AssertionError(f"resumed losses {resumed} vs {saved[2:]}")
+    emit("reduced_train_check", arch="gemma-2b", head_dim=256, dtype="float32",
+         steps=rows, tolerance="1e-4 relative",
+         resume_relative_loss_err=resume_err, resume_tolerance=1e-5)
+
+
+def full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops, fref):
+    """gemma-2b at full width, 6 layers, fp32, one batch of 1 x 512 tokens:
+    loss and gradients through the flash kernels (CUDA) against the plain
+    versions (CPU), at the reference's initialisation and with conditioned
+    wq/wk. With conditioned weights CUDA must agree with the CPU within
+    1e-5 relative in the loss, 1e-4 relative in the grad norm and 1e-4 of
+    each leaf's largest |grad| (the tolerances of
+    tests/test_torch_train.py). Recorded, not held, for each
+    initialisation: the plain versions against themselves with every
+    weight moved by about half an fp32 ulp (how far two sound fp32 runs
+    may part), and attention alone at that initialisation's q/k/v scales
+    (B 1, S 512, H 8, Hkv 1, D 256): the kernels and the plain versions in
+    fp32, each against the plain versions in float64."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg_mod.get_config("gemma-2b"), num_layers=6,
+                              dtype="float32", param_dtype="float32")
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=512, global_batch=1,
+                                                       seed=0))
+    batch = pipe.batch_at(0)
+    base = tfm.init_params(cfg, 0, device="cpu")
+
+    def grads(w, dev):
+        t0 = time.perf_counter()
+        loss, _, g = train.step.value_and_grad(
+            cfg, param.tree_map(lambda a: a.to(dev), w) if dev == "cuda" else w,
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        g = [x.cpu() for x in param.tree_leaves(g)]
+        return {"loss": float(loss), "grad_norm": float(optim.global_norm(g)),
+                "leaves": g, "s": time.perf_counter() - t0}
+
+    def rel(x, y):
+        return float((x.double() - y.double()).abs().max() / y.double().abs().max())
+
+    def diff(a, b):
+        return {"loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grad_norm_rel": abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"],
+                "leaf_rel_max": max(rel(x, y) for x, y in zip(a["leaves"], b["leaves"]))}
+
+    def half_ulp(w):
+        g = torch.Generator().manual_seed(1)
+        return param.tree_map(lambda a: (a.double() * (1 + 2.0 ** -24 * torch.randn(
+            a.shape, generator=g, dtype=torch.float64))).float(), w)
+
+    def first(tree, key):
+        if isinstance(tree, dict):
+            if key in tree:
+                return tree[key]
+            tree = list(tree.values())
+        if isinstance(tree, (tuple, list)):
+            found = [first(t, key) for t in tree]
+            return next((f for f in found if f is not None), None)
+        return None
+
+    def attention_alone(w):
+        """(kernels, plain) fp32 errors against float64, out/dq/dk/dv."""
+        g = torch.Generator(device="cuda").manual_seed(0)
+        std = {n: cfg.d_model ** 0.5 * float(first(w, n).std()) for n in ("wq", "wk", "wv")}
+        shapes = {"wq": (1, 512, 8, 256), "wk": (1, 512, 1, 256), "wv": (1, 512, 1, 256)}
+        x = [torch.randn(shapes[n], generator=g, device="cuda", dtype=torch.float64)
+             * std[n] for n in ("wq", "wk", "wv")]
+        do = torch.randn(shapes["wq"], generator=g, device="cuda", dtype=torch.float64)
+        kw = dict(scale=256 ** -0.5, cap=None, window=None)
+
+        def plain(q, k, v, dout):
+            out, m, l = fref.flash_fwd_ref(q, k, v, **kw)
+            delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+            return (out, *fref.flash_bwd_ref(q, k, v, m, l, dout, delta, **kw))
+
+        def kernels(q, k, v, dout):
+            out, m, l = fops.flash_attention_fwd(q, k, v, **kw)
+            return (out, *fops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw))
+
+        truth = plain(*x, do)
+        f32 = [t.float().contiguous() for t in (*x, do)]
+        return {"score_std": std["wq"] * std["wk"],
+                **{name: dict(zip(("out", "dq", "dk", "dv"),
+                                  (rel(a, b) for a, b in zip(fn(*f32), truth))))
+                   for name, fn in (("kernels_vs_f64", kernels), ("plain_vs_f64", plain))}}
+
+    readings = {}
+    for init, w in (("reference", base), ("conditioned", conditioned(base, cfg.d_model))):
+        kern, plain, nudged = grads(w, "cuda"), grads(w, "cpu"), grads(half_ulp(w), "cpu")
+        torch.cuda.empty_cache()
+        readings[init] = {
+            "kernels": {k: kern[k] for k in ("loss", "grad_norm", "s")},
+            "plain": {k: plain[k] for k in ("loss", "grad_norm", "s")},
+            "plain_half_ulp": {k: nudged[k] for k in ("loss", "grad_norm", "s")},
+            "kernels_vs_plain": diff(kern, plain),
+            "half_ulp_vs_plain": diff(nudged, plain),
+            "attention_alone": attention_alone(w)}
+    kvp = readings["conditioned"]["kernels_vs_plain"]
+    checks = {"loss": kvp["loss_rel"] <= 1e-5, "grad_norm": kvp["grad_norm_rel"] <= 1e-4,
+              "leaves": kvp["leaf_rel_max"] <= 1e-4}
+    emit("full_width_grad_check", arch="gemma-2b", layers=cfg.num_layers,
+         d_model=cfg.d_model, head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, batch=1, seq_len=512, readings=readings, checks=checks)
+    _require("full-width gemma-2b gradients, kernels vs plain", checks)
+
+
+def train_phase(torch, cfg_mod, train_cli, kernels, smi):
+    """gemma-2b at full width and depth through ``launch/train.py``: 4 steps
+    of 4 x 2048 tokens, bf16, remat "full", no checkpoint (the state is
+    30 GB). Every layer of every step launched the forward kernel twice
+    (forward and recompute) and each backward kernel once."""
+    import math
+    cfg = cfg_mod.get_config("gemma-2b")      # nothing reduced
+    B, S, steps = 4, 2048, 4
+    argv = ["--arch", "gemma-2b", "--seq-len", str(S), "--batch", str(B),
+            "--steps", str(steps), "--warmup", "1", "--remat", "full",
+            "--log-every", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hist = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    L = cfg.num_layers
+    step_s = [h["dt_s"] for h in hist]
+    steady_s = statistics.median(step_s[1:])
+    checks = {
+        "full_width": (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+                       cfg.remat)
+        == (18, 2048, 8, 1, 256, 16384, 256000, "bfloat16", "full"),
+        "steps_logged": [h["step"] for h in hist] == list(range(steps)),
+        "finite": all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                      for h in hist),
+        "step0_loss_near_ln_vocab": abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 3.0,
+        "fwd_launches": launches["flash_attention_fwd"] == 2 * L * steps,
+        "dkdv_launches": launches["flash_attention_bwd_dkdv"] == L * steps,
+        "dq_launches": launches["flash_attention_bwd_dq"] == L * steps,
+    }
+    emit("train", nvidia_smi=smi, arch=cfg.name, layers=L, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, remat=cfg.remat, batch=B,
+         seq_len=S, history=hist, wall_s=wall_s, step_s=step_s,
+         steady_step_ms=steady_s * 1e3, tokens_per_s=B * S / steady_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         kernel_launches=launches, checks=checks)
+    _require("gemma-2b train", checks)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    from repro_torch import ckpt
     from repro_torch import configs as cfg_mod
+    from repro_torch import data, optim, train
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import param
     from repro_torch.models import transformer as tfm
 
@@ -616,24 +1041,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _build.build_all([ops.SOURCE, sops.SOURCE])
-    emit("build", kernels=["ragged_paged_attention", "ssd_scan"],
+    libs = _build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE])
+    emit("build", kernels=["ragged_paged_attention", "ssd_scan", "flash_attention"],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          build_s=time.perf_counter() - t0)
 
-    kernels = [ops.ragged_paged_attention, sops.ssd_scan]
+    flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
+             fops.flash_attention_bwd_dq]
+    kernels = [ops.ragged_paged_attention, sops.ssd_scan, *flash]
     max_err, timing = kernel_phase(torch, ops, ref, smi)
     ssd_err, ssd_timing = ssd_kernel_phase(torch, sops, sref, smi)
+    fa_err, fa_timing = flash_kernel_phase(torch, fops, fref, smi)
     reduced_model_phase(torch, cfg_mod, tfm, param)
     reduced_ssm_phase(torch, cfg_mod, tfm, param, serve)
+    reduced_train_phase(torch, cfg_mod, tfm, param, optim, train, data, ckpt)
+    full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops,
+                          fref)
     rpa_launches = serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi)
     gc.collect()                     # the qwen3-8b engine and weights
     torch.cuda.empty_cache()
     ssd_launches = ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels,
                                    smi)
+    fa_launches = train_phase(torch, cfg_mod, train_cli, kernels, smi)
 
     dec, ssd = timing["decode"], ssd_timing["S32"]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": str(ops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/paged_attention/kernel.py:225",
@@ -647,7 +1079,19 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_err["bfloat16"],
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    replaces = {"flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:74",
+                "flash_attention_bwd_dkdv": "src/repro/models/attention.py:126",
+                "flash_attention_bwd_dq": "src/repro/models/attention.py:126"}
+    for fn in flash:
+        name, t = fn.__name__, fa_timing[fn.__name__]
+        entries.append({
+            "name": name, "route": "cuda", "source": str(fops.SOURCE.relative_to(ROOT)),
+            "replaces": replaces[name], "launches": fa_launches[name],
+            "max_abs_err": fa_err[name]["bfloat16"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

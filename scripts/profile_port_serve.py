@@ -9,7 +9,8 @@ random weights from a seed — serves its 8 requests once to warm up, then
 serves them again under ``torch.profiler`` and prints one JSON line: wall
 time, device-busy time and idle share, time per model call, launch and
 host-sync counts, and the top operators by device time and by host time,
-with the card's name and power limit. Needs one card.
+with the card's name and power limit. The device-busy time is the union of
+the device activities' intervals (``device_busy_s``). Needs one card.
 """
 from __future__ import annotations
 
@@ -26,6 +27,28 @@ sys.path.insert(0, str(ROOT / "src"))
 REQUESTS = 8
 TOP = 15
 ARCHS = ("qwen3-8b", "mamba2-2.7b")
+
+
+def device_busy_s(prof) -> float:
+    """Seconds in which the card ran anything (kernel, copy, memset): the
+    union of the device activities' intervals. Summing ``key_averages()``'
+    self device times would count a kernel twice — once under its own name
+    and once under the operator (or autograd node) that launched it."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("Command Buffer"))
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    return busy_us / 1e6
 
 
 def profile_arch(arch: str, smi: str) -> None:
@@ -62,7 +85,7 @@ def profile_arch(arch: str, smi: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    busy_s = device_busy_s(prof)
     by_dev = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     by_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
 
@@ -76,8 +99,8 @@ def profile_arch(arch: str, smi: str) -> None:
         "requests": REQUESTS, "tokens_generated": rep["tokens_generated"],
         "model_calls": eng.backend.model_calls, "wall_s": wall,
         "ms_per_model_call": wall * 1e3 / eng.backend.model_calls,
-        "device_busy_s": dev_us / 1e6,
-        "device_idle_share": 1 - dev_us / 1e6 / wall,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1 - busy_s / wall,
         "calls": {e.key: e.count for e in events
                   if e.key in ("cudaLaunchKernel", "aten::nonzero",
                                "aten::item", "aten::_local_scalar_dense")},

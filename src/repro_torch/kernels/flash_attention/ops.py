@@ -1,0 +1,219 @@
+"""Wrappers for the Hopper flash-attention kernels
+(``csrc/flash_attention.cu``) and the autograd function over them.
+
+- ``flash_attention_fwd`` -> (out, m, l): the forward kernel;
+- ``flash_attention_bwd_dkdv`` / ``flash_attention_bwd_dq``: the two
+  backward kernels;
+- ``flash_attention_bwd`` -> (dq, dk, dv): delta = rowsum(dO * O) in plain
+  torch (as the JAX package computes it in jnp), then both kernels;
+- ``FlashAttention``: ``torch.autograd.Function`` saving q, k, v, out, m, l.
+
+Tensors on the CPU take the plain versions (``ref.flash_fwd_ref``,
+``ref.flash_bwd_ref``), chunked by ``q_chunk``/``kv_chunk`` as the JAX
+package chunks; the kernels use tiles of their own. A CUDA tensor launches
+the kernel or raises — there is no fallback. Each kernel wrapper adds one to
+its ``.launches`` where it launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import Optional
+
+import torch
+
+from .ref import flash_bwd_ref, flash_fwd_ref
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_GRID_YZ = 65535
+
+
+def _library():
+    from repro_torch.kernels import _build
+    lib = _build.load(str(SOURCE))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [I, I, I, I, I, I, F, I, F, I, I, I, P]   # B Sq Skv H Hkv D scale cap.. win.. dtype stream
+    for name, n_ptr in (("flash_attention_fwd_launch", 6),
+                        ("flash_attention_bwd_dkdv_launch", 9),
+                        ("flash_attention_bwd_dq_launch", 8)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [P] * n_ptr + dims
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, extra=()):
+    """Device, dtype, shape and contiguity checks of the kernels' inputs;
+    ``extra`` are (name, tensor, shape, dtype) of the backward's."""
+    if k.shape[-1] != v.shape[-1]:
+        raise NotImplementedError(
+            f"the flash kernels take one head dim for K and V, got "
+            f"{k.shape[-1]} and {v.shape[-1]}; Dk != Dv comes with MLA "
+            "(ROADMAP A.7)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("q (B, Sq, H, D), k and v (B, Skv, Hkv, D)")
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    if Sq == 0 or Skv == 0 or B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
+        raise ValueError(f"empty or oversized attention: B {B}, Sq {Sq}, "
+                         f"Skv {Skv}, Hkv {Hkv}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: all "
+                        "float32 or all bfloat16")
+    named = [("q", q, None, None), ("k", k, None, None), ("v", v, None, None),
+             *extra]
+    for name, t, shape, dtype in named:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _common(q, k, scale, cap, window):
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    return (B, Sq, Skv, H, Hkv, D, float(scale), cap is not None,
+            float(cap or 0.0), window is not None, int(window or 0),
+            _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _cuda_only(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"no {name} for device {t.device}")
+
+
+def flash_attention_fwd(q, k, v, *, scale: float, cap: Optional[float] = None,
+                        window: Optional[int] = None, q_chunk: int = 512,
+                        kv_chunk: int = 1024):
+    """Causal attention forward. q (B, Sq, H, D), k/v (B, Skv, Hkv, D).
+    Returns (out (B, Sq, H, D) in q's dtype, m (B, H, Sq), l (B, H, Sq)
+    fp32). ``q_chunk``/``kv_chunk`` chunk the plain version only."""
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, scale=scale, cap=cap, window=window,
+                             q_chunk=q_chunk, kv_chunk=kv_chunk)
+    _cuda_only("flash_attention_fwd", q)
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        rc = _library().flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), *_common(q, k, scale, cap, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+    flash_attention_fwd.launches += 1
+    return out, m, l
+
+
+def _bwd_extra(q, k, m, l, dout, delta):
+    B, Sq, H, _ = q.shape
+    stat = (B, H, Sq)
+    return [("m", m, stat, torch.float32), ("l", l, stat, torch.float32),
+            ("delta", delta, stat, torch.float32),
+            ("dout", dout, tuple(q.shape), q.dtype)]
+
+
+def flash_attention_bwd_dkdv(q, k, v, m, l, dout, delta, *, scale: float,
+                             cap: Optional[float] = None,
+                             window: Optional[int] = None):
+    """dK and dV of causal attention (the dK/dV kernel). m, l, delta (B, H,
+    Sq) fp32; dout like q. Returns (dk, dv) in k's dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
+                             window=window)[1:]
+    _cuda_only("flash_attention_bwd_dkdv", q)
+    _check(q, k, v, _bwd_extra(q, k, m, l, dout, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _library().flash_attention_bwd_dkdv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_common(q, k, scale, cap, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkdv launch failed: CUDA error {rc}")
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, m, l, dout, delta, *, scale: float,
+                           cap: Optional[float] = None,
+                           window: Optional[int] = None):
+    """dQ of causal attention (the dQ kernel). Returns dq in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
+                             window=window)[0]
+    _cuda_only("flash_attention_bwd_dq", q)
+    _check(q, k, v, _bwd_extra(q, k, m, l, dout, delta))
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _library().flash_attention_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_common(q, k, scale, cap, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {rc}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, m, l, dout, *, scale: float,
+                        cap: Optional[float] = None,
+                        window: Optional[int] = None, q_chunk: int = 512,
+                        kv_chunk: int = 1024):
+    """(dq, dk, dv) of ``flash_attention_fwd``'s output given its cotangent
+    ``dout``. delta = rowsum(dO * O) in fp32 (B, H, Sq); on CUDA the dK/dV
+    kernel and the dQ kernel then launch once each."""
+    acc = torch.promote_types(out.dtype, torch.float32)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
+                             window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    kw = dict(scale=scale, cap=cap, window=window)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, m, l, dout, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, m, l, dout, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal flash attention with the flash backward: saves q, k, v, the
+    output and the per-row (m, l), and recomputes the probabilities in the
+    backward (``_flash_chunk_fwd``/``_flash_chunk_bwd`` of the JAX
+    package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, cap, window, q_chunk, kv_chunk):
+        out, m, l = flash_attention_fwd(q, k, v, scale=scale, cap=cap,
+                                        window=window, q_chunk=q_chunk,
+                                        kv_chunk=kv_chunk)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.opts = dict(scale=scale, cap=cap, window=window, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l,
+                                         dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None

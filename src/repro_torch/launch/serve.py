@@ -6,8 +6,9 @@ report as ``repro.launch.serve``, plus ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 8 --max-new 16 --shared-prefix-tokens 32
 
-``--arch`` takes the architectures the port registers: ``qwen3-8b`` (dense
-attention on KV pages) and ``mamba2-2.7b`` (SSM on point-state pages).
+``--arch`` takes the architectures the port registers: ``qwen3-8b`` and
+``gemma-2b`` (dense attention on KV pages) and ``mamba2-2.7b`` (SSM on
+point-state pages).
 What the port does not serve yet raises ``NotImplementedError`` naming its
 ROADMAP item: other architectures (A.7-A.9), ``--replicas > 1`` (the
 cluster, A.11), ``--paged-kernel off`` (the ring path, A.10),
@@ -63,7 +64,7 @@ def build_engine(args, cfg, full, params, device=None):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="architecture: qwen3-8b or mamba2-2.7b (the ones "
+                    help="architecture: qwen3-8b, gemma-2b or mamba2-2.7b (the ones "
                          "the port registers)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "

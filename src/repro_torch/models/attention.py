@@ -1,12 +1,21 @@
-"""Self-attention on the paged compute plane (DESIGN.md §10).
+"""Self-attention: the paged compute plane (DESIGN.md §10) and the
+training path.
 
-The port of ``repro.models.attention`` carries the parameter definitions
-and the paged branch of ``attention_sublayer``: QKV projection, qk-norm,
-RoPE, the in-place KV write into the page pool, ragged paged attention and
-the output projection. Where the JAX package attends through the rows form
-``paged_attention_rows``, the port calls the ragged form, which launches
-the Hopper kernel on CUDA tensors. The ring-cache path (chunked flash
-prefill, ring decode) is not ported yet (ROADMAP A.10).
+The port of ``repro.models.attention`` carries the parameter definitions,
+``chunked_attention`` with its flash backward, and two modes of
+``attention_sublayer``: QKV projection, qk-norm, RoPE, then either
+
+- ``train``: ``chunked_attention`` over the whole unpadded sequence — on
+  CUDA one ``FlashAttention`` call (the Hopper forward kernel, and the
+  dK/dV and dQ kernels in the backward), on the CPU the plain versions
+  chunked as the JAX package chunks; or
+- ``extend``/``decode`` on KV pages: the in-place KV write into the page
+  pool and ragged paged attention (where the JAX package attends through
+  the rows form ``paged_attention_rows``, the port calls the ragged form,
+  which launches the Hopper kernel on CUDA tensors);
+
+and the output projection. The ring-cache modes (``prefill`` and the ring
+``extend``/``decode``) are not ported yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import (interleave_kv,
                                                  ragged_paged_attention,
                                                  write_tokens_to_pages)
@@ -55,6 +65,22 @@ def _project(x, w):
 
 
 # ---------------------------------------------------------------------------
+# Chunked flash attention (training)
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q, k, v, *, window: Optional[int] = None,
+                      cap: Optional[float] = None, scale: float,
+                      q_chunk: int = 512, kv_chunk: int = 1024):
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, Dv) in v's
+    dtype. Causal self-attention over an unpadded sequence (query i at
+    position i), differentiable with the flash backward. ``q_chunk`` and
+    ``kv_chunk`` chunk the CPU path as ``repro.models.attention`` chunks;
+    the kernels tile on their own."""
+    return FlashAttention.apply(q, k, v, scale, cap, window, q_chunk, kv_chunk)
+
+
+# ---------------------------------------------------------------------------
 # Full attention sublayer (projections + rope + attention + out-proj)
 # ---------------------------------------------------------------------------
 
@@ -67,20 +93,22 @@ def attention_sublayer(
     positions,
     window: Optional[int],
     cache: Optional[dict] = None,
-    mode: str = "extend",  # extend | decode
+    mode: str = "extend",  # train | extend | decode
     cur_pos=None,
     decode_active=None,   # (B,) bool: rows whose pages the decode may write
     page_table=None,      # (B, W) int32: paged compute plane (DESIGN.md §10)
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (attn_out (B, S, d), {"kv_pages": pool}).
+    """x: (B, S, d) -> (attn_out (B, S, d), {"kv_pages": pool} or None).
 
-    ``cache["kv_pages"]`` (P, ps, 2*Hkv, D) is written IN PLACE (JAX
+    Train: causal attention over the whole sequence at ``positions``
+    0..S-1, no cache. ``cache["kv_pages"]`` (P, ps, 2*Hkv, D) is written IN PLACE (JAX
     returns a new pool; here the returned dict holds the same tensor).
     Extend: every row of the batch is one sequence whose S queries sit at
     ``positions`` (offset .. offset+S-1). Decode: B sequences of one query
     at ``cur_pos`` (B,); inactive rows carry all-null tables, attend to
     nothing (output 0, discarded by the caller) and write nothing."""
-    if cache is None or "kv_pages" not in cache or page_table is None:
+    if mode != "train" and (cache is None or "kv_pages" not in cache
+                            or page_table is None):
         raise NotImplementedError("the ring-cache attention path is not "
                                   "ported yet (ROADMAP A.10)")
     B, S, d = x.shape
@@ -92,6 +120,13 @@ def attention_sublayer(
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    Hq, hd = q.shape[2], q.shape[3]
+    if mode == "train":
+        out = chunked_attention(q, k, v, window=window, cap=cfg.attn_softcap,
+                                scale=_q_scale(cfg), q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+        out = out.reshape(B * S, Hq * v.shape[3]) @ p["wo"].reshape(-1, d)
+        return out.reshape(B, S, d), None
 
     dev = x.device
     kv_pages = cache["kv_pages"]
@@ -111,7 +146,6 @@ def attention_sublayer(
         raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.10)")
     write_tokens_to_pages(kv_pages, interleave_kv(k, v), pos2d, page_table,
                           active=act)
-    Hq, hd = q.shape[2], q.shape[3]
     out = ragged_paged_attention(
         q.reshape(B * S, Hq, hd), kv_pages, page_table.to(torch.int32).contiguous(),
         cu, kv_lens, scale=_q_scale(cfg), cap=cfg.attn_softcap, window=window,

@@ -160,7 +160,7 @@ def count_params(defs) -> int:
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a, order="C")   # keeps 0-d leaves (the optimizer step) 0-d
     if a.dtype.name == "bfloat16":
         # numpy has no bfloat16 of its own (JAX hands out ml_dtypes'):
         # carry the bits across as uint16 and reinterpret them

@@ -1,28 +1,37 @@
-"""Model assembly for dense attention and SSM stacks on the paged compute
-plane: embeddings -> layer groups -> head.
+"""Model assembly for dense attention and SSM stacks: embeddings -> layer
+groups -> head, on the paged compute plane and for training.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
 layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
 group's repeats — so the JAX tree carries across leaf for leaf. Where JAX
-runs a group under ``lax.scan``, the port loops over the layer index: layer
-``i`` takes ``leaf[i]`` of every parameter and writes ``pool[i]`` of its
-page pool in place.
+runs a group under ``lax.scan``, the port loops over the layers: every
+stacked leaf is ``unbind``-ed once per call (under autograd, indexing
+``leaf[i]`` per layer would build a zero tensor of the whole stack in each
+layer's backward), and layer ``i`` writes ``pool[i]`` of its page pool in
+place.
 
-Entry points (paged mode only; DESIGN.md §10):
+Entry points:
+- ``loss_and_metrics`` — the training forward with seq-chunked CE (each
+  chunk recomputed in the backward, so only one chunk's (B, chunk, V)
+  logits are alive at a time) and z-loss; layers rematerialised per
+  ``cfg.remat``;
 - ``paged_prefill`` — the first chunk of a prompt at positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
 - ``paged_decode``  — one batched decode step at per-row positions.
 Attention layers compute on KV pages, SSM layers on point-state pages
 (conv left-context + SSD state at page boundaries); a point stack's
 prefill or extend chunk must lie within one page. MLA, hybrid, MoE,
-frontends and the ring-cache path raise ``NotImplementedError`` naming
-their ROADMAP item.
+frontends, SSM training and the ring-cache path raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -175,30 +184,126 @@ def _embed_inputs(cfg: ModelConfig, params, batch: dict):
     return embed(cfg, params["embed"], batch["tokens"]), 0
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked-repeats tree: ``leaf[i]`` of every leaf."""
+def _layers(tree, repeats: int) -> list:
+    """The ``repeats`` layers of a stacked-repeats tree: one ``unbind(0)``
+    per leaf, so layer ``i`` holds a view ``leaf[i]`` of every leaf."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, repeats) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(repeats)]
+    return list(tree.unbind(0))
 
 
-def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
-                 cur_pos=None, decode_active=None, page_table=None,
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep matrix-product outputs, recompute the rest
+    (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"full"`` recomputes it in the
+    backward (``torch.utils.checkpoint``), ``"dots"`` keeps its matrix
+    products, ``"none"`` keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_matmuls))
+    raise ValueError(f"remat {cfg.remat!r}")
+
+
+def _train_block(cfg: ModelConfig, spec: LayerSpec, positions, x, p):
+    return apply_block(cfg, spec, p, x, positions=positions, cache=None,
+                       mode="train")[0]
+
+
+def apply_groups(cfg: ModelConfig, params, x, *, positions, caches=None,
+                 mode, cur_pos=None, decode_active=None, page_table=None,
                  page_tokens=None):
-    """Run every layer in order. Each layer's pool slice ``pool[i]`` is a
-    contiguous view written in place, so the caches come back as the same
-    tensors. Returns (x, caches)."""
+    """Run every layer in order. Paged modes: each layer's pool slice
+    ``pool[i]`` is a contiguous view written in place, so the caches come
+    back as the same tensors. Train (no caches): each layer runs under
+    ``cfg.remat`` (``_remat``). Returns (x, caches)."""
     for gi, g in enumerate(cfg.scan_groups()):
-        gp, gc = params["groups"][gi], caches[gi]
+        gp = params["groups"][gi]
+        layer_params = [_layers(gp[u], g.repeats) for u in range(len(g.unit))]
+        if mode == "train":
+            blocks = [_remat(cfg, functools.partial(_train_block, cfg, spec, positions))
+                      for spec in g.unit]
+            for i in range(g.repeats):
+                for u, block in enumerate(blocks):
+                    x = block(x, layer_params[u][i])
+            continue
+        layer_caches = [_layers(caches[gi][u], g.repeats)
+                        for u in range(len(g.unit))]
         for i in range(g.repeats):
             for u, spec in enumerate(g.unit):
-                x, _ = apply_block(cfg, spec, _layer(gp[u], i), x,
-                                   positions=positions, cache=_layer(gc[u], i),
-                                   mode=mode, cur_pos=cur_pos,
+                x, _ = apply_block(cfg, spec, layer_params[u][i], x,
+                                   positions=positions,
+                                   cache=layer_caches[u][i], mode=mode,
+                                   cur_pos=cur_pos,
                                    decode_active=decode_active,
                                    page_table=page_table,
                                    page_tokens=page_tokens)
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(cfg: ModelConfig, xs, labels, embed_params):
+    """(sum of masked NLL, label count, sum of masked lse²) of one chunk;
+    labels < 0 are masked."""
+    logits = lm_logits(cfg, embed_params, xs).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum(), (torch.square(lse) * mask).sum()
+
+
+def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
+                     loss_chunk: int = 1024) -> Tuple[torch.Tensor, dict]:
+    """Causal-LM loss. batch: tokens (B, S) int, labels (B, S) int with
+    -100 = masked. Returns (loss, {"ce", "z_loss", "aux", "tokens"}) with
+    loss = ce + 1e-4 * mean(lse²) + aux, as the JAX package computes it."""
+    _check_ported(cfg)
+    if snapshot_kind(cfg) == "point":
+        raise NotImplementedError(f"{cfg.name}: SSM training (the ring-cache "
+                                  "SSM modes, ROADMAP A.10) is not ported yet")
+    x, prefix = _embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = apply_groups(cfg, params, x, positions=positions, mode="train")
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
+    labels = batch["labels"]
+
+    S = x.shape[1]
+    chunk = min(loss_chunk, S)
+    while S % chunk:
+        chunk //= 2
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    tot, cnt, zsum = zero, zero, zero
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c, z = checkpoint(functools.partial(_ce_chunk, cfg), x[:, sl],
+                             labels[:, sl], params["embed"],
+                             use_reentrant=False)
+        tot, cnt, zsum = tot + t, cnt + c, zsum + z
+    cnt = torch.clamp(cnt, min=1.0)
+    ce = tot / cnt
+    z_loss = 1e-4 * zsum / cnt
+    aux = zero
+    loss = ce + z_loss + aux
+    return loss, {"ce": ce, "z_loss": z_loss, "aux": aux, "tokens": cnt}
 
 
 def supports_extend(cfg: ModelConfig) -> bool:

@@ -1,8 +1,9 @@
 """The port's model (repro_torch.models) against the JAX package on
 reduced qwen3-8b: the weight bridge keeps every parameter path, shape and
-dtype (of reduced mamba2-2.7b too); init_params draws the same shapes and scales; and the paged
+dtype (of reduced mamba2-2.7b and gemma-2b too); init_params draws the same shapes and scales; and the paged
 prefill -> extend -> decode logits and page pools agree in fp32 within
-1e-5 of the reference's largest magnitude."""
+1e-5 of the reference's largest magnitude — on reduced gemma-2b too
+(GeGLU, tied and scaled embeddings, MQA at head_dim 256)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +24,8 @@ def _walk(tree, path):
     return tree
 
 
-def _np_params(dtype, arch="qwen3-8b"):
-    cfg = jax_reduced(jax_get_config(arch), dtype=dtype, param_dtype=dtype)
+def _np_params(dtype, arch="qwen3-8b", **kw):
+    cfg = jax_reduced(jax_get_config(arch), dtype=dtype, param_dtype=dtype, **kw)
     return cfg, jax.tree.map(np.asarray, jtfm.init_params(cfg, jax.random.key(0)))
 
 
@@ -33,6 +34,7 @@ def _np_params(dtype, arch="qwen3-8b"):
     pytest.param("qwen3-8b", "bfloat16", id="bfloat16"),
     pytest.param("mamba2-2.7b", "float32", id="mamba2-2.7b-float32"),
     pytest.param("mamba2-2.7b", "bfloat16", id="mamba2-2.7b-bfloat16"),
+    pytest.param("gemma-2b", "bfloat16", id="gemma-2b-bfloat16"),
 ])
 def test_params_from_numpy_keeps_paths_shapes_dtypes(arch, dtype):
     _, tree = _np_params(dtype, arch)
@@ -82,9 +84,9 @@ def _paged_run(tfm, cfg, params, caches, to, tbl1, tbl2, act):
     return out, caches
 
 
-def test_paged_steps_match_jax():
-    jcfg, tree = _np_params("float32")
-    cfg = reduced(get_config("qwen3-8b"), dtype="float32", param_dtype="float32")
+def _check_paged_steps(arch, **kw):
+    jcfg, tree = _np_params("float32", arch, **kw)
+    cfg = reduced(get_config(arch), dtype="float32", param_dtype="float32", **kw)
     rng = np.random.default_rng(11)
     toks = rng.integers(2, cfg.vocab_size, (1, 13)).astype(np.int32)
     ext = rng.integers(2, cfg.vocab_size, (1, 6)).astype(np.int32)
@@ -119,3 +121,13 @@ def test_paged_steps_match_jax():
     # the inactive row wrote nothing: pages 4, 5 and the null page stay zero
     for t in tree_leaves(tc):
         assert not t[:, 0].any() and not t[:, 4:].any()
+
+
+def test_paged_steps_match_jax():
+    _check_paged_steps("qwen3-8b")
+
+
+def test_gemma_2b_paged_steps_match_jax():
+    """The logits gate on gemma-2b serving: GeGLU, tied and scaled
+    embeddings, one KV head at head_dim 256."""
+    _check_paged_steps("gemma-2b", head_dim=256)
