@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
 2. build       — builds the three kernel libraries (ragged paged
                  attention, SSD chunk scan, flash attention) from ``src/``
                  with one nvcc each, started together, into
-                 ``build/repro_torch_kernels/``;
+                 ``build/repro_torch_kernels/``; prints ptxas's registers,
+                 shared memory and spills per kernel and the HGMMA/HMMA
+                 count of each (``cuobjdump -sass``), and requires HGMMA in
+                 every instantiation of the bf16 forward and dK/dV kernels;
 3. kernel      — holds ragged paged attention against its plain PyTorch
                  version at the qwen3-8b path's geometry (fp32 and bf16,
                  decode / sparse table / extend / softcap / window), checks
@@ -29,11 +32,14 @@ Phases, each printing one JSON line:
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
                  Hkv 1, D 256) and qwen3-8b (H 32, Hkv 8, D 128) geometries,
-                 with softcap 50 + window 64 and at a ragged S 1000, fp32 and
+                 with softcap 50 + window 64, at a ragged S 1000, at D 64
+                 and D 32, at S 17 (below a tile) and with G = 3, fp32 and
                  bf16; checks that repeat launches are bit-equal; times the
-                 three kernels, their plain versions and
+                 three kernels (achieved TFLOP/s, share of the bound; dK/dV
+                 also without its row split), their plain versions and
                  ``scaled_dot_product_attention`` (forward, forward +
-                 backward) at the gemma-2b shape;
+                 backward) at the gemma-2b shape, and records the bf16
+                 kernels and plain versions against float64 there;
 6. reduced     — the models' paged prefill / extend / decode on reduced fp32
                  qwen3-8b and mamba2-2.7b, CUDA (the kernels) against the
                  CPU path (the plain versions), same weights; and on CUDA a
@@ -392,7 +398,14 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
     ("qwen3_8b", 1, 2048, 32, 8, 128, None, None),
     ("cap50_window64", 2, 1024, 8, 1, 256, 50.0, 64),
     ("ragged_S1000", 2, 1000, 8, 1, 256, None, None),
+    ("d64_gqa4_S300", 2, 300, 8, 2, 64, None, None),
+    ("d32_mha_cap30", 2, 300, 4, 4, 32, 30.0, None),
+    ("S17", 2, 17, 8, 1, 256, None, None),
+    ("d64_S17_window5", 1, 17, 8, 1, 64, None, 5),
+    ("d128_G3_S200", 2, 200, 6, 2, 128, None, None),   # G does not divide 64
 ]
+# the redesigned bf16 kernels (and the dK/dV kernel's partial sums)
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel")
 FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
 # fp32: the reference's own flash tolerances — values 3e-5 atol and rtol
 # (tests/test_kernels.py), gradients 2e-4 (tests/test_models.py); sums run
@@ -540,13 +553,48 @@ def flash_kernel_phase(torch, fops, fref, smi):
                                  if e.self_device_time_total > 0})
     timing["flash_attention_fwd"]["library_ms"] = time_ms(torch, lib_fwd, flush)
     sdpa_fwd_bwd_ms = time_ms(torch, lib_fwd_bwd, flush, iters=20)
+    # the dK/dV kernel without its row split: one unit per key tile
+    no_split_ms = time_ms(torch, lambda: fops._dkdv_launch(*bwd_args, scale, None, None,
+                                                           unit_rows=None), flush)
+    for t in timing.values():
+        t["tflops"] = t["flops"] / t["ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+    sdpa_fwd_ms = timing["flash_attention_fwd"]["library_ms"]
     emit("kernel_time", kernel="flash_attention", dtype="bfloat16",
          shape=[B, S, H, Hkv, D], causal=True, nvidia_smi=smi, kernels=timing,
-         sdpa_forward_ms=timing["flash_attention_fwd"]["library_ms"],
-         sdpa_forward_backward_ms=sdpa_fwd_bwd_ms, sdpa_device_kernels=backends,
+         sdpa_forward_ms=sdpa_fwd_ms, sdpa_forward_backward_ms=sdpa_fwd_bwd_ms,
+         sdpa_backward_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms, sdpa_device_kernels=backends,
          flash_backward_both_ms=timing["flash_attention_bwd_dkdv"]["ms"]
-         + timing["flash_attention_bwd_dq"]["ms"])
+         + timing["flash_attention_bwd_dq"]["ms"],
+         dkdv_unit_rows=fops.DKDV_UNIT_ROWS, dkdv_no_split_ms=no_split_ms)
+    emit("kernel_accuracy", kernel="flash_attention", shape=[B, S, H, Hkv, D],
+         **bf16_vs_float64(torch, fops, fref, q, k, v, do, scale))
     return max_err, timing
+
+
+def bf16_vs_float64(torch, fops, fref, q, k, v, do, scale):
+    """Recorded, not held: the bf16 kernels and the bf16 plain versions,
+    each against the plain versions in float64 on the same (bf16) inputs —
+    out, dQ, dK, dV as the largest error over the largest |value|. The
+    tensor-core kernels round P (and dS) to bf16 before their products; the
+    plain versions round P before P.V only."""
+    def run_kernels():
+        out, m, l = fops.flash_attention_fwd(q, k, v, scale=scale)
+        return (out, *fops.flash_attention_bwd(q, k, v, out, m, l, do, scale=scale))
+
+    def run_plain(*x):
+        out, m, l = fref.flash_fwd_ref(*x[:3], scale=scale)
+        delta = (x[3].to(torch.promote_types(out.dtype, torch.float32)) * out).sum(-1)
+        delta = delta.transpose(1, 2).contiguous()
+        return (out, *fref.flash_bwd_ref(*x[:3], m, l, x[3], delta, scale=scale))
+
+    truth = run_plain(*(t.double() for t in (q, k, v, do)))
+    res = {}
+    for name, got in (("kernels", run_kernels()), ("plain", run_plain(q, k, v, do))):
+        res[f"{name}_vs_float64"] = {
+            key: float((a.double() - b).abs().max() / b.abs().max())
+            for key, a, b in zip(("out", "dq", "dk", "dv"), got, truth)}
+    return res
 
 
 def reduced_model_phase(torch, cfg_mod, tfm, param):
@@ -1041,10 +1089,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE])
+    sources = [ops.SOURCE, sops.SOURCE, fops.SOURCE]
+    libs = _build.build_all(sources)
+    build_s = time.perf_counter() - t0
+    reports = {src.stem: _build.report(src) for src in sources}
+    tensor_core = {name: {"hgmma": r.get("hgmma"), "hmma": r.get("hmma")}
+                   for name, r in reports["flash_attention"].items()
+                   if name.startswith(TC_KERNELS)}
     emit("build", kernels=["ragged_paged_attention", "ssd_scan", "flash_attention"],
-         libraries=[str(lib.relative_to(ROOT)) for lib in libs],
-         build_s=time.perf_counter() - t0)
+         libraries=[str(lib.relative_to(ROOT)) for lib in libs], build_s=build_s,
+         ptxas=reports, tensor_core_instructions=tensor_core)
+    # where the toolkit has cuobjdump, each bf16 instantiation of the
+    # redesigned kernels must run its products on the tensor cores
+    _require("tensor-core build", {
+        name: counts["hgmma"] is None or counts["hgmma"] > 0
+        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 8})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]

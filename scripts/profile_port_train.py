@@ -8,7 +8,7 @@ gemma-2b at full width and depth (18 layers, d 2048, MQA 8/1 at head_dim
 synthetic pipeline, random weights from a seed: one warm-up step, then 2
 steps under ``torch.profiler``. Prints one JSON line: wall time per step,
 device-busy time and idle share, kernel launches per step, the device time
-of the three flash-attention kernels and of the matrix products
+of the flash-attention kernels and of the matrix products
 (``aten::mm``/``aten::bmm``/``aten::addmm``), and the top device kernels
 by time, with the card's name and power limit. The device-busy time is
 the union of the device activities' intervals (``profile_port_serve.
@@ -26,7 +26,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH, BATCH, SEQ, STEPS, TOP = "gemma-2b", 4, 2048, 2, 15
-FLASH = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# bf16 training runs the tensor-core forward and dK/dV kernels (dK/dV with
+# its partial-sum launch) and the dQ kernel
+FLASH = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dkdv_reduce_kernel",
+         "flash_bwd_dq_kernel")
 MATMULS = ("aten::mm", "aten::bmm", "aten::addmm")
 
 

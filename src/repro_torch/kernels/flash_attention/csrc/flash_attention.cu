@@ -14,46 +14,61 @@
 // softcapped, then masked (causal, optional sliding window, keys < Skv),
 // as in attention.py:75-82. Softmax state, sums and gradients in fp32;
 // q/k/v/out/dq/dk/dv in the input dtype (fp32 or bf16). A row with no
-// visible key has l == 0, stored as 1, and outputs 0.
+// visible key has l == 0, stored as 1, and outputs 0. Rows are the
+// flattened (token, group-head) axis of one KV head, so the G query heads
+// that share a KV head share every staged K/V tile. Nothing uses atomics
+// and every sum runs in a fixed order: two launches on the same inputs
+// give the same bits.
 //
-// Three kernels, all launched on the caller's stream:
+// What bounds it: operations. At the gemma-2b training shape (B 4, S 2048,
+// H 8, Hkv 1, D 256, causal) the forward does 4*B*H*D*S(S+1)/2 = 68.7
+// GFLOP on ~0.05 GB: ~1,400 flop per byte, far above the card's balance
+// point, so its bound is the bf16 tensor-core rate (989 TFLOP/s).
+//
+// bf16 runs on the tensor cores (the "tensor-core kernels" section):
+// - forward: warp-specialised, one producer warpgroup (Q by cp.async, K/V
+//   by TMA into 128-byte-swizzled tiles, 2 stages under mbarriers) and two
+//   consumer warpgroups of 64 rows each, S and P.V by wgmma with P as a
+//   register operand, fp32 online softmax in the accumulator registers;
+// - dK/dV: warp-specialised the same way; keys on the M axis, K/V
+//   resident, Q/dO streamed by TMA; one consumer warpgroup accumulates dV,
+//   the other dK, both by wgmma with the probabilities as a register
+//   operand; the causal row range of a key tile is cut into units at fixed
+//   row boundaries (ops.dkdv_plan) whose fp32 partials a second launch sums
+//   in row order.
+// fp32 keeps the first FMA kernels on the CUDA cores (below): they carry
+// every fp32 parity check (kernel 3e-5 / 2e-4, reduced training 1e-4, the
+// full-width gradient check), which TF32 tensor cores (10-bit mantissas)
+// could not meet. The dQ kernel is the FMA kernel in both dtypes.
+//
+// FMA kernels (fp32; dQ also in bf16):
 // - forward: one CTA of 128 threads per (batch, KV head, tile of 32
-//   (token, group-head) rows flattened token-major), so the G query heads
-//   that share a KV head share every K/V tile the CTA stages. The CTA
-//   walks only the 64-key tiles in its rows' causal/window range, keeps
-//   (m, l, acc) in registers and writes out, m and l (B, H, Sq).
+//   rows); it walks only the 64-key tiles in its rows' causal/window range,
+//   keeps (m, l, acc) in registers and writes out, m and l (B, H, Sq).
 // - backward dK/dV: one CTA of 256 threads per (batch, KV head, 32-key
-//   tile); it loops over the (token, group-head) rows that see those keys,
-//   32 at a time, recomputes P = exp(s - m) / l, and accumulates
-//   dV += Pᵀ dO and dK += dSᵀ Q in registers. No atomics.
+//   tile); it loops over the rows that see those keys, 32 at a time,
+//   recomputes P = exp(s - m) / l, and accumulates dV += Pᵀ dO and
+//   dK += dSᵀ Q in registers.
 // - backward dQ: one CTA of 256 threads per (batch, KV head, 32-row tile);
 //   it loops over the 32-key tiles in range and accumulates dQ += dS K.
 // Both backward kernels read delta = rowsum(dO * O) (B, H, Sq), fp32,
 // computed by the caller. dS = P (dO Vᵀ - delta), times (1 - tanh²) under
-// a softcap (attention.py:153-156), times the scale. Every sum runs in a
-// fixed order, so two launches on the same inputs give the same bits.
+// a softcap (attention.py:153-156), times the scale. Every thread of an FMA
+// kernel holds a register tile (forward: 4 rows x 4 keys of scores and 4
+// rows x D/16 output columns; backward: 2x2 scores and an 8x4 (D 256) tile
+// of dK/dV or dQ), so each 16-byte shared-memory load feeds 4-16 FMAs.
 //
-// What bounds it: operations. At the gemma-2b training shape (B 4, S 2048,
-// H 8, Hkv 1, D 256, causal) the forward does 4*B*H*D*S(S+1)/2 = 68.7
-// GFLOP on 2*4*2048*8*256 + 2*4*2048*256 bytes (~0.05 GB): ~1,400 flop per
-// byte, far above the card's balance point, so its bound is the bf16
-// tensor-core rate. This first version runs every product as fp32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), so it cannot come near that bound; its
-// design keeps the CUDA cores, not shared memory, the limit: every thread
-// holds a register tile (forward: 4 rows x 4 keys of scores and 4 rows x
-// D/16 output columns; backward: 2x2 scores and an 8x4 (D 256) tile of
-// dK/dV or dQ), so each 16-byte shared-memory load feeds 4-16 FMAs. K/V
-// tiles are staged with 16-byte loads; rows are padded by 16 bytes so the
-// lanes of a warp reading different rows hit different banks. wgmma,
-// TMA/cp.async pipelining and splitting long causal ranges are later work.
-//
-// Shared memory at D 256: forward 108 KB (bf16: Q as fp32, K and V as
-// stored) or 174 KB (fp32); backward 142 KB (Q, dO, K, V as fp32). Above
-// 48 KB the launcher raises the kernel's dynamic shared-memory limit.
+// Shared memory at D 256: bf16 forward 193 KB (Q 64 KB, 2 stages of K and
+// V), bf16 dK/dV 210 KB (K, V, 2 stages of Q and dO, a 16 KB exchange);
+// FMA forward 174 KB (fp32), backward 142 KB. Above 48 KB the launcher
+// raises the kernel's dynamic shared-memory limit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -134,6 +149,13 @@ struct Params {
   int has_cap;
   float cap;
   int has_window, window;
+  const int* plan;     // bf16 dK/dV: units (key tile, row begin, row end, slot)
+  const int* reduce;   // bf16 dK/dV: split key tiles (key tile, first slot, count)
+  float* scratch;      // bf16 dK/dV: fp32 partials (slot, B, Hkv, 2, 64, D)
+  int n_units, n_reduce;
+  int rows_tma;                 // bf16: Q (and dO) rows by TMA (G divides the row tile)
+  CUtensorMap tmap_k, tmap_v;   // bf16: K and V for TMA (swizzled 64-key tiles)
+  CUtensorMap tmap_q, tmap_do;  // bf16: Q and dO rows of one KV head
 };
 
 // Post-cap score of one (query token t, key) pair, and whether the key is
@@ -617,6 +639,727 @@ flash_bwd_dq_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16: tensor-core kernels (wgmma)
+// ---------------------------------------------------------------------------
+//
+// Every product is a warpgroup matrix multiply (wgmma m64nNk16, bf16
+// inputs, fp32 sums in registers). Tiles in shared memory are stored as TMA
+// writes them with 128-byte swizzling (64-byte at D 32): atoms of R rows x
+// 64 columns (32 at D 32), the 16-byte piece c of row r at piece
+// c ^ (r * row bytes / 128 % pieces a row); rows that no TMA box can hold
+// (G not dividing the row tile) are copied into the same layout by
+// cp.async. A K-major descriptor (Q, K as the left/right of S = Q Kᵀ; K, V,
+// Q, dO in Sᵀ = K Qᵀ and dPᵀ = V dOᵀ) has stride offset 8 rows, and each
+// k-step moves its start 32 bytes within the atom; a tile read MN-major
+// (V, dO and Q as the right-hand side of P V, Pᵀ dO and dSᵀ Q) has leading
+// offset one atom (the next 64 columns) and stride offset 8 rows. Both
+// were checked against torch.matmul on the card. Writes by cp.async reach
+// wgmma, which reads through the async proxy, only after fence.proxy.async.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor (the caller ors in the swizzle mode);
+// offsets in bytes.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lead >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((stride >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the accumulators' order against the asynchronous wgmma statements:
+// the compiler may not move a read of x across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, st.shared) become
+// visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Waits until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Arrives on bar once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// TMA: one box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N)); }
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N)); }
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x, flushing subnormals
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float fast_log2(float x) {   // log2(x), flushing subnormals
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// wgmma m64nNk16, fp32 += bf16 x bf16. D holds N/2 registers a thread:
+// register r of thread t is row 16 (t / 32 % 4) + (t % 32) / 4 + 8 ((r >> 1) & 1),
+// column 8 (r >> 2) + 2 (t % 4) + (r & 1). wgmma_ss (S = Q Kᵀ and dPᵀ = V
+// dOᵀ, N = 64): A and B K-major from shared memory. wgmma_rs (P V, Pᵀ dO,
+// dSᵀ Q, N = D): A from registers in the accumulator's row layout (a[0]:
+// rows r, k 2(t%4)+{0,1}; a[1]: rows r+8; a[2], a[3]: the same at k+8), B
+// read MN-major. acc = 0 overwrites D.
+#define WG_ACC8(o) "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), \
+                   "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WG_ACC16(o) WG_ACC8(o), WG_ACC8(o + 8)
+#define WG_ACC32(o) WG_ACC16(o), WG_ACC16(o + 16)
+#define WG_ACC64(o) WG_ACC32(o), WG_ACC32(o + 32)
+#define WG_ACC128(o) WG_ACC64(o), WG_ACC64(o + 64)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_ACC16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_ACC128(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+constexpr int kTcThreads = 256;   // the two consumer warpgroups
+constexpr int kTcKeys = 64;       // keys per tile (forward) or per dK/dV unit
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A 64-row bf16 tile as TMA writes it: atoms of kAtom columns, 128-byte
+// rows swizzled in 8-row groups (64-byte rows at D 32).
+template <int D>
+struct SwizzledTile {
+  static constexpr int tile_bytes = kTcKeys * D * 2;
+  static constexpr int kAtom = D < 64 ? D : 64;
+  static constexpr int row_bytes = kAtom * 2;
+  static constexpr int atom_bytes = kTcKeys * row_bytes;
+  static constexpr uint64_t swizzle = D < 64 ? 2ull << 62 : 1ull << 62;   // wgmma B64 / B128
+};
+
+// Rows [r0, r0 + RT) of one KV head's flattened (token, group-head) axis of
+// a q-shaped tensor x into a swizzled tile at dst (atoms of RT rows), by
+// 16-byte cp.async from threads t of nt; rows at or past r_end read zeros.
+// For G that does not divide RT, where no TMA box holds the rows.
+template <int D, int RT>
+__device__ __forceinline__ void stage_rows_swizzled(unsigned char* dst, const __nv_bfloat16* x,
+                                                    const Params& p, int b, int hkv, int G,
+                                                    int r0, int r_end, int t, int nt) {
+  using T = SwizzledTile<D>;
+  constexpr int C = D / 8, pieces = T::kAtom / 8;   // 16-byte pieces a row, an atom row
+  for (int i = t; i < RT * C; i += nt) {
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < r_end;
+    const int sw = r * T::row_bytes / 128 % pieces;   // row r's swizzle
+    cp_async16(dst + c / pieces * RT * T::row_bytes + r * T::row_bytes + (c % pieces ^ sw) * 16,
+               ok ? x + q_offset(p, b, hkv, G, r0 + r, D) + c * 8 : x, ok);
+  }
+}
+
+template <int D>
+struct FwdTc : SwizzledTile<D> {
+  using T = SwizzledTile<D>;
+  static constexpr int kRows = 128;                       // 64 per consumer warpgroup
+  static constexpr int kThreads = 384;                    // 2 consumer warpgroups, 1 producer
+  static constexpr int q_bytes = kRows * D * 2;           // Q: atoms of 128 rows
+  static constexpr int bar_off = q_bytes + 4 * T::tile_bytes;   // Q, 2 stages of K and V
+  static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);  // + alignment
+};
+
+// Forward, bf16. One CTA per (batch, KV head, 128 flattened rows), the
+// heaviest causal tiles first. Warpgroup 2 is the producer: one thread
+// loads Q once and streams the K/V tiles by TMA through 2 stages, diagonal
+// tile first (CTAs that start together then read different tiles); a
+// stage's "full" mbarrier completes when its bytes land and its "empty"
+// one when both consumers are done with it. Consumer warpgroup w owns rows
+// 64w..64w+63: S = Q Kᵀ (m64n64, Q and K in shared memory), the online
+// softmax on S's registers (masking only on tiles that need it), P rounded
+// to bf16 (the plain version's rounding point) and used as the register A
+// operand of O += P V (m64nD, V read MN-major). O stays in registers (D/2 a
+// thread). The consumers take turns to issue S (two named barriers), so
+// one's softmax runs while the other's product holds the tensor cores.
+template <int D>
+__global__ void __launch_bounds__(FwdTc<D>::kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ Params p) {
+  using L = FwdTc<D>;
+  const int tile = gridDim.x - 1 - blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int G = p.H / p.Hkv;
+  const int row0 = tile * L::kRows;
+  const int row_end = min(row0 + L::kRows, p.Sq * G);
+  const int t_first = row0 / G, t_last = (row_end - 1) / G;
+  const int hi = min(p.Skv, t_last + 1);
+  const int lo = p.has_window ? max(0, t_first - p.window + 1) : 0;
+  const int n_tiles = hi > lo ? (hi - lo + kTcKeys - 1) / kTcKeys : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // swizzled tiles need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = smem + L::q_bytes;   // stage s: K at s * 2 * tile_bytes, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = q_full + 1;               // [stage]
+  uint64_t* empty = q_full + 3;              // [stage]
+  if (tid == 0) {
+    mbar_init(q_full, p.rows_tma ? 1 : 128);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kTcThreads);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<40>();
+    const int pt = tid - 256;
+    if (p.rows_tma) {
+      if (pt == 0) {
+        mbar_expect_tx(q_full, L::q_bytes);
+#pragma unroll
+        for (int a = 0; a < D / L::kAtom; ++a)
+          tma_load_4d(q_s + a * L::kRows * L::row_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
+                      b * p.Sq + row0 / G, q_full);
+      }
+    } else {
+      stage_rows_swizzled<D, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
+                                       G, row0, row_end, pt, 128);
+      mbar_arrive_cp_async(q_full);
+    }
+    if (pt == 0) {   // one thread drives the TMA ring
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * kTcKeys;
+        unsigned char* ks = kv_s + st * 2 * L::tile_bytes;
+        mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * L::tile_bytes);
+#pragma unroll
+        for (int a = 0; a < D / L::kAtom; ++a) {
+          tma_load_3d(ks + a * L::atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0,
+                      full + st);
+          tma_load_3d(ks + L::tile_bytes + a * L::atom_bytes, &p.tmap_v, a * L::kAtom, hkv,
+                      b * p.Skv + k0, full + st);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // this thread's two rows (h = 0, 1) and their softmax state
+  const int rw0 = row0 + 64 * wg;
+  const int t_min = rw0 / G;
+  int tpos[2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) tpos[h] = (rw0 + 16 * warp + lane / 4 + 8 * h) / G;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  const unsigned char* q_w = q_s + wg * 64 * L::row_bytes;   // rows 64 wg.. of the Q tile
+  mbar_wait(q_full, 0);
+  if (wg == 1 && n_tiles > 0) named_arrive(1, kTcThreads);   // warpgroup 0 issues first
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * kTcKeys;
+    mbar_wait(full + st, (it >> 1) & 1);
+    fence_async_smem();
+    const unsigned char* ks = kv_s + st * 2 * L::tile_bytes;
+    const unsigned char* vs = ks + L::tile_bytes;
+
+    float s[32];
+    named_sync(1 + wg, kTcThreads);   // this warpgroup's turn on the tensor cores
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;   // atom, column within it
+      wgmma_ss(s, gmma_desc(q_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
+                      | L::swizzle,
+               gmma_desc(ks + ka * L::atom_bytes + kw * 2, 16, 8 * L::row_bytes) | L::swizzle,
+               kk > 0);
+    }
+    wg_commit();
+    if (wg == 0 || it + 1 < n_tiles) named_arrive(2 - wg, kTcThreads);   // the other's turn
+    wg_wait_all();
+    fence_regs(s);
+
+    // online softmax on the registers; a row's 16 values a thread, 4 lanes a row
+    uint32_t vis = 0xffffffffu;
+    float mx[2] = {kNegInf, kNegInf};
+    float mult = kLog2e;   // s[r] * mult - m * log2(e) is the exponent in base 2
+    if (p.has_cap || !(p.scale > 0.f) || p.has_window || k0 + kTcKeys > p.Skv
+        || k0 + kTcKeys - 1 > t_min) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int h = (r >> 1) & 1;
+        float th;
+        float x = post_cap(p, s[r], &th);
+        if (!visible(p, tpos[h], k0 + (r >> 2) * 8 + 2 * (lane % 4) + (r & 1))) {
+          vis &= ~(1u << r);
+          x = kNegInf;
+        }
+        s[r] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    } else {   // no cap, every pair visible: scale the row max only
+#pragma unroll
+      for (int r = 0; r < 32; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], s[r]);
+      mx[0] *= p.scale;
+      mx[1] *= p.scale;
+      mult = p.scale * kLog2e;
+    }
+    float corr[2], ml[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = fast_exp2((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+      ml[h] = m_new * kLog2e;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int h = (r >> 1) & 1;
+      s[r] = (vis >> r) & 1u ? fast_exp2(fmaf(s[r], mult, -ml[h])) : 0.f;
+      l[h] += s[r];
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs(o, a[j], gmma_desc(vs + j * 16 * L::row_bytes, L::atom_bytes, 8 * L::row_bytes)
+                            | L::swizzle, 1);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
+    mbar_arrive(empty + st);   // this warpgroup is done with the stage
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int fr = rw0 + 16 * warp + lane / 4 + 8 * h;
+    if (fr >= row_end) continue;
+    const float denom = l[h] == 0.f ? 1.f : l[h];
+    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, D) + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * h] / denom, o[4 * i + 2 * h + 1] / denom);
+    if (lane % 4 == 0) {
+      const size_t so = stat_offset(p, b, hkv, G, fr);
+      p.m[so] = m[h];
+      p.l[so] = denom;
+    }
+  }
+}
+
+template <int D>
+struct DkdvTc : SwizzledTile<D> {
+  using T = SwizzledTile<D>;
+  static constexpr int kThreads = 384;                      // 2 consumer warpgroups, 1 producer
+  static constexpr int k_off = 0, v_off = T::tile_bytes;    // resident K, V
+  static constexpr int stage_off = 2 * T::tile_bytes;       // 2 stages of (Q, dO)
+  static constexpr int g_off = stage_off + 4 * T::tile_bytes;   // P (1 - tanh²) scale, fp32
+  static constexpr int stat_off = g_off + 64 * 64 * 4;      // 2 stages of m, l, delta
+  static constexpr int bar_off = stat_off + 2 * 3 * 64 * 4;
+  static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);   // + alignment
+};
+
+// dK/dV, bf16. One CTA per unit of the plan (ops.dkdv_plan: key tile, row
+// range, partial slot), per (batch, KV head). Keys sit on the M axis: K and
+// V stay resident while the CTA walks the unit's (token, group-head) rows
+// 64 at a time. Warpgroup 2 is the producer: one warp loads K/V once and
+// streams Q/dO (TMA; cp.async where G does not divide 64) and m, l, delta
+// (cp.async) through 2 stages under "full"/"empty" mbarriers. Warpgroup 0
+// computes Sᵀ = K Qᵀ, Pᵀ from it, and dV += Pᵀ dO with Pᵀ as the register
+// A operand; warpgroup 1 computes dPᵀ = V dOᵀ and, once warpgroup 0 has
+// left P (1 - tanh²) scale in shared memory (named barrier 3; barrier 4
+// hands the buffer back), dSᵀ and dK += dSᵀ Q the same way. So one
+// warpgroup's elementwise work runs under the other's products. Each holds
+// one D-wide accumulator (D/2 registers a thread). A unit that covers its
+// key tile alone writes dK/dV; the others write fp32 partials that
+// flash_bwd_dkdv_reduce_kernel sums in row order.
+template <int D>
+__global__ void __launch_bounds__(DkdvTc<D>::kThreads, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ Params p) {
+  using L = DkdvTc<D>;
+  const int* unit = p.plan + 4 * blockIdx.x;
+  const int k0 = unit[0] * kTcKeys, r_begin = unit[1], r_end = unit[2], slot = unit[3];
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int G = p.H / p.Hkv;
+  const bool tma = p.rows_tma;
+  const int n_blocks = r_end > r_begin ? (r_end - r_begin + 63) / 64 : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = smem + L::k_off;
+  unsigned char* v_s = smem + L::v_off;
+  float* g_s = reinterpret_cast<float*>(smem + L::g_off);
+  float* stat_s = reinterpret_cast<float*>(smem + L::stat_off);   // [stage][m, l, delta][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = kv_full + 1;    // [stage]
+  uint64_t* empty = kv_full + 3;   // [stage]
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full + st, tma ? 1 + 32 : 32);
+      mbar_init(empty + st, kTcThreads);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<40>();
+    if (warp != 0) return;
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+    const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
+    if (lane == 0 && n_blocks > 0) {
+      mbar_expect_tx(kv_full, 2 * L::tile_bytes);
+#pragma unroll
+      for (int a = 0; a < D / L::kAtom; ++a) {
+        tma_load_3d(k_s + a * L::atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0, kv_full);
+        tma_load_3d(v_s + a * L::atom_bytes, &p.tmap_v, a * L::kAtom, hkv, b * p.Skv + k0, kv_full);
+      }
+    }
+    for (int it = 0; it < n_blocks; ++it) {
+      const int st = it & 1, rb = r_begin + it * 64;
+      unsigned char* base = smem + L::stage_off + st * 2 * L::tile_bytes;
+      mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
+      if (tma) {
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * L::tile_bytes);
+#pragma unroll
+          for (int a = 0; a < D / L::kAtom; ++a) {
+            tma_load_4d(base + a * L::atom_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
+                        b * p.Sq + rb / G, full + st);
+            tma_load_4d(base + L::tile_bytes + a * L::atom_bytes, &p.tmap_do, a * L::kAtom, 0,
+                        hkv, b * p.Sq + rb / G, full + st);
+          }
+        }
+      } else {   // rows that no box holds
+        stage_rows_swizzled<D, kTcKeys>(base, q, p, b, hkv, G, rb, r_end, lane, 32);
+        stage_rows_swizzled<D, kTcKeys>(base + L::tile_bytes, dout, p, b, hkv, G, rb, r_end,
+                                        lane, 32);
+      }
+      for (int i = lane; i < 3 * 64; i += 32) {
+        const int which = i / 64, r = i % 64;
+        const bool ok = rb + r < r_end;
+        const float* src = which == 0 ? p.m : which == 1 ? p.l : p.delta;
+        cp_async4(stat_s + (st * 3 + which) * 64 + r,
+                  ok ? src + stat_offset(p, b, hkv, G, rb + r) : src, ok);
+      }
+      mbar_arrive_cp_async(full + st);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  float acc[D / 2];   // warpgroup 0: dV; warpgroup 1: dK (64 keys x D)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int kq = 16 * warp + lane / 4;   // this thread's keys: kq and kq + 8
+  if (n_blocks > 0) mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_blocks; ++it) {
+    const int rb = r_begin + it * 64, st = it & 1;
+    mbar_wait(full + st, (it >> 1) & 1);
+    fence_async_smem();
+    const unsigned char* q_st = smem + L::stage_off + st * 2 * L::tile_bytes;
+    const unsigned char* do_st = q_st + L::tile_bytes;
+    const float* m_s = stat_s + st * 3 * 64;
+    const float* l_s = m_s + 64;
+    const float* dl_s = l_s + 64;
+
+    // warpgroup 0: Sᵀ = K Qᵀ; warpgroup 1: dPᵀ = V dOᵀ (64 keys x 64 rows)
+    float s[32];
+    {
+      const unsigned char* a_s = wg == 0 ? k_s : v_s;
+      const unsigned char* b_s = wg == 0 ? q_st : do_st;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = kk * 16 / L::kAtom * L::atom_bytes + kk * 16 % L::kAtom * 2;
+        wgmma_ss(s, gmma_desc(a_s + off, 16, 8 * L::row_bytes) | L::swizzle,
+                    gmma_desc(b_s + off, 16, 8 * L::row_bytes) | L::swizzle, kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+    }
+    if (wg == 0) {
+      // P = exp(x - m) / l = 2^(x log2(e) - log2(e^m l)) on visible pairs (0
+      // elsewhere); this thread's rows (columns) c each serve two keys. The
+      // plain case folds the scale into the exponent.
+      if (it > 0) named_sync(4, kTcThreads);   // warpgroup 1 has read the last block's
+      auto probs = [&](auto general) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = i * 8 + 2 * (lane % 4) + e;   // row within the block
+            const float lse = fmaf(m_s[c], kLog2e, fast_log2(l_s[c]));   // log2(e^m l)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 4 * i + 2 * h + e;
+              float pr, gr;
+              if constexpr (decltype(general)::value) {
+                float th = 0.f;
+                const float x = post_cap(p, s[r], &th);
+                const bool ok = rb + c < r_end && visible(p, (rb + c) / G, k0 + kq + 8 * h);
+                pr = ok ? fast_exp2(fmaf(x, kLog2e, -lse)) : 0.f;
+                gr = pr * (p.has_cap ? 1.f - th * th : 1.f) * p.scale;
+              } else {
+                pr = fast_exp2(fmaf(s[r], p.scale * kLog2e, -lse));
+                gr = pr * p.scale;
+              }
+              g_s[r * 128 + wt] = gr;
+              s[r] = pr;
+            }
+          }
+      };
+      if (p.has_cap || !(p.scale > 0.f) || p.has_window || k0 + kTcKeys > p.Skv
+          || rb + 64 > r_end || k0 + kTcKeys - 1 > rb / G)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      named_arrive(3, kTcThreads);   // P (1 - tanh²) scale is in shared memory
+    } else {
+      named_sync(3, kTcThreads);
+#pragma unroll
+      for (int r = 0; r < 32; ++r)   // dSᵀ = P (dPᵀ - delta) (1 - tanh²) scale
+        s[r] = g_s[r * 128 + wt] * (s[r] - dl_s[(r >> 2) * 8 + 2 * (lane % 4) + (r & 1)]);
+      if (it + 1 < n_blocks) named_arrive(4, kTcThreads);   // the buffer is free again
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+    // warpgroup 0: dV += Pᵀ dO; warpgroup 1: dK += dSᵀ Q (B read MN-major)
+    const unsigned char* rhs = wg == 0 ? do_st : q_st;
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs(acc, a[j], gmma_desc(rhs + j * 16 * L::row_bytes, L::atom_bytes,
+                                    8 * L::row_bytes) | L::swizzle, 1);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty + st);   // this warpgroup is done with the stage
+  }
+
+  // partial slot layout (slot, B, Hkv, dK / dV, 64, D)
+  const size_t part = (((size_t)slot * p.B + b) * p.Hkv + hkv) * 2 + (wg == 0 ? 1 : 0);
+  float* out_part = slot < 0 ? nullptr : p.scratch + part * kTcKeys * D;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(wg == 0 ? p.dv : p.dk);
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int kk = kq + 8 * ((r >> 1) & 1);
+    const int col = (r >> 2) * 8 + 2 * (lane % 4);
+    if (out_part != nullptr) {
+      *reinterpret_cast<float2*>(out_part + kk * D + col) = make_float2(acc[r], acc[r + 1]);
+    } else if (k0 + kk < p.Skv) {
+      *reinterpret_cast<__nv_bfloat162*>(out + kv_offset(p, b, hkv, k0 + kk, D) + col) =
+          __floats2bfloat162_rn(acc[r], acc[r + 1]);
+    }
+  }
+}
+
+// Sums the fp32 partials of each split key tile in slot (row) order and
+// writes dK/dV. Row e of p.reduce: key tile, first slot, slot count. Each
+// CTA takes 1024 of the tile's 64 x D values, 4 a thread.
+constexpr int kReduceChunk = 4 * kTcThreads;
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkdv_reduce_kernel(const Params p) {
+  constexpr int kChunks = kTcKeys * D / kReduceChunk;
+  const int* e = p.reduce + 3 * (blockIdx.x / kChunks);
+  const int k0 = e[0] * kTcKeys, first = e[1], n = e[2];
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int i = (blockIdx.x % kChunks) * kReduceChunk + 4 * threadIdx.x;   // of 64 x D
+  const int kk = i / D, col = i % D;
+  if (k0 + kk >= p.Skv) return;
+  const size_t part = (size_t)2 * kTcKeys * D;
+  const float* src = p.scratch + (((size_t)first * p.B + b) * p.Hkv + hkv) * part + i;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int u = 0; u < n; ++u) {
+    const float* s = src + (size_t)u * p.B * p.Hkv * part;
+    const float4 a = *reinterpret_cast<const float4*>(s);
+    const float4 c = *reinterpret_cast<const float4*>(s + kTcKeys * D);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+  }
+  const size_t off = kv_offset(p, b, hkv, k0 + kk, D) + col;
+  __nv_bfloat162* dk = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + off);
+  __nv_bfloat162* dv = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + off);
+  dk[0] = __floats2bfloat162_rn(sk.x, sk.y);
+  dk[1] = __floats2bfloat162_rn(sk.z, sk.w);
+  dv[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  dv[1] = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -634,19 +1377,114 @@ cudaError_t launch_kernel(K kernel, dim3 grid, int threads, size_t smem, const P
   return cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found)
+            == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
+}
+
+// A TMA map over a bf16 tensor of `rank` dims (innermost first; `strides`
+// in bytes for dims 1..), boxes of `box`, swizzled as wgmma reads a tile of
+// `atom`-column rows (128 bytes; 64 at D 32). Out-of-range rows read zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box, int atom) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            atom == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// K or V (B, S, Hkv, D) as (D, Hkv, B * S): 64 keys of one KV head a box.
+cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, int B, int S, int Hkv, int D,
+                          int atom) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)B * S};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)atom, 1, (cuuint32_t)kTcKeys};
+  return tensor_map(map, base, 3, dims, strides, box, atom);
+}
+
+// Q or dO (B, S, H, D) as (D, G, Hkv, B * S): `rows` flattened (token,
+// group-head) rows of one KV head a box, which needs G to divide rows.
+cudaError_t row_tensor_map(CUtensorMap* map, const void* base, int B, int S, int H, int Hkv,
+                           int D, int atom, int rows) {
+  const int G = H / Hkv;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)Hkv, (cuuint64_t)B * S};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)G * D * 2, (cuuint64_t)H * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)atom, (cuuint32_t)G, 1, (cuuint32_t)(rows / G)};
+  return tensor_map(map, base, 4, dims, strides, box, atom);
+}
+
+template <int D>
+cudaError_t launch_fwd_tc(const Params& p, cudaStream_t stream) {
+  using L = FwdTc<D>;
+  Params tp = p;
+  tp.rows_tma = L::kRows % (p.H / p.Hkv) == 0;
+  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, L::kAtom);
+  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, L::kAtom);
+  if (e == cudaSuccess && tp.rows_tma)
+    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+  if (e != cudaSuccess) return e;
+  const int rows = p.Sq * (p.H / p.Hkv);
+  return launch_kernel(flash_fwd_tc_kernel<D>, dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B),
+                       L::kThreads, L::bytes, tp, stream);
+}
+
 template <typename T, int D>
 cudaError_t launch(Which which, const Params& p, cudaStream_t stream) {
   const int G = p.H / p.Hkv;
   const int rows = p.Sq * G;
   switch (which) {
     case kForward:
-      return launch_kernel(flash_fwd_kernel<T, D>,
-                           dim3((rows + kFwdRows - 1) / kFwdRows, p.Hkv, p.B),
-                           kFwdThreads, FwdSmem<T, D>::bytes, p, stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch_fwd_tc<D>(p, stream);
+      else
+        return launch_kernel(flash_fwd_kernel<T, D>,
+                             dim3((rows + kFwdRows - 1) / kFwdRows, p.Hkv, p.B),
+                             kFwdThreads, FwdSmem<T, D>::bytes, p, stream);
     case kBackwardDkDv:
-      return launch_kernel(flash_bwd_dkdv_kernel<T, D>,
-                           dim3((p.Skv + kBwdKeys - 1) / kBwdKeys, p.Hkv, p.B),
-                           kBwdThreads, BwdSmem<D>::bytes, p, stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        if (p.plan == nullptr || p.n_units <= 0 || (p.n_reduce > 0 && p.scratch == nullptr))
+          return cudaErrorInvalidValue;
+        Params tp = p;
+        tp.rows_tma = kTcKeys % (p.H / p.Hkv) == 0;
+        cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, DkdvTc<D>::kAtom);
+        if (e == cudaSuccess)
+          e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, DkdvTc<D>::kAtom);
+        if (e != cudaSuccess) return e;
+        if (tp.rows_tma) {
+          e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, DkdvTc<D>::kAtom, kTcKeys);
+          if (e == cudaSuccess)
+            e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, D, DkdvTc<D>::kAtom,
+                               kTcKeys);
+          if (e != cudaSuccess) return e;
+        }
+        e = launch_kernel(flash_bwd_dkdv_tc_kernel<D>, dim3(p.n_units, p.Hkv, p.B),
+                          DkdvTc<D>::kThreads, DkdvTc<D>::bytes, tp, stream);
+        if (e != cudaSuccess || p.n_reduce == 0) return e;
+        return launch_kernel(flash_bwd_dkdv_reduce_kernel<D>,
+                             dim3(p.n_reduce * (kTcKeys * D / kReduceChunk), p.Hkv, p.B),
+                             kTcThreads, 0, p, stream);
+      } else {
+        return launch_kernel(flash_bwd_dkdv_kernel<T, D>,
+                             dim3((p.Skv + kBwdKeys - 1) / kBwdKeys, p.Hkv, p.B),
+                             kBwdThreads, BwdSmem<D>::bytes, p, stream);
+      }
     case kBackwardDq:
       return launch_kernel(flash_bwd_dq_kernel<T, D>,
                            dim3((rows + kBwdRows - 1) / kBwdRows, p.Hkv, p.B),
@@ -706,8 +1544,12 @@ extern "C" int flash_attention_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* m,
     const void* l, const void* delta, void* dk, void* dv,
     int B, int Sq, int Skv, int H, int Hkv, int head_dim, float scale,
-    int has_cap, float cap, int has_window, int window, int dtype, void* stream) {
+    int has_cap, float cap, int has_window, int window, int dtype, void* stream,
+    const void* plan, int n_units, const void* reduce, int n_reduce, void* scratch) {
   Params p = {};
+  p.plan = static_cast<const int*>(plan); p.n_units = n_units;
+  p.reduce = static_cast<const int*>(reduce); p.n_reduce = n_reduce;
+  p.scratch = static_cast<float*>(scratch);
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.m = const_cast<float*>(static_cast<const float*>(m));
   p.l = const_cast<float*>(static_cast<const float*>(l));

@@ -3,7 +3,8 @@
 
 - ``flash_attention_fwd`` -> (out, m, l): the forward kernel;
 - ``flash_attention_bwd_dkdv`` / ``flash_attention_bwd_dq``: the two
-  backward kernels;
+  backward kernels; ``dkdv_plan`` is the bf16 dK/dV kernel's plan of work
+  units (key tile, row range, partial slot);
 - ``flash_attention_bwd`` -> (dq, dk, dv): delta = rowsum(dO * O) in plain
   torch (as the JAX package computes it in jnp), then both kernels;
 - ``FlashAttention``: ``torch.autograd.Function`` saving q, k, v, out, m, l.
@@ -17,8 +18,9 @@ its ``.launches`` where it launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -28,6 +30,8 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GRID_YZ = 65535
+DKDV_KEYS = 64            # keys per unit of the bf16 dK/dV kernel
+DKDV_UNIT_ROWS = 4096     # its fixed row boundaries: (token, group-head) rows
 
 
 def _library():
@@ -35,14 +39,66 @@ def _library():
     lib = _build.load(str(SOURCE))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [I, I, I, I, I, I, F, I, F, I, I, I, P]   # B Sq Skv H Hkv D scale cap.. win.. dtype stream
-    for name, n_ptr in (("flash_attention_fwd_launch", 6),
-                        ("flash_attention_bwd_dkdv_launch", 9),
-                        ("flash_attention_bwd_dq_launch", 8)):
+    plan = [P, I, P, I, P]    # plan, units, reduce table, split tiles, scratch
+    for name, n_ptr, tail in (("flash_attention_fwd_launch", 6, []),
+                              ("flash_attention_bwd_dkdv_launch", 9, plan),
+                              ("flash_attention_bwd_dq_launch", 8, [])):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [P] * n_ptr + dims
+            fn.argtypes = [P] * n_ptr + dims + tail
             fn.restype = ctypes.c_int
     return lib
+
+
+def dkdv_plan(Sq: int, Skv: int, G: int, window: Optional[int] = None,
+              unit_rows: Optional[int] = DKDV_UNIT_ROWS) -> List[Tuple[int, int, int, int]]:
+    """The work units of the bf16 dK/dV kernel, in launch order: (key
+    tile, row begin, row end, partial slot) over the flattened (token,
+    group-head) rows of one KV head (row = token * G + group head).
+
+    Key tile j holds keys [64j, 64j + 64); the rows that see one of them
+    are tokens t >= 64j (and, under a window, t < 64j + 63 + window). That
+    range is cut at the fixed multiples of ``unit_rows`` (None: not cut),
+    so a key tile's cuts do not depend on any other tile. A tile left whole
+    has slot -1 and its unit writes dK/dV itself; the units of a cut tile
+    get consecutive slots in row order, write fp32 partials there, and a
+    second launch sums them in slot order — the same bits every launch. A
+    tile that no row sees is one empty unit (it writes zeros). Units run
+    longest first, so the long causal ranges start in the first wave."""
+    per_tile = []
+    for j in range(-(-Skv // DKDV_KEYS)):
+        k0, k1 = j * DKDV_KEYS, min(Skv, (j + 1) * DKDV_KEYS)
+        t_end = Sq if window is None else min(Sq, k1 - 1 + window)
+        r0, r1 = k0 * G, t_end * G
+        if r1 <= r0:
+            per_tile.append([(0, 0)])
+            continue
+        cuts = [r0]
+        if unit_rows:
+            cuts += range((r0 // unit_rows + 1) * unit_rows, r1, unit_rows)
+        per_tile.append(list(zip(cuts, cuts[1:] + [r1])))
+    units, slot = [], 0
+    for j, ranges in enumerate(per_tile):
+        for r0, r1 in ranges:
+            units.append((j, r0, r1, -1 if len(ranges) == 1 else slot))
+            slot += len(ranges) > 1
+    return sorted(units, key=lambda u: u[1] - u[2])   # stable: longest first
+
+
+@functools.lru_cache(maxsize=64)
+def _dkdv_tables(Sq, Skv, G, window, unit_rows, device):
+    """The plan and its reduce table ((key tile, first slot, count) of
+    every cut tile) as int32 tensors on ``device``, and the slot count."""
+    units = dkdv_plan(Sq, Skv, G, window, unit_rows)
+    first = {}
+    for j, _, _, slot in units:
+        if slot >= 0:
+            f, n = first.get(j, (slot, 0))
+            first[j] = (min(f, slot), n + 1)
+    reduce = [(j, f, n) for j, (f, n) in sorted(first.items())]
+    plan_t = torch.tensor(units, dtype=torch.int32).to(device)
+    reduce_t = torch.tensor(reduce or [(0, 0, 0)], dtype=torch.int32).to(device)
+    return plan_t, len(units), reduce_t, len(reduce), sum(n for _, _, n in reduce)
 
 
 def _check(q, k, v, extra=()):
@@ -138,16 +194,38 @@ def flash_attention_bwd_dkdv(q, k, v, m, l, dout, delta, *, scale: float,
         return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
                              window=window)[1:]
     _cuda_only("flash_attention_bwd_dkdv", q)
+    dk, dv = _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window)
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window,
+                 unit_rows=DKDV_UNIT_ROWS):
+    """Launches the dK/dV kernel on CUDA tensors. In bf16 it walks the
+    units of ``dkdv_plan(..., unit_rows)`` and, where a key tile was cut,
+    sums the fp32 partials (scratch from ``torch.empty``) in a second
+    launch; fp32 runs one CTA per 32-key tile."""
     _check(q, k, v, _bwd_extra(q, k, m, l, dout, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    tail = [None, 0, None, 0, None]
+    scratch = None
+    if q.dtype == torch.bfloat16:
+        plan_t, n_units, reduce_t, n_reduce, n_slots = _dkdv_tables(
+            Sq, Skv, H // Hkv, window, unit_rows, q.device)
+        if n_slots:
+            scratch = torch.empty((n_slots, B, Hkv, 2, DKDV_KEYS, D),
+                                  dtype=torch.float32, device=q.device)
+        tail = [plan_t.data_ptr(), n_units, reduce_t.data_ptr(), n_reduce,
+                None if scratch is None else scratch.data_ptr()]
     with torch.cuda.device(q.device):
         rc = _library().flash_attention_bwd_dkdv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_common(q, k, scale, cap, window))
+            dv.data_ptr(), *_common(q, k, scale, cap, window), *tail)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_dkdv launch failed: CUDA error {rc}")
-    flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
 

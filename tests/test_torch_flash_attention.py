@@ -115,3 +115,116 @@ def test_cuda_wrapper_checks_before_launch():
         ops.flash_attention_fwd(q.to("meta"), k.to("meta"), k.to("meta"),
                                 scale=1.0)
     ops._check(q, k, k)                                    # accepted as is
+
+
+# -- the bf16 dK/dV kernel's plan of work units (ops.dkdv_plan) ------------
+
+PLAN_CASES = [  # Sq, Skv, G, window, unit_rows
+    (2048, 2048, 8, None, ops.DKDV_UNIT_ROWS),   # gemma-2b training
+    (130, 130, 4, None, 128), (130, 130, 4, 40, 96), (17, 17, 8, None, 64),
+    (100, 160, 2, None, 64), (160, 100, 3, 7, None), (200, 200, 1, None, 4096),
+]
+
+
+@pytest.mark.parametrize("Sq,Skv,G,window,unit_rows", PLAN_CASES)
+def test_dkdv_plan_covers_each_visible_pair_once(Sq, Skv, G, window, unit_rows):
+    """Every (row, key tile) pair with a key the row sees lies in exactly one
+    unit, no unit holds a row that sees none of its keys, and every key tile
+    has a unit (an empty one writes zeros)."""
+    units = ops.dkdv_plan(Sq, Skv, G, window, unit_rows)
+    keys = ops.DKDV_KEYS
+    n_tiles = -(-Skv // keys)
+    count = np.zeros((Sq * G, n_tiles), dtype=np.int64)
+    for j, r0, r1, _ in units:
+        count[r0:r1, j] += 1
+    t = np.arange(Sq * G)[:, None] // G
+    k0 = np.arange(n_tiles)[None, :] * keys
+    k1 = np.minimum(k0 + keys, Skv)
+    sees = k0 <= t                                   # the tile's first key is visible
+    if window is not None:
+        sees &= (k1 - 1) > t - window                # its last key is in the window
+    np.testing.assert_array_equal(count, sees.astype(np.int64))
+    assert sorted({u[0] for u in units}) == list(range(n_tiles))
+    lengths = [r1 - r0 for _, r0, r1, _ in units]
+    assert lengths == sorted(lengths, reverse=True)  # longest first
+
+
+@pytest.mark.parametrize("Sq,Skv,G,window,unit_rows", PLAN_CASES)
+def test_dkdv_plan_cuts_at_fixed_row_boundaries(Sq, Skv, G, window, unit_rows):
+    """Cuts fall on multiples of unit_rows, a key tile's units do not depend
+    on the other tiles (the same tile of a longer key axis is cut the same),
+    and cut tiles own consecutive slots in row order."""
+    units = ops.dkdv_plan(Sq, Skv, G, window, unit_rows)
+    longer = ops.dkdv_plan(Sq, Skv + 3 * ops.DKDV_KEYS, G, window, unit_rows)
+    by_tile = {}
+    for j, r0, r1, slot in units:
+        by_tile.setdefault(j, []).append((r0, r1, slot))
+    slots = []
+    for j, ranges in sorted(by_tile.items()):
+        ranges.sort()
+        for (_, a1, _), (b0, _, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0 and unit_rows and b0 % unit_rows == 0
+        if (j + 1) * ops.DKDV_KEYS <= Skv:               # a whole tile
+            assert sorted((r0, r1) for jj, r0, r1, _ in longer if jj == j) == \
+                [(r0, r1) for r0, r1, _ in ranges]
+        if len(ranges) == 1:
+            assert ranges[0][2] == -1
+        else:
+            slots += [s for _, _, s in ranges]
+    assert slots == list(range(len(slots)))
+
+
+def _unit_partials(q, k, v, m, l, do, delta, unit, *, scale, cap, window):
+    """dK and dV of one unit's rows and key tile, as flash_bwd_ref computes
+    them: (B, keys, Hkv, D) each, fp32."""
+    j, r0, r1, _ = unit
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    k0, k1 = j * ops.DKDV_KEYS, min(Skv, (j + 1) * ops.DKDV_KEYS)
+    rows = torch.arange(r0, r1)
+    t, g = rows // G, rows % G
+    qr, dr = (x.reshape(B, S, Hkv, G, D).permute(1, 3, 0, 2, 4)[t, g].transpose(0, 1)
+              for x in (q, do))                          # (B, R, Hkv, D)
+    stat = [x.reshape(B, Hkv, G, S)[:, :, g, t][..., None] for x in (m, l, delta)]
+    kc, vc = k[:, k0:k1], v[:, k0:k1]
+    s = torch.einsum("brhd,bkhd->bhrk", qr, kc) * scale
+    th = None
+    if cap is not None:
+        th = torch.tanh(s / cap)
+        s = th * cap
+    kpos = torch.arange(k0, k1)
+    mask = kpos[None, :] <= t[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > t[:, None] - window
+    p = torch.exp(torch.where(mask, s, -2.0e38) - stat[0]) / stat[1] * mask
+    ds = p * (torch.einsum("brhd,bkhd->bhrk", dr, vc) - stat[2])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    ds = ds * scale
+    return (torch.einsum("bhrk,brhd->bkhd", ds, qr),
+            torch.einsum("bhrk,brhd->bkhd", p, dr))
+
+
+@pytest.mark.parametrize("Sq,G,Hkv,window,cap,unit_rows", [
+    (130, 4, 1, None, None, 128), (130, 2, 2, 40, 30.0, 96), (96, 3, 1, None, None, 64),
+])
+def test_dkdv_plan_partials_sum_to_flash_bwd_ref(Sq, G, Hkv, window, cap, unit_rows):
+    """Summing the units' fp32 partials of each key tile in slot order, as
+    the kernel's second launch does, gives flash_bwd_ref's dK/dV."""
+    B, D = 2, 16
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(11, B, Sq, G * Hkv, Hkv, D, n=4))
+    kw = dict(scale=D ** -0.5, cap=cap, window=window)
+    out, m, l = flash_fwd_ref(q, k, v, **kw)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    _, want_k, want_v = ops.flash_bwd_ref(q, k, v, m, l, do, delta, **kw)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    units = ops.dkdv_plan(Sq, Sq, G, window, unit_rows)
+    assert any(u[3] >= 0 for u in units)             # some tile is cut
+    for unit in sorted(units, key=lambda u: (u[0], u[3])):
+        pk, pv = _unit_partials(q, k, v, m, l, do, delta, unit, **kw)
+        k0 = unit[0] * ops.DKDV_KEYS
+        dk[:, k0:k0 + pk.shape[1]] += pk
+        dv[:, k0:k0 + pv.shape[1]] += pv
+    for got, want in ((dk, want_k), (dv, want_v)):
+        assert (got - want).abs().max() <= 1e-6 * want.abs().max()
