@@ -26,10 +26,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH, BATCH, SEQ, STEPS, TOP = "gemma-2b", 4, 2048, 2, 15
-# bf16 training runs the tensor-core forward and dK/dV kernels (dK/dV with
-# its partial-sum launch) and the dQ kernel
+# bf16 training runs the tensor-core forward, dK/dV (with its partial-sum
+# launch) and dQ kernels
 FLASH = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dkdv_reduce_kernel",
-         "flash_bwd_dq_kernel")
+         "flash_bwd_dq_tc_kernel")
 MATMULS = ("aten::mm", "aten::bmm", "aten::addmm")
 
 

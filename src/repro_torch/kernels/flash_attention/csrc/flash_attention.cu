@@ -36,12 +36,16 @@
 //   operand; the causal row range of a key tile is cut into units at fixed
 //   row boundaries (ops.dkdv_plan) whose fp32 partials a second launch sums
 //   in row order.
+// - dQ: warp-specialised the same way; rows on the M axis, Q/dO resident,
+//   K/V streamed by TMA; each consumer warpgroup owns 64 rows and computes
+//   S and dP by wgmma, dS in registers and dQ += dS K with dS as a register
+//   operand; every CTA owns its rows, so one launch and no partial sums.
 // fp32 keeps the first FMA kernels on the CUDA cores (below): they carry
 // every fp32 parity check (kernel 3e-5 / 2e-4, reduced training 1e-4, the
 // full-width gradient check), which TF32 tensor cores (10-bit mantissas)
-// could not meet. The dQ kernel is the FMA kernel in both dtypes.
+// could not meet.
 //
-// FMA kernels (fp32; dQ also in bf16):
+// FMA kernels (fp32):
 // - forward: one CTA of 128 threads per (batch, KV head, tile of 32
 //   rows); it walks only the 64-key tiles in its rows' causal/window range,
 //   keeps (m, l, acc) in registers and writes out, m and l (B, H, Sq).
@@ -59,7 +63,8 @@
 // of dK/dV or dQ), so each 16-byte shared-memory load feeds 4-16 FMAs.
 //
 // Shared memory at D 256: bf16 forward 193 KB (Q 64 KB, 2 stages of K and
-// V), bf16 dK/dV 210 KB (K, V, 2 stages of Q and dO, a 16 KB exchange);
+// V), bf16 dK/dV 210 KB (K, V, 2 stages of Q and dO, a 16 KB exchange),
+// bf16 dQ 193 KB (Q and dO of 128 rows, 2 stages of 32 keys of K and V);
 // FMA forward 174 KB (fp32), backward 142 KB. Above 48 KB the launcher
 // raises the kernel's dynamic shared-memory limit.
 
@@ -75,15 +80,9 @@ namespace {
 constexpr float kNegInf = -2.0e38f;   // the reference's NEG_INF
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ void unpack_bf16x2(uint32_t u, float* o) {
-  o[0] = __uint_as_float(u << 16);          // element 0: the low half
-  o[1] = __uint_as_float(u & 0xffff0000u);
-}
-
-// N consecutive elements at p, as floats. p is aligned to the vector
-// width used (up to 16 bytes): shared or global memory.
+// N consecutive floats at p (aligned to the vector width used, up to 16
+// bytes): shared or global memory.
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   if constexpr (N % 4 == 0) {
@@ -98,26 +97,6 @@ __device__ __forceinline__ void load_vec(const float* p, float* o) {
   } else {
     static_assert(N == 1, "vector width");
     o[0] = p[0];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p + i);
-      unpack_bf16x2(u.x, o + i); unpack_bf16x2(u.y, o + i + 2);
-      unpack_bf16x2(u.z, o + i + 4); unpack_bf16x2(u.w, o + i + 6);
-    }
-  } else if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    unpack_bf16x2(u.x, o); unpack_bf16x2(u.y, o + 2);
-  } else if constexpr (N == 2) {
-    unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p), o);
-  } else {
-    static_assert(N == 1, "vector width");
-    o[0] = __bfloat162float(*p);
   }
 }
 
@@ -808,6 +787,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC16(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
                                          int acc) {
   asm volatile(
@@ -1359,6 +1348,217 @@ flash_bwd_dkdv_reduce_kernel(const Params p) {
   dv[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
+template <int D>
+struct DqTc : SwizzledTile<D> {
+  using T = SwizzledTile<D>;
+  static constexpr int kRows = 128;                          // 64 per consumer warpgroup
+  static constexpr int kKeys = D > 128 ? 32 : 64;            // keys per streamed tile
+  static constexpr int kThreads = 384;                       // 2 consumer warpgroups, 1 producer
+  static constexpr int q_bytes = kRows * D * 2;              // Q (and dO): atoms of 128 rows
+  static constexpr int kv_atom_bytes = kKeys * T::row_bytes;
+  static constexpr int kv_bytes = kKeys * D * 2;             // one K or V tile
+  static constexpr int stage_off = 2 * q_bytes;              // 2 stages of (K, V)
+  static constexpr int bar_off = stage_off + 4 * kv_bytes;
+  static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);   // + alignment
+};
+
+// dQ, bf16. One CTA per (batch, KV head, 128 flattened rows), the heaviest
+// causal tiles first; each CTA owns its rows outright, so no atomics and no
+// second pass. Rows sit on the M axis: Q and dO stay resident (64 KB each at
+// D 256), m, l and delta stay in registers, and warpgroup 2 (the producer)
+// loads Q/dO once and streams the K/V tiles of the rows' causal/window range
+// by TMA through 2 stages, diagonal tile first. Consumer warpgroup w owns
+// rows 64w..64w+63 and, per key tile: S = Q Kᵀ and dP = dO Vᵀ (two wgmma
+// chains from shared memory, one commit), P = 2^(x log2 e − log2(e^m l)),
+// dS = P (dP − delta) (1 − tanh²) scale in the accumulator registers
+// (masking only on tiles that need it), and dQ += dS K with dS rounded to
+// bf16 as the register A operand and K read MN-major. dQ stays in registers
+// (D/2 a thread). Shared memory at D 256: Q 64 KB + dO 64 KB + 2 stages of
+// 32 keys of K and V (2 x 32 KB) = 192 KB; a 64-key stage (64 KB) would
+// need 256 KB. At D <= 128 the key tile is 64 (128 KB at D 128).
+template <int D>
+__global__ void __launch_bounds__(DqTc<D>::kThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
+  using L = DqTc<D>;
+  constexpr int KEYS = L::kKeys;
+  const int tile = gridDim.x - 1 - blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int G = p.H / p.Hkv;
+  const int row0 = tile * L::kRows;
+  const int row_end = min(row0 + L::kRows, p.Sq * G);
+  const int t_first = row0 / G, t_last = (row_end - 1) / G;
+  const int hi = min(p.Skv, t_last + 1);
+  const int lo = p.has_window ? max(0, t_first - p.window + 1) : 0;
+  const int n_tiles = hi > lo ? (hi - lo + KEYS - 1) / KEYS : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = smem + L::q_bytes;
+  unsigned char* kv_s = smem + L::stage_off;   // stage s: K at s * 2 * kv_bytes, V after it
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = qd_full + 1;                // [stage]
+  uint64_t* empty = qd_full + 3;               // [stage]
+  if (tid == 0) {
+    mbar_init(qd_full, p.rows_tma ? 1 : 128);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kTcThreads);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<40>();
+    const int pt = tid - 256;
+    if (p.rows_tma) {
+      if (pt == 0) {
+        mbar_expect_tx(qd_full, 2 * L::q_bytes);
+#pragma unroll
+        for (int a = 0; a < D / L::kAtom; ++a) {
+          tma_load_4d(q_s + a * L::kRows * L::row_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
+                      b * p.Sq + row0 / G, qd_full);
+          tma_load_4d(do_s + a * L::kRows * L::row_bytes, &p.tmap_do, a * L::kAtom, 0, hkv,
+                      b * p.Sq + row0 / G, qd_full);
+        }
+      }
+    } else {   // rows that no box holds
+      stage_rows_swizzled<D, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
+                                       G, row0, row_end, pt, 128);
+      stage_rows_swizzled<D, L::kRows>(do_s, static_cast<const __nv_bfloat16*>(p.dout), p, b,
+                                       hkv, G, row0, row_end, pt, 128);
+      mbar_arrive_cp_async(qd_full);
+    }
+    if (pt == 0) {   // one thread drives the TMA ring
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * KEYS;
+        unsigned char* ks = kv_s + st * 2 * L::kv_bytes;
+        mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * L::kv_bytes);
+#pragma unroll
+        for (int a = 0; a < D / L::kAtom; ++a) {
+          tma_load_3d(ks + a * L::kv_atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0,
+                      full + st);
+          tma_load_3d(ks + L::kv_bytes + a * L::kv_atom_bytes, &p.tmap_v, a * L::kAtom, hkv,
+                      b * p.Skv + k0, full + st);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // this thread's two rows (h = 0, 1): position, log2(e^m l) and delta; a
+  // row past the tile gets P = 0
+  const int rw0 = row0 + 64 * wg;
+  const int t_min = rw0 / G;
+  int tpos[2];
+  float lse[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int fr = rw0 + 16 * warp + lane / 4 + 8 * h;
+    tpos[h] = fr / G;
+    if (fr < row_end) {
+      const size_t so = stat_offset(p, b, hkv, G, fr);
+      lse[h] = fmaf(p.m[so], kLog2e, fast_log2(p.l[so]));
+      dl[h] = p.delta[so];
+    } else {
+      lse[h] = __int_as_float(0x7f800000);   // +inf
+      dl[h] = 0.f;
+    }
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const unsigned char* q_w = q_s + wg * 64 * L::row_bytes;    // rows 64 wg.. of Q
+  const unsigned char* do_w = do_s + wg * 64 * L::row_bytes;  // and of dO
+  mbar_wait(qd_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * KEYS;
+    mbar_wait(full + st, (it >> 1) & 1);
+    fence_async_smem();
+    const unsigned char* ks = kv_s + st * 2 * L::kv_bytes;
+    const unsigned char* vs = ks + L::kv_bytes;
+
+    float s[KEYS / 2], dp[KEYS / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;   // atom, column within it
+      wgmma_ss(s, gmma_desc(q_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
+                      | L::swizzle,
+               gmma_desc(ks + ka * L::kv_atom_bytes + kw * 2, 16, 8 * L::row_bytes) | L::swizzle,
+               kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;
+      wgmma_ss(dp, gmma_desc(do_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
+                       | L::swizzle,
+               gmma_desc(vs + ka * L::kv_atom_bytes + kw * 2, 16, 8 * L::row_bytes) | L::swizzle,
+               kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS in place of S; register r: row h = (r >> 1) & 1, key 8 (r >> 2) + 2 (lane % 4) + (r & 1)
+    if (p.has_cap || !(p.scale > 0.f) || p.has_window || k0 + KEYS > p.Skv
+        || k0 + KEYS - 1 > t_min) {
+#pragma unroll
+      for (int r = 0; r < KEYS / 2; ++r) {
+        const int h = (r >> 1) & 1;
+        float th = 0.f;
+        const float x = post_cap(p, s[r], &th);
+        const bool ok = visible(p, tpos[h], k0 + (r >> 2) * 8 + 2 * (lane % 4) + (r & 1));
+        const float pr = ok ? fast_exp2(fmaf(x, kLog2e, -lse[h])) : 0.f;
+        float ds = pr * (dp[r] - dl[h]);
+        if (p.has_cap) ds *= 1.f - th * th;
+        s[r] = ds * p.scale;
+      }
+    } else {   // no cap, every pair visible: the scale folds into the exponent
+      const float mult = p.scale * kLog2e;
+#pragma unroll
+      for (int r = 0; r < KEYS / 2; ++r) {
+        const int h = (r >> 1) & 1;
+        s[r] = fast_exp2(fmaf(s[r], mult, -lse[h])) * (dp[r] - dl[h]) * p.scale;
+      }
+    }
+    uint32_t a[KEYS / 16][4];
+#pragma unroll
+    for (int j = 0; j < KEYS / 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+
+    fence_regs(dq);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < KEYS / 16; ++j)
+      wgmma_rs(dq, a[j], gmma_desc(ks + j * 16 * L::row_bytes, L::kv_atom_bytes,
+                                   8 * L::row_bytes) | L::swizzle, 1);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dq);
+    mbar_arrive(empty + st);   // this warpgroup is done with the stage
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int fr = rw0 + 16 * warp + lane / 4 + 8 * h;
+    if (fr >= row_end) continue;
+    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, D) + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(dq[4 * i + 2 * h], dq[4 * i + 2 * h + 1]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
@@ -1410,12 +1610,12 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int rank, const cuuin
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// K or V (B, S, Hkv, D) as (D, Hkv, B * S): 64 keys of one KV head a box.
+// K or V (B, S, Hkv, D) as (D, Hkv, B * S): `keys` keys of one KV head a box.
 cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, int B, int S, int Hkv, int D,
-                          int atom) {
+                          int atom, int keys = kTcKeys) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)B * S};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)atom, 1, (cuuint32_t)kTcKeys};
+  const cuuint32_t box[3] = {(cuuint32_t)atom, 1, (cuuint32_t)keys};
   return tensor_map(map, base, 3, dims, strides, box, atom);
 }
 
@@ -1442,6 +1642,23 @@ cudaError_t launch_fwd_tc(const Params& p, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const int rows = p.Sq * (p.H / p.Hkv);
   return launch_kernel(flash_fwd_tc_kernel<D>, dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B),
+                       L::kThreads, L::bytes, tp, stream);
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
+  using L = DqTc<D>;
+  Params tp = p;
+  tp.rows_tma = L::kRows % (p.H / p.Hkv) == 0;
+  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, L::kAtom, L::kKeys);
+  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, L::kAtom, L::kKeys);
+  if (e == cudaSuccess && tp.rows_tma)
+    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+  if (e == cudaSuccess && tp.rows_tma)
+    e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+  if (e != cudaSuccess) return e;
+  const int rows = p.Sq * (p.H / p.Hkv);
+  return launch_kernel(flash_bwd_dq_tc_kernel<D>, dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B),
                        L::kThreads, L::bytes, tp, stream);
 }
 
@@ -1486,9 +1703,12 @@ cudaError_t launch(Which which, const Params& p, cudaStream_t stream) {
                              kBwdThreads, BwdSmem<D>::bytes, p, stream);
       }
     case kBackwardDq:
-      return launch_kernel(flash_bwd_dq_kernel<T, D>,
-                           dim3((rows + kBwdRows - 1) / kBwdRows, p.Hkv, p.B),
-                           kBwdThreads, BwdSmem<D>::bytes, p, stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch_dq_tc<D>(p, stream);
+      else
+        return launch_kernel(flash_bwd_dq_kernel<T, D>,
+                             dim3((rows + kBwdRows - 1) / kBwdRows, p.Hkv, p.B),
+                             kBwdThreads, BwdSmem<D>::bytes, p, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -6,6 +6,12 @@ launches the kernel on the current CUDA stream. Tensors on the CPU take
 the plain version (``ref.ragged_paged_attention_ref``); a CUDA tensor
 launches the kernel or raises — there is no fallback. Each launch adds one
 to ``ragged_paged_attention.launches``.
+
+Short query ranges (decode) spread each group of KV splits over a CTA of
+its own and fold the groups' fp32 partials in a second launch; longer ones
+fold every group in one CTA. Both fold in the same order, so a row's bits
+do not depend on the mode. The library decides the mode and says how much
+fp32 scratch it needs; the wrapper allocates that (``torch.empty``).
 """
 from __future__ import annotations
 
@@ -20,7 +26,6 @@ from .ref import ragged_paged_attention_ref
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ragged_paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
-_MAX_PAGE_SIZE = 128
 
 
 def _library():
@@ -29,12 +34,14 @@ def _library():
     fn = lib.ragged_paged_attention_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, P,          # q kv table cu kv_lens out
-                       I, I, I, I, I, I, I, I,    # S W P ps Hq Hkv D max_q_len
-                       F, I, F, I, I,             # scale has_cap cap has_win win
-                       I, P]                      # dtype stream
+        fn.argtypes = [P, P, P, P, P, P,            # q kv table cu kv_lens out
+                       I, I, I, I, I, I, I, I, I,   # T S W P ps Hq Hkv D max_q_len
+                       F, I, F, I, I,               # scale has_cap cap has_win win
+                       I, P, P]                     # dtype scratch stream
         fn.restype = ctypes.c_int
-    return fn
+        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 6
+        lib.ragged_paged_attention_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
@@ -65,8 +72,10 @@ def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
                          f"{tuple(kv_pages.shape)}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    if not 0 < ps <= _MAX_PAGE_SIZE:
-        raise ValueError(f"page_size {ps} not in (0, {_MAX_PAGE_SIZE}]")
+    if ps <= 0:
+        raise ValueError(f"page_size {ps} must be positive")
+    if page_table.shape[1] == 0:
+        raise ValueError("page_table must have at least one slot")
     if cu_q_lens.shape != (S + 1,) or kv_lens.shape != (S,):
         raise ValueError("cu_q_lens must be (S+1,) and kv_lens (S,) for an "
                          f"(S={S}, W) page table")
@@ -96,16 +105,21 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     T, Hq, D = q.shape
     P, ps, H2, _ = kv_pages.shape
     S, W = page_table.shape
+    max_q_len = T if max_q_len is None else int(max_q_len)
     out = torch.empty_like(q)
-    fn = _library()
+    lib = _library()
+    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, H2 // 2, D, W, max_q_len)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+               if n_scratch else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
-                cu_q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                S, W, P, ps, Hq, H2 // 2, D, T if max_q_len is None else int(max_q_len),
-                float(scale), cap is not None, float(cap or 0.0),
-                window is not None, int(window or 0),
-                _DTYPES[q.dtype], stream)
+        rc = lib.ragged_paged_attention_launch(
+            q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
+            cu_q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            T, S, W, P, ps, Hq, H2 // 2, D, max_q_len,
+            float(scale), cap is not None, float(cap or 0.0),
+            window is not None, int(window or 0),
+            _DTYPES[q.dtype], None if scratch is None else scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {rc}")
     ragged_paged_attention.launches += 1

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import jax_random
 
 
 @dataclass(frozen=True)
@@ -114,42 +115,32 @@ def _fan_in_std(d: ParamDef) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
-_FILL_CHUNK = 1 << 26  # fp32 draws per chunk: bounds the temporary to 256 MiB
+def materialize(defs, key, device: torch.device, default_dtype: str = "bfloat16"):
+    """Initialize real parameter tensors on ``device`` from a def tree as
+    ``repro.models.param.materialize`` does with the same JAX key (a pair
+    of 32-bit words, ``jax_random.key(seed)``): one key per leaf from
+    ``split`` in ``jax.tree.flatten`` order, each leaf drawn in float32 by
+    the port's copy of ``jax.random`` and cast to the leaf's dtype."""
+    leaves = tree_leaves(defs, is_leaf=is_def)
+    keys = iter(jax_random.split(key, max(len(leaves), 1)))
 
-
-def _fill(out: torch.Tensor, draw: Callable[[int], torch.Tensor]) -> None:
-    """Fill ``out`` from fp32 draws chunk by chunk, so a 1.8 G-element
-    stacked weight never needs a full fp32 temporary."""
-    flat = out.view(-1)
-    for start in range(0, flat.numel(), _FILL_CHUNK):
-        n = min(_FILL_CHUNK, flat.numel() - start)
-        flat[start:start + n] = draw(n).to(out.dtype)
-
-
-def materialize(defs, generator: torch.Generator, device: torch.device,
-                default_dtype: str = "bfloat16"):
-    """Initialize real parameter tensors on ``device`` from a def tree —
-    the same distributions as ``repro.models.param.materialize`` (the
-    numbers differ: torch and JAX draw differently from a seed)."""
     def one(d: ParamDef):
+        k = next(keys)
         dt = torch_dtype(d.dtype or default_dtype)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=device)
+        # the logs in plain arithmetic (XLA's float32 log), so the CPU and
+        # the card draw the same bits
         if d.init == "a_log":    # mamba2: A ~ U[1, 16), stored as a log
-            u = torch.rand(d.shape, generator=generator, device=device)
-            return torch.log(1.0 + 15.0 * u).to(dt)
+            return jax_random.log_f32(jax_random.uniform(k, d.shape, 1.0, 16.0, device)).to(dt)
         if d.init == "dt_bias":  # softplus^-1 of dt ~ U[1e-3, 1e-1]
-            u = torch.rand(d.shape, generator=generator, device=device)
-            return torch.log(torch.expm1(1e-3 + (1e-1 - 1e-3) * u)).to(dt)
+            u = jax_random.uniform(k, d.shape, 1e-3, 1e-1, device)
+            return jax_random.log_f32(jax_random.expm1_f32(u)).to(dt)
         if d.init != "normal":
             raise ValueError(f"unknown init {d.init!r}")
-        out = torch.empty(d.shape, dtype=dt, device=device)
-        std = _fan_in_std(d)
-        _fill(out, lambda n: torch.randn(n, generator=generator,
-                                         device=device) * std)
-        return out
+        return jax_random.normal(k, d.shape, device, scale=_fan_in_std(d), dtype=dt)
 
     return tree_map(one, defs, is_leaf=is_def)
 

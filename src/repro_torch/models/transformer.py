@@ -27,7 +27,7 @@ frontends, SSM training and the ring-cache path raise
 from __future__ import annotations
 
 import functools
-from typing import Tuple, Union
+from typing import Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import jax_random
 from repro_torch.models import param as prm
 from repro_torch.models.attention import attention_sublayer, attn_defs
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
@@ -90,15 +91,12 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
-                device=None):
-    """Random parameters on ``device`` (default ``cuda``), drawn like
-    ``repro.models.transformer.init_params``. ``generator`` is a seed or
-    a ``torch.Generator`` on ``device``."""
-    dev = resolve_device(device)
-    if isinstance(generator, int):
-        generator = torch.Generator(device=dev).manual_seed(generator)
-    return prm.materialize(model_defs(cfg), generator, dev, cfg.param_dtype)
+def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random parameters on ``device`` (default ``cuda``): the reference's
+    ``init_params(cfg, jax.random.key(seed))``, drawn by the port's copy of
+    JAX's generator (``models/jax_random.py``)."""
+    return prm.materialize(model_defs(cfg), jax_random.key(seed),
+                           resolve_device(device), cfg.param_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro.models import param as jprm
 from repro.models import ssm as jssm
 from repro.models import transformer as jtfm
 from repro_torch.configs import get_config, reduced
+from repro_torch.models import jax_random
 from repro_torch.models import param as tprm
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttfm
@@ -186,8 +187,7 @@ def test_paged_pools_keep_the_reference_layout():
                                         ("dt_bias", None, None)])
 def test_ssm_initialisers_draw_the_reference_ranges(init, lo, hi):
     d = tprm.ParamDef((4096,), ("ssm_heads",), init=init, dtype="float32")
-    t = tprm.materialize(d, torch.Generator().manual_seed(0),
-                         torch.device("cpu"))
+    t = tprm.materialize(d, jax_random.key(0), torch.device("cpu"))
     assert t.dtype == torch.float32 and t.shape == (4096,)
     if init == "a_log":
         assert lo <= float(t.min()) and float(t.max()) < hi
