@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
                  shared memory and spills per kernel and the HGMMA/HMMA
                  count of each (``cuobjdump -sass``), and requires HGMMA in
                  every instantiation of the bf16 flash forward, dK/dV and
-                 dQ kernels and HMMA in the bf16 paged-attention kernel;
+                 dQ kernels and HMMA in the bf16 paged-attention and SSD
+                 kernels;
 3. kernel      — holds ragged paged attention against its plain PyTorch
                  version at the qwen3-8b path's geometry (fp32 and bf16,
                  decode / sparse table / extend / softcap / window, and
@@ -29,10 +30,12 @@ Phases, each printing one JSON line:
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
-                 batch, zero and random initial states, fp32 and bf16;
-                 checks that two launches are bit-equal; times the kernel
-                 and its plain version (no single PyTorch call computes an
-                 SSD scan);
+                 batch, x/b/c as views into one projection, zero and random
+                 initial states, fp32 (FMA kernel) and bf16 (tensor-core
+                 kernel); checks that two launches are bit-equal; times the
+                 kernel (events and the profiler's device time) and its
+                 plain version (no single PyTorch call computes an SSD
+                 scan);
 5. flash       — holds the flash-attention forward and both backward
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
@@ -50,7 +53,7 @@ Phases, each printing one JSON line:
                  qwen3-8b and mamba2-2.7b, CUDA (the kernels) against the
                  CPU path (the plain versions), same weights; and on CUDA a
                  reduced mamba2 engine's prefix hit decodes the tokens of a
-                 cold start;
+                 cold start, in fp32 and in bf16;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -351,10 +354,12 @@ def kernel_phase(torch, ops, ref, smi):
 
 
 def ssd_case(torch, S, dtype, *, B=1, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
-             state=True, seed=0):
+             state=True, views=False, seed=0):
     """Inputs drawn as the model forms them: x, b, c ~ N(0, 1) in the model
     dtype, dt ~ U[1e-3, 1e-1] and A ~ U[1, 16) (the initialisers' ranges),
-    and a random fp32 carried state (or None: zeros)."""
+    and a random fp32 carried state (or None: zeros). ``views``: x, b and c
+    are views into one (B, S, H*P + 2*G*N) tensor, as ``ssm_sublayer``
+    hands over its conv output."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((B, S, H, P), generator=g)
     dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((B, S, H), generator=g)
@@ -362,6 +367,12 @@ def ssd_case(torch, S, dtype, *, B=1, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
     b = torch.randn((B, S, G, N), generator=g)
     c = torch.randn((B, S, G, N), generator=g)
     init = torch.randn((B, H, P, N), generator=g) if state else None
+    if views:
+        xbc = torch.cat([t.reshape(B, S, -1) for t in (x, b, c)], -1).to(dtype).cuda()
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        b = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        c = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+        assert not x.is_contiguous() and x.data_ptr() == xbc.data_ptr()
     return ([x.to(dtype).cuda(), dt.cuda(), a.cuda(), b.to(dtype).cuda(),
              c.to(dtype).cuda()], None if init is None else init.cuda())
 
@@ -369,10 +380,11 @@ def ssd_case(torch, S, dtype, *, B=1, H=SSD_H, P=SSD_P, N=SSD_N, G=1,
 def ssd_work(case, init, dtype_name, block=32):
     """(bytes, flops, bound_ms, bound_by) of the scan on this input: x, b,
     c, dt, a and the initial state read once, y and the final state written
-    once; per (batch, head) and block of L tokens (the kernel's 32) the
-    lower triangle of C.B^T (N*L*(L+1)) and of its product with x*dt
-    (P*L*(L+1)), and the carried-state output and state update (2*L*P*N
-    each)."""
+    once; per (batch, head) and block of L tokens (32, fixed here whatever
+    block the kernel walks, so the bound reads the same work across
+    versions) the lower triangle of C.B^T (N*L*(L+1)) and of its product
+    with x*dt (P*L*(L+1)), and the carried-state output and state update
+    (2*L*P*N each)."""
     x, dt, a, b, c = case
     B, S, H, P = x.shape
     N = b.shape[3]
@@ -395,7 +407,9 @@ def ssd_kernel_phase(torch, sops, sref, smi):
     cases = [(f"S{S}_{'state' if st else 'zero'}", S, {"state": st})
              for S in (1, 9, 32) for st in (False, True)]
     cases += [("S512_multichunk", 512, {}),
-              ("B2_G4_S40", 40, {"B": 2, "H": 8, "G": 4, "N": 64})]
+              ("B2_G4_S40", 40, {"B": 2, "H": 8, "G": 4, "N": 64}),
+              # the serving geometry as ssm_sublayer hands it over
+              ("S32_projection_views", 32, {"views": True})]
     errs, max_err = {}, {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for i, (name, S, kw) in enumerate(cases):
@@ -431,16 +445,20 @@ def ssd_kernel_phase(torch, sops, sref, smi):
     for S in (32, 9):
         case, init = ssd_case(torch, S, torch.bfloat16, seed=100 + S)
         n_bytes, flops, bound_ms, bound_by = ssd_work(case, init, "bfloat16")
+        kernel = lambda: scan(*case, chunk=SSD_CHUNK, init_state=init)  # noqa: E731
         timing[f"S{S}"] = {
             "shape": [1, S, SSD_H, SSD_P, SSD_N], "bytes": n_bytes,
             "flops": flops,
-            "ms": time_ms(torch, lambda: scan(*case, chunk=SSD_CHUNK,
-                                              init_state=init), flush),
+            "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, lambda: plain(*case, chunk=SSD_CHUNK,
                                                      init_state=init),
                                 flush, iters=20),
             "library_ms": None,   # no single PyTorch call computes an SSD scan
             "bound_ms": bound_ms, "bound_by": bound_by,
+            # the card's time alone: events around a call of a few
+            # microseconds include the host's launch gaps
+            "device_ms": device_ms(torch, kernel, flush,
+                                   lambda key: "ssd_scan" in key),
         }
     emit("kernel_time", kernel="ssd_scan", dtype="bfloat16", nvidia_smi=smi,
          shapes=timing)
@@ -463,9 +481,9 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
     ("d128_G3_S200", 2, 200, 6, 2, 128, None, None),   # G does not divide 64
 ]
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
-# (HMMA) in paged attention
+# (HMMA) in paged attention and the SSD scan
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
-MMA_KERNELS = ("ragged_paged_attention_mma_kernel",)
+MMA_KERNELS = ("ragged_paged_attention_mma_kernel", "ssd_scan_mma_kernel")
 FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
 # fp32: the reference's own flash tolerances — values 3e-5 atol and rtol
 # (tests/test_kernels.py), gradients 2e-4 (tests/test_models.py); sums run
@@ -722,8 +740,9 @@ def init_device_phase(torch, cfg_mod, tfm, param):
 def reduced_ssm_phase(torch, cfg_mod, tfm, param, serve):
     """Reduced fp32 mamba2-2.7b: paged prefill (page 0), extend (page 1) and
     a batched decode with an inactive row, CUDA (the SSD kernel) against
-    the CPU path, same weights; then, on CUDA, an engine whose prefix hits
-    resume from state pages decodes the tokens of a cold start."""
+    the CPU path, same weights; then, on CUDA, in fp32 (the FMA kernel) and
+    in bf16 (the tensor-core kernel), an engine whose prefix hits resume
+    from state pages decodes the tokens of a cold start."""
     full = cfg_mod.get_config("mamba2-2.7b")
     cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
     params = tfm.init_params(cfg, 0, device="cuda")
@@ -761,25 +780,31 @@ def reduced_ssm_phase(torch, cfg_mod, tfm, param, serve):
         if not torch.isfinite(a).all():
             raise AssertionError("non-finite logits on CUDA")
 
-    runs = {}
-    for name, flags in (("hit", []), ("cold", ["--no-prefix-caching"])):
-        args = serve.parser().parse_args(["--arch", "mamba2-2.7b", *flags])
-        eng = serve.build_engine(args, cfg, full, params, device="cuda")
-        eng.ecfg.eos_token = -1
-        prompts = serve.make_prompts(cfg, 4, 32, args.seed)
-        eng.submit(prompts[0], max_new_tokens=6)
-        eng.run_until_idle()
-        for pr in prompts[1:]:
-            eng.submit(pr, max_new_tokens=6)
-        rep = eng.run_until_idle()
-        runs[name] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
-    hits = runs["hit"][1]["prefix"]["compute_hits"]
-    if runs["hit"][0] != runs["cold"][0] or hits < 1:
-        raise AssertionError(f"reduced mamba2 on CUDA: prefix hit ({hits} "
-                             "hits) does not decode the cold-start tokens")
+    cfg16 = cfg_mod.reduced(full)                     # bf16
+    hits, skipped = {}, {}
+    for dname, c, w in (("float32", cfg, params),
+                        ("bfloat16", cfg16, tfm.init_params(cfg16, 0, device="cuda"))):
+        runs = {}
+        for name, flags in (("hit", []), ("cold", ["--no-prefix-caching"])):
+            args = serve.parser().parse_args(["--arch", "mamba2-2.7b", *flags])
+            eng = serve.build_engine(args, c, full, w, device="cuda")
+            eng.ecfg.eos_token = -1
+            prompts = serve.make_prompts(c, 4, 32, args.seed)
+            eng.submit(prompts[0], max_new_tokens=6)
+            eng.run_until_idle()
+            for pr in prompts[1:]:
+                eng.submit(pr, max_new_tokens=6)
+            rep = eng.run_until_idle()
+            runs[name] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
+        hits[dname] = runs["hit"][1]["prefix"]["compute_hits"]
+        skipped[dname] = runs["hit"][1]["prefill_tokens_skipped"]
+        if runs["hit"][0] != runs["cold"][0] or hits[dname] < 1:
+            raise AssertionError(f"reduced mamba2 on CUDA, {dname}: prefix hit "
+                                 f"({hits[dname]} hits) does not decode the "
+                                 "cold-start tokens")
     emit("reduced_model_check", arch="mamba2-2.7b", relative_logit_err=errs,
-         tolerance=1e-4, hit_equals_cold=True, compute_hits=hits,
-         prefill_tokens_skipped=runs["hit"][1]["prefill_tokens_skipped"])
+         tolerance=1e-4, hit_equals_cold={"float32": True, "bfloat16": True},
+         compute_hits=hits, prefill_tokens_skipped=skipped)
 
 
 # ---------------------------------------------------------------------------
@@ -1176,7 +1201,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     reports = {src.stem: _build.report(src) for src in sources}
     tensor_core = {name: {"hgmma": r.get("hgmma"), "hmma": r.get("hmma")}
-                   for lib in ("flash_attention", "ragged_paged_attention")
+                   for lib in ("flash_attention", "ragged_paged_attention", "ssd_scan")
                    for name, r in reports[lib].items()
                    if name.startswith(TC_KERNELS + MMA_KERNELS)}
     emit("build", kernels=["ragged_paged_attention", "ssd_scan", "flash_attention"],
@@ -1187,7 +1212,7 @@ def main() -> int:
     _require("tensor-core build", {
         name: counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] is None
         or counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] > 0
-        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 16})
+        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 17})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
@@ -1223,7 +1248,7 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_err["bfloat16"],
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-        "library_ms": None}]
+        "library_ms": None, "device_ms": ssd["device_ms"]}]
     replaces = {"flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:74",
                 "flash_attention_bwd_dkdv": "src/repro/models/attention.py:126",
                 "flash_attention_bwd_dq": "src/repro/models/attention.py:126"}

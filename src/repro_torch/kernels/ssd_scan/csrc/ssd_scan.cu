@@ -17,27 +17,65 @@
 // init_state means zeros). y (B, S, H, P) comes out in x's dtype. Every sum
 // is in fp32.
 //
-// Design. The TPU grid walks (batch*head, chunk) in order and carries the
-// state in VMEM across grid steps. Here one CTA owns one (batch*head, tile of
-// kRows rows of P): the state rows of a tile are independent, so at the
-// serving shape (H 80, P 64) the grid has 320 CTAs for the card's 132 SMs.
-// The CTA keeps its (kRows, N) state in shared memory and walks the sequence
-// itself in blocks of kChunk tokens (its own block, not the model's
-// ssm_chunk: a 256x256 fp32 decay tile would not fit in shared memory). Per
-// block it stages B, C (kChunk x N, rows padded to N+1 words so lanes that
-// walk different rows hit different banks), its x*dt tile and the cumsum of
-// dt*a (one warp, shuffle scan); forms C.B^T (.) decay for s <= l (recomputed
-// per P tile: cheap); writes y = that . x*dt + exp(cs) (C . state^T); then
-// updates the state. No atomics, and every sum runs in a fixed order, so the
-// result is a pure function of the inputs and S: the engine's hit-vs-cold
-// bit equality rests on it.
+// Shared by both kernels. The TPU grid walks (batch*head, chunk) in order and
+// carries the state in VMEM across grid steps. Here one CTA owns one
+// (batch*head, tile of 16 rows of P): the state rows of a tile are
+// independent, so at the serving shape (H 80, P 64) the grid has 320 CTAs for
+// the card's 132 SMs, all resident at once. The CTA keeps its (16, N) state
+// in shared memory and walks the sequence itself in blocks of 32 tokens (its
+// own block, not the model's ssm_chunk: a 256x256 fp32 decay tile would not
+// fit in shared memory); every warp that needs the cumsum of dt*a over a
+// block scans it itself with shuffles. No atomics, no split of a sum across
+// CTAs, and every sum runs in a fixed order, so the result is a pure
+// function of the inputs and S: the engine's hit-vs-cold bit equality rests
+// on it.
 //
 // What bounds it. At the serving shape (B 1, S 32, H 80, P 64, N 128) the
 // function must read and write 5.2 MB of fp32 state and ~0.7 MB of x, y, b,
-// c, dt: ~1.8 us at 3.35 TB/s; its ~115 MFLOP need ~1.7 us of the CUDA
-// cores' fp32 rate. This first version stages with plain loads and computes
-// with FMAs on the CUDA cores; mma.sync/wgmma for C.B^T and the state
-// products, and cp.async/TMA staging, are later work.
+// c, dt: 1.77 us at 3.35 TB/s. Its ~115 MFLOP are small beside that on the
+// tensor cores, so the kernel is a streaming kernel: the state has to move at
+// device-memory rate with the products hidden under it. What it meets on the
+// card (chip_smoke.py, PERF.md) is latency: one block's loads, products and
+// stores in a chain, ~6-7 us at S 1-32 in all.
+//
+// bf16 (ssd_scan_mma_kernel), in the order a CTA runs it:
+// - Loads. The CTAs of a cluster (up to 8: the P tiles of one head, and of
+//   two heads of one group) read the same B, C rows. Each CTA sends its
+//   share of the rows to L2 at once (cp.async.bulk.prefetch), issues its
+//   state tile (16 bulk row copies under an mbarrier, cp.async.bulk), and
+//   x, dt (cp.async, 16- and 4-byte pieces, zero-filled past S); after the
+//   cluster barrier that makes every CTA's mbarriers valid, it multicasts
+//   its B, C rows into all CTAs of the cluster (.multicast::cluster). Rows
+//   past S are zeroed in place. Two stages when S > 32, so block j+1 loads
+//   behind block j; a cluster barrier guards a stage's reuse.
+// - Products, all on mma.sync.m16n8k16 (bf16 in, fp32 sums), each arranged
+//   so one operand is an exact bf16 input and the fp32 operand is split
+//   into bf16 hi + lo, hi summed before lo (about 16 bits of that operand's
+//   mantissa kept; single-pass bf16 or TF32 rounding of the carried state
+//   would not hold the 2e-4 state tolerance over chunks):
+//   warps 0-1, the rows l of 16 mt (mt = warp), while the state is in flight:
+//     C.B^T              exact x exact, the causal tiles only;
+//     y_in = M . x       M[l,s] = (C.B^T)[l,s] exp(cs_l - cs_s) dt_s, s <= l
+//                        (masked before the exp), split, from the accumulators;
+//   warps 2-3, the 16-column groups j of N (even for warp 2, odd for 3):
+//     state' = exp(cs_last) state + (x w)^T . B,  w_s = dt_s exp(cs_last - cs_s),
+//                        x w split, B exact; accumulators start from
+//                        exp(cs_last) state;
+//     y_off = C . state^T over k in group j: the raw state fragments that
+//                        start the update are y_off's B fragments (split), C
+//                        exact;
+//   then warps 0-1 write y = y_in + exp(cs_l) (y_off of warp 2 + of warp 3).
+// - The new state goes to the other of two shared buffers and out by bulk
+//   row copies after fence.proxy.async, as soon as warps 2-3 are done.
+// Rows are padded by 16 bytes (B, C, x) or 8 words (state) so fragment loads
+// hit distinct banks. C.B^T is recomputed by each P tile: 16-32 mma.
+//
+// fp32 (ssd_scan_fma_kernel), kept from the first port: TF32 would not hold
+// the fp32 tolerances. Per block it stages B, C (rows padded to N+1 words so
+// lanes that walk different rows hit different banks), its x*dt tile and the
+// cumsum with plain loads; forms C.B^T (.) decay for s <= l; writes y = that
+// . x*dt + exp(cs) (C . state^T); then updates the state, all with FMAs on the
+// CUDA cores. Shared-memory issue and the FMA chains, not bytes, bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,11 +89,7 @@ constexpr int kRows = 16;    // rows of P per CTA
 constexpr int kMaxState = 256;
 
 static_assert(kChunk == 32, "the cumsum is one warp's shuffle scan");
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_float(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_float(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+static_assert(kRows == 16, "a P tile is the M (or N pair) of one mma.sync");
 
 struct Params {
   const void* x;            // (B, S, H, P), strides x_sb, x_ss; (H, P) dense
@@ -70,16 +104,19 @@ struct Params {
   long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
 };
 
+// ---------------------------------------------------------------------------
+// fp32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+
 // Shared memory, in floats: B and C blocks, the state tile (rows of N+1),
 // the C.B^T tile (rows of kChunk+1), the x*dt tile, and per-token cumsum,
 // exp(cumsum) and tail-decay vectors.
-__host__ __device__ inline size_t smem_floats(int dstate) {
+__host__ __device__ inline size_t fma_smem_floats(int dstate) {
   return (size_t)(2 * kChunk + kRows) * (dstate + 1) + kChunk * (kChunk + 1)
          + kChunk * kRows + 3 * kChunk;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params prm) {
+__global__ void __launch_bounds__(kThreads) ssd_scan_fma_kernel(const Params prm) {
   extern __shared__ float smem[];
   const int N = prm.dstate, ldn = N + 1;
   float* sB = smem;
@@ -99,11 +136,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params prm) {
   const int rows = min(kRows, P - p0);
   const int g = h / (H / prm.groups);
   const float a = prm.a[h];
-  const T* x = static_cast<const T*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
-  const T* b = static_cast<const T*>(prm.b) + bi * prm.b_sb + (long long)g * N;
-  const T* c = static_cast<const T*>(prm.c) + bi * prm.c_sb + (long long)g * N;
+  const float* x = static_cast<const float*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
+  const float* b = static_cast<const float*>(prm.b) + bi * prm.b_sb + (long long)g * N;
+  const float* c = static_cast<const float*>(prm.c) + bi * prm.c_sb + (long long)g * N;
   const float* dt = prm.dt + (long long)bi * S * H + h;        // token stride H
-  T* y = static_cast<T*>(prm.y) + ((long long)bi * S * H + h) * P + p0;  // stride H*P
+  float* y = static_cast<float*>(prm.y) + ((long long)bi * S * H + h) * P + p0;  // stride H*P
   const long long state_off = ((long long)bh * P + p0) * N;
 
   for (int i = tid; i < kRows * N; i += kThreads) {
@@ -118,15 +155,14 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params prm) {
     const int L = min(kChunk, S - t0);
     for (int i = tid; i < L * N; i += kThreads) {
       const int s = i / N, n = i % N;
-      sB[s * ldn + n] = to_float(b[(long long)(t0 + s) * prm.b_ss + n]);
-      sC[s * ldn + n] = to_float(c[(long long)(t0 + s) * prm.c_ss + n]);
+      sB[s * ldn + n] = b[(long long)(t0 + s) * prm.b_ss + n];
+      sC[s * ldn + n] = c[(long long)(t0 + s) * prm.c_ss + n];
     }
     for (int i = tid; i < L * kRows; i += kThreads) {
       const int s = i / kRows, r = i % kRows;
       float v = 0.f;
       if (r < rows)
-        v = to_float(x[(long long)(t0 + s) * prm.x_ss + r])
-            * dt[(long long)(t0 + s) * H];
+        v = x[(long long)(t0 + s) * prm.x_ss + r] * dt[(long long)(t0 + s) * H];
       sX[s * kRows + r] = v;
     }
     if (tid < 32) {
@@ -171,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params prm) {
       const float* st = sState + r * ldn;
       float off = 0.f;
       for (int n = 0; n < N; ++n) off = fmaf(cr[n], st[n], off);
-      from_float(y + (long long)(t0 + l) * H * P + r, acc + off * sE[l]);
+      y[(long long)(t0 + l) * H * P + r] = acc + off * sE[l];
     }
     __syncthreads();
 
@@ -193,24 +229,544 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params prm) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = smem_floats(prm.dstate) * sizeof(float);
-  auto kernel = ssd_scan_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// ---------------------------------------------------------------------------
+// bf16: mma.sync on the tensor cores, the state by bulk copies
+// ---------------------------------------------------------------------------
+
+constexpr int kXS = kRows + 8;   // padded x row, bf16 elements (48 bytes)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; zero-filled where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Bulk copy global -> shared, completing bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Fetches bytes of global memory into L2, no completion to wait for.
+__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" :: "l"(src), "r"(bytes) : "memory");
+}
+
+// Bulk copy shared -> global, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's committed bulk stores have read their shared
+// memory (the CTA may then exit; the writes complete on their own).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Generic-proxy writes to shared memory become visible to the bulk copies,
+// which read through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// c += a b: m16n8k16, bf16 in, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (v0, v1) -> the bf16 pairs hi = bf16(v), lo = bf16(v - hi): hi + lo keeps
+// about 16 bits of each value's mantissa.
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// Bulk copy global -> shared of this CTA and of every CTA in ``mask`` of its
+// cluster (the same offset in each), completing bytes on each one's bar.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, int bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// Arrival that orders nothing: enough after fence.mbarrier_init.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  int n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Shared memory of the bf16 kernel, in bytes from the (16-aligned) base:
+// mbarriers, two state buffers, one stage of B, C, x, dt per block up to two
+// (a single block needs one, so more CTAs fit an SM), a 32-float line per
+// warp and the y_off partials of warps 2-3.
+struct MmaSmem {
+  int lds, ldb, stages;         // state row (floats), B/C row (bf16)
+  size_t state, b, c, x, dt, line, part, bytes;
+  __host__ __device__ MmaSmem(int N, int S)
+      : lds(N + 8), ldb(N + 8), stages(S > kChunk ? 2 : 1) {
+    state = 32;                                                     // after 3 mbarriers
+    b = state + (size_t)2 * kRows * lds * sizeof(float);
+    c = b + (size_t)stages * kChunk * ldb * sizeof(__nv_bfloat16);
+    x = c + (size_t)stages * kChunk * ldb * sizeof(__nv_bfloat16);
+    dt = x + (size_t)stages * kChunk * kXS * sizeof(__nv_bfloat16);
+    line = dt + (size_t)stages * kChunk * sizeof(float);
+    part = line + (size_t)(kThreads / 32) * 32 * sizeof(float);
+    bytes = part + (size_t)2 * 2 * 8 * 32 * sizeof(float);
   }
+};
+
+// One CTA per (batch*head, 16 rows of P); the CTAs of a cluster read the
+// same B, C rows: each issues a share of the row copies, multicast to all.
+__global__ void __launch_bounds__(kThreads) ssd_scan_mma_kernel(const Params prm) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int N = prm.dstate, nks = N / 16;
+  const MmaSmem lay(N, prm.seqlen);
+  const int lds = lay.lds, ldb = lay.ldb;
+  uint64_t* bar_state = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* bar_bc = bar_state + 1;                                          // [stages]
+  float* sState = reinterpret_cast<float*>(smem_raw + lay.state);            // [2][16][lds]
+  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.b);    // [stages][32][ldb]
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.c);    // [stages][32][ldb]
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.x);    // [stages][32][kXS]
+  float* sDt = reinterpret_cast<float*>(smem_raw + lay.dt);                  // [stages][32]
+  float* sLine = reinterpret_cast<float*>(smem_raw + lay.line);              // [warp][32]
+  float* sPart = reinterpret_cast<float*>(smem_raw + lay.part);              // [2][2][8][32]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const int H = prm.heads, P = prm.headdim, S = prm.seqlen;
+  const int bh = blockIdx.y;
+  const int bi = bh / H, h = bh % H;
+  const int p0 = blockIdx.x * kRows;
+  const int grp = h / (H / prm.groups);
+  const int rank = cluster_rank(), csize = cluster_size();
+  const float a = prm.a[h];
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(prm.x) + bi * prm.x_sb
+                           + (long long)h * P + p0;
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(prm.b) + bi * prm.b_sb
+                           + (long long)grp * N;
+  const __nv_bfloat16* c = static_cast<const __nv_bfloat16*>(prm.c) + bi * prm.c_sb
+                           + (long long)grp * N;
+  const float* dt = prm.dt + (long long)bi * S * H + h;        // token stride H
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(prm.y) + ((long long)bi * S * H + h) * P + p0;
+  const long long state_off = ((long long)bh * P + p0) * N;
+  const bool has_init = prm.init_state != nullptr;
+  const int row_bytes = N * (int)sizeof(__nv_bfloat16);
+
+  const int nb = (S + kChunk - 1) / kChunk;
+  // this CTA's share of the first block's B, C rows on their way to L2
+  // while the cluster's mbarriers are set up
+  if (warp == 1) {
+    const int s = rank + csize * lane;
+    if (s < min(kChunk, S)) {
+      prefetch_l2(b + (long long)s * prm.b_ss, row_bytes);
+      prefetch_l2(c + (long long)s * prm.c_ss, row_bytes);
+    }
+  }
+  if (tid == 0) {
+    mbar_init(bar_state, 1);
+    for (int st = 0; st < lay.stages; ++st) mbar_init(bar_bc + st, 1);
+  }
+  if (!has_init)
+    for (int i = tid; i < kRows * lds; i += kThreads) sState[i] = 0.f;
+  // every CTA's mbarriers must exist before a peer's copy lands in them:
+  // arrive now, wait just before the first multicast
+  cluster_arrive_relaxed();
+  // the state tile, this CTA's own: 16 row copies of N floats under one
+  // mbarrier
+  if (has_init && warp == 0) {
+    if (lane == 0) mbar_expect_tx(bar_state, kRows * N * (int)sizeof(float));
+    __syncwarp();
+    if (lane < kRows)
+      bulk_load(sState + lane * lds, prm.init_state + state_off + (long long)lane * N,
+                N * (int)sizeof(float), bar_state);
+  }
+
+  // B, C rows of a block: rows s = rank, rank + csize, ... copied by this
+  // CTA into every CTA of the cluster; rows past S zeroed here (a padded B
+  // row meets x w = 0 in the tensor cores, where 0 * garbage is not 0). x
+  // and dt (this CTA's own) by cp.async, zero-filled past S.
+  auto load_block = [&](int stage, int t0, bool first) {
+    const int L = min(kChunk, S - t0);
+    __nv_bfloat16* db = sB + stage * kChunk * ldb;
+    __nv_bfloat16* dc = sC + stage * kChunk * ldb;
+    if (tid < 2 * kChunk) {
+      const int s = tid / 2, e = (tid % 2) * 8;
+      const long long t = t0 + (s < L ? s : 0);
+      cp_async16(sX + (stage * kChunk + s) * kXS + e, x + t * prm.x_ss + e, s < L);
+    } else if (tid < 3 * kChunk) {
+      const int s = tid - 2 * kChunk;
+      const long long t = t0 + (s < L ? s : 0);
+      cp_async4(sDt + stage * kChunk + s, dt + t * H, s < L);
+    }
+    cp_async_commit();
+    if (tid == 0) mbar_expect_tx(bar_bc + stage, 2 * L * row_bytes);
+    if (first) cluster_wait();
+    if (warp == 1) {
+      const int s = rank + csize * lane;
+      if (s < L) {
+        const uint16_t all = (uint16_t)((1u << csize) - 1);
+        bulk_load_multicast(db + s * ldb, b + (long long)(t0 + s) * prm.b_ss, row_bytes,
+                            bar_bc + stage, all);
+        bulk_load_multicast(dc + s * ldb, c + (long long)(t0 + s) * prm.c_ss, row_bytes,
+                            bar_bc + stage, all);
+      }
+    }
+    for (int i = L * N / 2 + tid; i < kChunk * N / 2; i += kThreads) {
+      const int s = i / (N / 2), e = 2 * (i % (N / 2));
+      *reinterpret_cast<uint32_t*>(db + s * ldb + e) = 0u;
+      *reinterpret_cast<uint32_t*>(dc + s * ldb + e) = 0u;
+    }
+  };
+
+  load_block(0, 0, true);
+
+  for (int k = 0; k < nb; ++k) {
+    const int stage = k % lay.stages, buf = k & 1, t0 = k * kChunk;
+    const int L = min(kChunk, S - t0);
+    if (k + 1 < nb) {
+      load_block((k + 1) % lay.stages, t0 + kChunk, false);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    mbar_wait(bar_bc + stage, (k / lay.stages) & 1);
+    __syncthreads();
+
+    const __nv_bfloat16* cB = sB + stage * kChunk * ldb;
+    const __nv_bfloat16* cC = sC + stage * kChunk * ldb;
+    const __nv_bfloat16* cX = sX + stage * kChunk * kXS;
+    const float* cDt = sDt + stage * kChunk;
+    const float* st = sState + buf * kRows * lds;            // state before the block
+    float* st_next = sState + (buf ^ 1) * kRows * lds;       // state after it
+    float* line = sLine + warp * 32;
+
+    // every warp scans dt*a itself (the same bits in each): lane = token
+    const float dt_l = cDt[lane];                            // 0 past L
+    float cs = lane < L ? dt_l * a : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, cs, o);
+      if (lane >= o) cs += u;
+    }
+    const float cs_last = __shfl_sync(0xffffffffu, cs, L - 1);
+    const int mt = warp % 2;                 // rows l in [16 mt, 16 mt + 16) of y
+    const int l0 = mt * 16 + g8;
+
+    if (warp < 2) {
+      float yin[2][4] = {};
+      if (16 * mt < L) {
+        line[lane] = cs;
+        // C.B^T over the causal s tiles (n-tile pairs np <= mt)
+        float cb[4][4] = {};
+#pragma unroll 2
+        for (int ks = 0; ks < nks; ++ks) {
+          uint32_t ca[4];
+          ldmatrix_x4(ca, cC + (mt * 16 + (mi % 2) * 8 + lane % 8) * ldb + ks * 16 + (mi / 2) * 8);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            if (np > mt) continue;
+            uint32_t bf[4];
+            ldmatrix_x4(bf, cB + (np * 16 + (mi / 2) * 8 + lane % 8) * ldb + ks * 16 + (mi % 2) * 8);
+            mma_bf16(cb[2 * np], ca, bf[0], bf[1]);
+            mma_bf16(cb[2 * np + 1], ca, bf[2], bf[3]);
+          }
+        }
+        __syncwarp();
+        // M = C.B^T exp(cs_l - cs_s) dt_s for s <= l (masked before the exp),
+        // split into hi / lo A fragments of M . x
+        const float cs_l[2] = {line[l0], line[l0 + 8]};
+        uint32_t mhi[2][4], mlo[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float m[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int l = l0 + 8 * (e / 2), s = nt * 8 + 2 * t4 + e % 2;
+            m[e] = nt / 2 <= mt && s <= l ? cb[nt][e] * expf(cs_l[e / 2] - line[s]) * cDt[s] : 0.f;
+          }
+          // accumulator (rows g8, g8 + 8; cols 2 t4, +1) -> A fragment halves
+          split_pair(m[0], m[1], mhi[nt / 2][2 * (nt % 2)], mlo[nt / 2][2 * (nt % 2)]);
+          split_pair(m[2], m[3], mhi[nt / 2][2 * (nt % 2) + 1], mlo[nt / 2][2 * (nt % 2) + 1]);
+        }
+        // y_in = M . x: x exact (B fragments by ldmatrix.trans), hi then lo
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          if (kk > mt) continue;
+          uint32_t xf[4];
+          ldmatrix_x4_trans(xf, cX + (kk * 16 + (mi % 2) * 8 + lane % 8) * kXS + (mi / 2) * 8);
+          mma_bf16(yin[0], mhi[kk], xf[0], xf[1]);
+          mma_bf16(yin[0], mlo[kk], xf[0], xf[1]);
+          mma_bf16(yin[1], mhi[kk], xf[2], xf[3]);
+          mma_bf16(yin[1], mlo[kk], xf[2], xf[3]);
+        }
+      }
+      // y = y_in + exp(cs_l) (y_off of warp 2 + y_off of warp 3)
+      named_sync(2, kThreads);
+      if (16 * mt < L) {
+        const float* part = sPart + mt * 8 * 32 + lane;       // [warp 2, 3][mt][8][32]
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int l = l0 + 8 * hh;
+          if (l >= L) continue;
+          const float e_l = expf(line[l]);
+          __nv_bfloat16* yr = y + (long long)(t0 + l) * H * P;
+#pragma unroll
+          for (int rt = 0; rt < 2; ++rt) {
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = rt * 4 + 2 * hh + e;
+              v[e] = fmaf(e_l, part[i * 32] + part[(16 + i) * 32], yin[rt][2 * hh + e]);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(yr + rt * 8 + 2 * t4) = __floats2bfloat162_rn(v[0], v[1]);
+          }
+        }
+      }
+    } else {
+      // state' = exp(cs_last) state + (x w)^T . B, w_s = dt_s exp(cs_last - cs_s),
+      // and y_off = C . state^T split over k: warp 2 the even 16-column
+      // groups j of N, warp 3 the odd ones. The raw state fragments that
+      // start the update's accumulators are y_off's B fragments for k-step
+      // j (split hi / lo; C exact); the hi and lo products go to
+      // accumulators of their own, added at the end.
+      line[lane] = lane < L ? dt_l * expf(cs_last - cs) : 0.f;
+      __syncwarp();
+      uint32_t ahi[2][4], alo[2][4];         // A = (x w)^T: rows r, k = s
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {         // a0..a3: (row g8 | g8+8, s | s+8)
+          const int r = g8 + 8 * (q % 2), s = kk * 16 + 2 * t4 + 8 * (q / 2);
+          const float x0 = __bfloat162float(cX[s * kXS + r]);
+          const float x1 = __bfloat162float(cX[(s + 1) * kXS + r]);
+          split_pair(x0 * line[s], x1 * line[s + 1], ahi[kk][q], alo[kk][q]);
+        }
+      }
+      const float total = expf(cs_last);
+      const bool two = L > 16;                 // rows 16-31 of y exist
+      float yoff[2][2][4] = {}, yoff_lo[2][2][4] = {};   // [mt][rt]
+      if (k == 0 && has_init) mbar_wait(bar_state, 0);
+      for (int j = warp - 2; j < nks; j += 2) {   // 16 columns of N at a time
+        float acc[2][4];
+        uint32_t shi[2][2], slo[2][2];         // y_off B fragments [rt][b0, b1]
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                st + (g8 + 8 * hh) * lds + j * 16 + nn * 8 + 2 * t4);
+            acc[nn][2 * hh] = v.x * total;
+            acc[nn][2 * hh + 1] = v.y * total;
+            split_pair(v.x, v.y, shi[hh][nn], slo[hh][nn]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          if (16 * kk >= L) continue;
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, cB + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldb + j * 16 + (mi / 2) * 8);
+          mma_bf16(acc[0], ahi[kk], bf[0], bf[1]);
+          mma_bf16(acc[0], alo[kk], bf[0], bf[1]);
+          mma_bf16(acc[1], ahi[kk], bf[2], bf[3]);
+          mma_bf16(acc[1], alo[kk], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(st_next + (g8 + 8 * hh) * lds + j * 16 + nn * 8 + 2 * t4) =
+                make_float2(acc[nn][2 * hh], acc[nn][2 * hh + 1]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (m == 1 && !two) continue;
+          uint32_t ca[4];
+          ldmatrix_x4(ca, cC + (m * 16 + (mi % 2) * 8 + lane % 8) * ldb + j * 16 + (mi / 2) * 8);
+#pragma unroll
+          for (int rt = 0; rt < 2; ++rt) {
+            mma_bf16(yoff[m][rt], ca, shi[rt][0], shi[rt][1]);
+            mma_bf16(yoff_lo[m][rt], ca, slo[rt][0], slo[rt][1]);
+          }
+        }
+      }
+      float* part = sPart + (warp - 2) * 16 * 32 + lane;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          part[(m * 8 + i) * 32] = yoff[m][i / 4][i % 4] + yoff_lo[m][i / 4][i % 4];
+      if (k + 1 == nb) fence_async_smem();     // the bulk store reads st_next
+      named_arrive(2, kThreads);
+      if (k + 1 == nb) {
+        // the final state out: 16 row copies from shared memory, while
+        // warps 0-1 finish y
+        named_sync(1, 64);
+        if (warp == 2 && lane < kRows) {
+          bulk_store(prm.final_state + state_off + (long long)lane * N, st_next + lane * lds,
+                     N * (int)sizeof(float));
+          bulk_commit();                       // waited for at exit
+        }
+      }
+    }
+    // the next block's copies reuse a stage that every CTA of the cluster
+    // must have finished reading
+    if (k + 2 < nb)
+      cluster_sync();
+    else if (k + 1 < nb)
+      __syncthreads();
+  }
+  if (warp == 2 && lane < kRows) bulk_wait_read();
+}
+
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+cudaError_t launch_fma(const Params& prm, cudaStream_t stream) {
+  const size_t smem = fma_smem_floats(prm.dstate) * sizeof(float);
+  cudaError_t e = set_smem((const void*)ssd_scan_fma_kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((prm.headdim + kRows - 1) / kRows, prm.batch * prm.heads);
-  kernel<<<grid, kThreads, smem, stream>>>(prm);
+  ssd_scan_fma_kernel<<<grid, kThreads, smem, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch_mma(const Params& prm, cudaStream_t stream) {
+  // 16-row P tiles, 16-deep k-steps over N, 16-byte copies of every row
+  if (prm.headdim % 16 || prm.dstate % 16 || !aligned16(prm.x) || !aligned16(prm.b)
+      || !aligned16(prm.c) || (prm.init_state && !aligned16(prm.init_state))
+      || !aligned16(prm.final_state) || prm.x_sb % 8 || prm.x_ss % 8 || prm.b_sb % 8
+      || prm.b_ss % 8 || prm.c_sb % 8 || prm.c_ss % 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = MmaSmem(prm.dstate, prm.seqlen).bytes;
+  cudaError_t e = set_smem((const void*)ssd_scan_mma_kernel, smem);
+  if (e != cudaSuccess) return e;
+  // all of the SM's 228 KB as shared memory: every CTA of the serving
+  // shape resident at once, its state copy in flight from the start
+  e = cudaFuncSetAttribute((const void*)ssd_scan_mma_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  // a cluster holds up to 8 P tiles of one head (4 at P 64), and of two
+  // heads of one group (the same B, C rows) where that fits in 8
+  const int tiles = prm.headdim / kRows;
+  int cluster = 1;
+  while (cluster < 8 && tiles % (2 * cluster) == 0) cluster *= 2;
+  const int heads_per_cluster = cluster <= 4 && (prm.heads / prm.groups) % 2 == 0 ? 2 : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, prm.batch * prm.heads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = heads_per_cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssd_scan_mma_kernel, prm);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b, c and y). Strides are in elements.
-// Returns the launch's cudaError_t (0 = success).
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel; P and N multiples of 16, x/b/c rows and the states 16-byte
+// aligned). Strides are in elements. Returns the launch's cudaError_t
+// (0 = success).
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* a, const void* b, const void* c,
     const void* init_state, void* y, void* final_state,
@@ -245,9 +801,9 @@ extern "C" int ssd_scan_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(prm, st);
+    e = launch_fma(prm, st);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(prm, st);
+    e = launch_mma(prm, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

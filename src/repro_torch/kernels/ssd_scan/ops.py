@@ -72,6 +72,24 @@ def _check(x, dt, a, b, c, init_state):
     for name, t in (("dt", dt), ("a", a), ("init_state", init_state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if x.dtype == torch.bfloat16:
+        _check_tensor_core_tiles(x, b, c, init_state)
+
+
+def _check_tensor_core_tiles(x, b, c, init_state):
+    """What the bf16 kernel adds: 16-row P tiles and 16-deep k-steps over
+    N, and every row it copies (x, b, c by 16-byte cp.async, the state by
+    bulk copies) starting on a 16-byte boundary."""
+    P, N = x.shape[3], b.shape[3]
+    if P % 16 or N % 16:
+        raise ValueError(f"bf16: P {P} and N {N} must be multiples of 16")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"bf16: {name}'s rows must start 16-byte aligned "
+                             f"(data_ptr % 16, batch and sequence strides "
+                             f"{t.stride(0)}, {t.stride(1)} multiples of 8)")
+    if init_state is not None and init_state.data_ptr() % 16:
+        raise ValueError("bf16: init_state must start 16-byte aligned")
 
 
 def ssd_scan(x, dt, a, b, c, *, chunk: int,
@@ -82,9 +100,16 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int,
     a: (H,) fp32, negative; b/c: (B, S, G, N) in x's dtype, H % G == 0;
     ``init_state``: (B, H, P, N) fp32, or None for zeros. Returns (y
     (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32). ``chunk``
-    is the plain version's chunk length (``ssm_chunk``); the kernel walks
-    the sequence in blocks of its own, so the two agree within fp32
-    rounding, not bit for bit."""
+    is the plain version's chunk length (``ssm_chunk``); either kernel
+    walks the sequence in 32-token blocks of its own, one CTA per 16 rows
+    of P, and sums in a fixed order (two launches are bit-equal). fp32 runs
+    the FMA kernel and agrees with the plain version within fp32 rounding
+    (2e-4 is the stated tolerance). bf16 runs the tensor-core kernel: exact
+    bf16 products with its fp32 operands (the decay-weighted C·Bᵀ, the
+    state, x·w) split into bf16 hi + lo, so the state keeps about 16 bits
+    of mantissa per term and agrees within the same 2e-4, and y within two
+    bf16 ulps; it needs P and N in multiples of 16 and 16-byte aligned
+    rows (``_check_tensor_core_tiles``)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
     if x.device.type != "cuda":

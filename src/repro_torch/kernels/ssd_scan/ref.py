@@ -5,7 +5,13 @@ the oracle the Hopper kernel (``csrc/ssd_scan.cu``) is held against.
   the model layout, with a Python loop over chunks where JAX runs
   ``lax.scan``: within a chunk the quadratic "attention" form
   (C·Bᵀ ⊙ exp-segsum decay)·(x·dt), plus the carried (P, N) state scaled
-  by exp(cumsum dA); the state is carried across chunks in fp32.
+  by exp(cumsum dA); the state is carried across chunks in fp32. Its
+  chunks are the model's ``ssm_chunk``; both kernels walk 32-token blocks
+  instead, so they agree with it within rounding, not bit for bit: the
+  fp32 FMA kernel within fp32 rounding, the bf16 tensor-core kernel
+  (exact bf16 products, its fp32 operands split into bf16 hi + lo) within
+  2e-4 in the state and two bf16 ulps in y. Everything here runs in fp32
+  on bf16 inputs and rounds y once.
 - :func:`ssd_scan_sequential` is the port of
   ``repro.kernels.ssd_scan.ref.ssd_scan_ref``: the token-by-token
   recurrence in the kernel's (batch·head) layout, an implementation

@@ -2,9 +2,11 @@
 version (``ssd_scan_ref``, model layout) against the Pallas kernel in
 interpret mode at the reference tests' shapes, against ``ssd_chunked``
 with a carried initial state (y and final state), and against the
-sequential oracle; the oracle against the JAX oracle; and the wrapper's
-CPU routing and input checks. Inputs are made with numpy and handed to
-both packages. Tolerance: 2e-4, the reference's own SSD tolerance."""
+sequential oracle; the oracle against the JAX oracle; the wrapper's CPU
+routing and input checks; and a plain-torch emulation of the bf16
+tensor-core kernel's arithmetic against the plain version. Inputs are made
+with numpy and handed to both packages. Tolerance: 2e-4, the reference's
+own SSD tolerance (bf16 y: chip_smoke.py's limits)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +156,158 @@ def test_wrapper_checks_accept_projection_views():
     assert not x.is_contiguous() and x.data_ptr() == xbc.data_ptr()
     dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, H)).astype(np.float32))
     ssd_ops._check(x, dt, -torch.ones(H), b, c, None)
+
+
+# -- the bf16 tensor-core kernel's arithmetic, emulated in plain torch ------
+#
+# The kernel (csrc/ssd_scan.cu, ssd_scan_mma_kernel) walks 32-token blocks
+# and runs every product on mma.sync with bf16 operands and fp32 sums, one
+# operand an exact bf16 input, the fp32 operand split into bf16 hi + lo.
+# Below, the same arithmetic: bf16 values held in fp32 (their products are
+# exact in fp32), fp32 matmuls for the sums. Never on the main path.
+
+BLOCK = 32
+Y_RTOL = 2 ** -6        # chip_smoke.py's bf16 y limit: rtol, and atol
+STATE_TOL = 2e-4        # SSD_TOL x max|y|; the state: atol = rtol = SSD_TOL
+
+
+def _split(v, keep_lo=True):
+    """fp32 -> (hi, lo), each a bf16 value held in fp32."""
+    hi = v.to(torch.bfloat16).float()
+    lo = (v - hi).to(torch.bfloat16).float()
+    return hi, lo if keep_lo else torch.zeros_like(lo)
+
+
+def _emulate_kernel(x, dt, a, b, c, init_state=None, keep_lo=True):
+    """The bf16 kernel's arithmetic on (B, S, H, P) bf16 x and (B, S, G, N)
+    bf16 b/c; returns (y bf16, final state fp32). ``keep_lo=False`` drops
+    the lo halves: single-pass bf16 rounding of the fp32 operands."""
+    B, S, H, P = x.shape
+    rep = H // b.shape[2]
+    xf = x.float().transpose(1, 2)                               # (B, H, S, P)
+    bf = b.float().repeat_interleave(rep, 2).transpose(1, 2)     # (B, H, S, N)
+    cf = c.float().repeat_interleave(rep, 2).transpose(1, 2)
+    dtf = dt.float().transpose(1, 2)                             # (B, H, S)
+    state = (torch.zeros((B, H, P, b.shape[3])) if init_state is None
+             else init_state.float().clone())
+    ys = []
+    for t0 in range(0, S, BLOCK):
+        sl = slice(t0, min(S, t0 + BLOCK))
+        xb, bb, cb, dtb = xf[:, :, sl], bf[:, :, sl], cf[:, :, sl], dtf[:, :, sl]
+        L = xb.shape[2]
+        cs = torch.cumsum(dtb * a[None, :, None], dim=-1)        # (B, H, L)
+        tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+        seg = torch.where(tri, cs[..., :, None] - cs[..., None, :], -torch.inf)
+        m = (cb @ bb.transpose(-1, -2)) * torch.exp(seg) * dtb[..., None, :]
+        mh, ml = _split(m, keep_lo)
+        y_in = mh @ xb + ml @ xb
+        sh, sl_ = _split(state, keep_lo)
+        y_off = cb @ sh.transpose(-1, -2) + cb @ sl_.transpose(-1, -2)
+        ys.append(y_in + torch.exp(cs)[..., None] * y_off)
+        w = dtb * torch.exp(cs[..., -1:] - cs)
+        xh, xl = _split(xb * w[..., None], keep_lo)
+        state = (state * torch.exp(cs[..., -1])[..., None, None]
+                 + xh.transpose(-1, -2) @ bb + xl.transpose(-1, -2) @ bb)
+    y = torch.cat(ys, dim=2).transpose(1, 2)
+    return y.to(torch.bfloat16), state
+
+
+def _bf16_inputs(B, S, H, G, P, N, seed, state):
+    x, dt, a, b, c, init = _inputs(B, S, H, G, P, N, seed=seed, state=state)
+    xb, bb, cb = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, b, c))
+    return xb, _t(dt), _t(a), bb, cb, _t(init)
+
+
+def _within_chip_limits(y, state, want_y, want_state):
+    """chip_smoke.py's bf16 limits: y within rtol 2**-6 and atol 2e-4 x
+    max|y|, the state within 2e-4 atol and rtol."""
+    scale = want_y.float().abs().max().item()
+    return (torch.allclose(y.float(), want_y.float(), rtol=Y_RTOL,
+                           atol=STATE_TOL * scale)
+            and torch.allclose(state, want_state, atol=STATE_TOL, rtol=STATE_TOL))
+
+
+@pytest.mark.parametrize("S", [1, 9, 32, 40])
+@pytest.mark.parametrize("state", [False, True])
+def test_tensor_core_arithmetic_matches_plain_version(S, state):
+    """hi/lo splits of the fp32 operands, exact bf16 products and fp32 sums
+    agree with the plain version within the limits chip_smoke.py holds the
+    bf16 kernel to, on ragged blocks (S 1, 9, 40) and with G > 1."""
+    args = _bf16_inputs(1, S, 4, 2, 16, 32, seed=10 + S, state=state)
+    y, st = _emulate_kernel(*args)
+    want_y, want_st = ssd_scan_ref(*args[:5], chunk=256, init_state=args[5])
+    assert y.dtype == torch.bfloat16 and st.shape == want_st.shape
+    assert _within_chip_limits(y, st, want_y, want_st)
+
+
+def test_tensor_core_state_error_stays_bounded_over_chunks():
+    """The state carried chunk to chunk (8 chunks of 32 tokens, each
+    resuming from the previous one's state, as prefill chunks resume from
+    state pages): its error against the plain version's own chain stays
+    inside 2e-4 and does not grow. Dropping the lo halves (single-pass bf16
+    operands) does not hold that tolerance."""
+    rng_state = _inputs(1, 1, 4, 1, 16, 32, seed=20, state=True)[5]
+    state = want = torch.from_numpy(rng_state)
+    lossy = state
+    errs, lossy_errs = [], []
+    for k in range(8):
+        xb, dt, a, bb, cb, _ = _bf16_inputs(1, 32, 4, 1, 16, 32, seed=30 + k,
+                                            state=False)
+        y, state = _emulate_kernel(xb, dt, a, bb, cb, state)
+        want_y, want = ssd_scan_ref(xb, dt, a, bb, cb, chunk=256, init_state=want)
+        _, lossy = _emulate_kernel(xb, dt, a, bb, cb, lossy, keep_lo=False)
+        assert _within_chip_limits(y, state, want_y, want)
+        errs.append((state - want).abs().max().item())
+        lossy_errs.append((lossy - want).abs().max().item())
+    assert max(errs[4:]) <= 2 * max(errs[:4])
+    assert max(lossy_errs) > STATE_TOL > max(errs)
+
+
+# -- refusals of the bf16 kernel ---------------------------------------------
+
+def _bf16_views(P=16, N=16, width_pad=0, offset=0):
+    """x, b, c as views into one bf16 projection (B 1, S 9, H 4, G 1), as
+    the model hands them over; ``width_pad`` widens each token's row and
+    ``offset`` shifts the views' start, in elements."""
+    rng = np.random.default_rng(9)
+    B, S, H, G = 1, 9, 4, 1
+    width = H * P + 2 * G * N + width_pad
+    flat = torch.from_numpy(rng.normal(0, 1, B * S * width + offset)
+                            .astype(np.float32)).to(torch.bfloat16)
+    xbc = flat[offset:].view(B, S, width)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    b = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    c = xbc[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, H)).astype(np.float32))
+    return dict(x=x, dt=dt, a=-torch.ones(H), b=b, c=c,
+                init_state=torch.zeros((B, H, P, N)))
+
+
+def test_wrapper_checks_accept_bf16_projection_views():
+    """The bf16 kernel takes the model's views into the conv output as
+    they are: 16-byte aligned rows, strided over the sequence."""
+    v = _bf16_views()
+    assert not v["x"].is_contiguous()
+    ssd_ops._check(**v)
+
+
+def _misaligned_state():
+    v = _bf16_views()
+    flat = torch.zeros(v["init_state"].numel() + 1)
+    return dict(v, init_state=flat[1:].view(v["init_state"].shape))
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _bf16_views(P=8), r"P 8 and N 16 must be multiples of 16"),
+    (lambda: _bf16_views(N=24), r"P 16 and N 24 must be multiples of 16"),
+    (lambda: _bf16_views(width_pad=4), "x's rows must start 16-byte aligned"),
+    (lambda: _bf16_views(offset=4), "x's rows must start 16-byte aligned"),
+    (lambda: dict(_bf16_views(), b=_bf16_views(offset=4)["b"]),
+     "b's rows must start 16-byte aligned"),
+    (lambda: dict(_bf16_views(), c=_bf16_views(offset=4)["c"]),
+     "c's rows must start 16-byte aligned"),
+    (_misaligned_state, "init_state must start 16-byte aligned"),
+])
+def test_wrapper_checks_refuse_what_the_bf16_kernel_does_not_take(make, match):
+    with pytest.raises(ValueError, match=match):
+        ssd_ops._check(**make())
