@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
-Hopper card: both serving paths, dense attention (qwen3-8b) and SSM
-(mamba2-2.7b), the training path (gemma-2b), and their five kernels.
+Hopper card: the three serving paths, dense attention (qwen3-8b), SSM
+(mamba2-2.7b) and hybrid (hymba-1.5b: attention and SSD heads in every
+layer), the training path (gemma-2b), and their five kernels.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -18,24 +19,29 @@ Phases, each printing one JSON line:
                  dQ kernels and HMMA in the bf16 paged-attention and SSD
                  kernels;
 3. kernel      — holds ragged paged attention against its plain PyTorch
-                 version at the qwen3-8b path's geometry (fp32 and bf16,
-                 decode / sparse table / extend / softcap / window, and
-                 KV ranges of more splits than one CTA takes), checks
-                 bit-equality under trailing null table slots and between
-                 a row's decode and extend launches, and times the kernel,
-                 its plain version and one PyTorch library call (CUDA
-                 events, L2 flushed; the kernel and the library call also
-                 by the profiler's device time) at the main path's decode,
-                 an extend and a long decode (4 x 4096);
+                 version at the qwen3-8b path's geometry (32/8 heads, D
+                 128: decode / sparse table / extend / softcap / window, and
+                 KV ranges of more splits than one CTA takes) and at
+                 hymba-1.5b's (25/5 heads, a group of 5, D 64: decode over
+                 kv 161-230, the 160-row first chunk over five pages, the
+                 chunk after it, windows 64 and 2048), fp32 and bf16;
+                 checks bit-equality under trailing null table slots and
+                 between a row's decode and extend launches, and times the
+                 kernel, its plain version and one PyTorch library call
+                 (CUDA events, L2 flushed; the kernel and the library call
+                 also by the profiler's device time) at the main paths'
+                 decodes, two extends and a long decode (4 x 4096);
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
-                 batch, x/b/c as views into one projection, zero and random
-                 initial states, fp32 (FMA kernel) and bf16 (tensor-core
-                 kernel); checks that two launches are bit-equal; times the
-                 kernel (events and the profiler's device time) and its
-                 plain version (no single PyTorch call computes an SSD
-                 scan);
+                 batch, x/b/c as views into one projection, and at
+                 hymba-1.5b's (H 50 in one group, P 64, N 16) for S 1 and
+                 32 with a state, the 160-row first chunk from zeros and
+                 the projection views; zero and random initial states, fp32
+                 (FMA kernel) and bf16 (tensor-core kernel); checks that two
+                 launches are bit-equal; times the kernel (events and the
+                 profiler's device time) and its plain version (no single
+                 PyTorch call computes an SSD scan);
 5. flash       — holds the flash-attention forward and both backward
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
@@ -50,10 +56,14 @@ Phases, each printing one JSON line:
                  backward) at the gemma-2b shape, and records the bf16
                  kernels and plain versions against float64 there;
 6. reduced     — the models' paged prefill / extend / decode on reduced fp32
-                 qwen3-8b and mamba2-2.7b, CUDA (the kernels) against the
-                 CPU path (the plain versions), same weights; and on CUDA a
-                 reduced mamba2 engine's prefix hit decodes the tokens of a
-                 cold start, in fp32 and in bf16;
+                 qwen3-8b, mamba2-2.7b and hymba-1.5b (page 16), CUDA (the
+                 kernels) against the CPU path (the plain versions), same
+                 weights; and on CUDA a reduced mamba2 engine's and a
+                 reduced hymba engine's (page 4: the first chunk spans three
+                 pages) prefix hits decode the tokens of a cold start, in
+                 fp32 and in bf16; the weights of reduced qwen3-8b,
+                 mamba2-2.7b, gemma-2b and hymba-1.5b drawn on the card equal
+                 the CPU's bit for bit;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -76,7 +86,15 @@ Phases, each printing one JSON line:
                  engine is freed; every layer of every prefill chunk
                  launched the SSD kernel, and a prefix hit resumed from a
                  state page with zero copy bytes;
-11. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
+11. hybrid serve — the same for hymba-1.5b (32 layers, d 1600, 25/5 heads
+                 of 64, sliding window 2048 except layers 0/15/31, 50 SSD
+                 heads of 64, state 16, 128 meta tokens, vocab 32001, bf16),
+                 after the mamba2 engine is freed: every layer of every
+                 model call launched the attention kernel and every layer
+                 of every prefill chunk the SSD kernel; the shared head ends
+                 at position 160, a page boundary, so hits resume from a
+                 state page;
+12. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
                  8/1 at head_dim 256, GeGLU d_ff 16384, vocab 256000, bf16,
                  ``remat="full"``, AdamW) through ``repro_torch.launch.train``:
                  4 steps of 4 x 2048 tokens, after the serving engines are
@@ -84,8 +102,10 @@ Phases, each printing one JSON line:
                  kernel twice (forward and recompute) and each backward
                  kernel once.
 
-Then a line ``{"kernels": [...]}`` with each kernel's launches, error and
-times, the card's ``nvidia-smi`` name/power line, and last
+Then a ``phase_seconds`` line with each phase's wall time and the total,
+a line ``{"kernels": [...]}`` with each kernel's launches (summed
+over the paths that run it, each path's count beside), error and times,
+the card's ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
 non-zero and prints no result line. It imports nothing of JAX.
 """
@@ -103,7 +123,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PAGE = 32            # --page-tokens default
-HQ, HKV, D = 32, 8, 128
+HQ, HKV, D = 32, 8, 128          # qwen3-8b's attention geometry
+HYMBA = (25, 5, 64)              # hymba-1.5b's: a group of 5 query heads, D 64
+HYMBA_META = 128                 # its meta tokens: the first chunk is 160 rows
 HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / fp32 (no TF32)
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
@@ -111,7 +133,8 @@ TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 # bf16: about two bf16 ulps at magnitude 1 (both round the fp32 result
 # once), the absolute part scaled by min(1, the case's max |out|)
 SSD_H, SSD_P, SSD_N = 80, 64, 128   # mamba2-2.7b: 80 SSD heads of 64, state 128
-SSD_CHUNK = 256                     # its ssm_chunk
+SSD_CHUNK = 256                     # its ssm_chunk (and hymba-1.5b's)
+SSD_HYMBA = {"H": 50, "P": 64, "N": 16, "G": 1}   # hymba-1.5b: 50 heads, state 16
 SSD_TOL = 2e-4
 # fp32 y and every final state: the reference's own SSD tolerance
 # (tests/test_kernels.py), atol and rtol; bf16 y: rtol 2**-6 (two bf16 ulps
@@ -135,12 +158,14 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def make_case(torch, q_lens, kv_lens, dtype, *, extra_null=0, sparse=False,
-              seed=0):
-    """A ragged batch on a shuffled page pool: sequence s owns
+def make_case(torch, q_lens, kv_lens, dtype, *, geo=(HQ, HKV, D),
+              extra_null=0, sparse=False, seed=0):
+    """A ragged batch on a shuffled page pool at the attention geometry
+    ``geo`` = (query heads, KV heads, head_dim): sequence s owns
     ceil(kv_lens[s] / PAGE) pages at random pool ids; page 0 stays the
     null page. ``extra_null`` pads every table row with trailing null
     slots; ``sparse`` nulls every other slot."""
+    hq, hkv, d = geo
     g = torch.Generator().manual_seed(seed)
     n_pages = [-(-k // PAGE) for k in kv_lens]
     W = max(n_pages) + extra_null
@@ -152,9 +177,9 @@ def make_case(torch, q_lens, kv_lens, dtype, *, extra_null=0, sparse=False,
         perm = perm[n:]
     if sparse:
         table[:, 1::2] = 0
-    pages = torch.randn((P, PAGE, 2 * HKV, D), generator=g)
+    pages = torch.randn((P, PAGE, 2 * hkv, d), generator=g)
     pages[0] = 0
-    q = torch.randn((sum(q_lens), HQ, D), generator=g)
+    q = torch.randn((sum(q_lens), hq, d), generator=g)
     cu = torch.tensor([0] + list(torch.tensor(q_lens).cumsum(0).tolist()),
                       dtype=torch.int32)
     kl = torch.tensor(kv_lens, dtype=torch.int32)
@@ -168,9 +193,10 @@ def work(case, dtype_name):
     ``kv_len`` in non-null pages, each once; 4*D flops per attended
     (query head, key)."""
     q, pages, table, cu, kl = case
+    _, hq, d = q.shape
     item = q.element_size()
     cu_l, kl_l, tbl = cu.tolist(), kl.tolist(), table.tolist()
-    row_bytes = 2 * HKV * D * item
+    row_bytes = pages.shape[2] * d * item
     n_bytes = 2 * q.numel() * item + 4 * (table.numel() + cu.numel() + kl.numel())
     flops = 0
     for s, kv_len in enumerate(kl_l):
@@ -179,7 +205,7 @@ def work(case, dtype_name):
             if not p:
                 continue
             n_bytes += row_bytes * (min(kv_len, (j + 1) * PAGE) - j * PAGE)
-            flops += 4 * D * HQ * sum(
+            flops += 4 * d * hq * sum(
                 max(0, min(kv_len - qlen + i + 1, (j + 1) * PAGE) - j * PAGE)
                 for i in range(qlen))
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
@@ -235,17 +261,19 @@ def sdpa_inputs(torch, case):
     lengths and causality. Timed beside the kernel; never used by the
     port."""
     q, pages, table, cu, kl = case
+    _, hq, d = q.shape
+    hkv = pages.shape[2] // 2
     cu_l, kl_l = cu.tolist(), kl.tolist()
     S = len(kl_l)
     qmax = max(cu_l[s + 1] - cu_l[s] for s in range(S))
     L = max(kl_l)
-    k = torch.zeros((S, HKV, L, D), dtype=q.dtype, device=q.device)
+    k = torch.zeros((S, hkv, L, d), dtype=q.dtype, device=q.device)
     v = torch.zeros_like(k)
-    qq = torch.zeros((S, HQ, qmax, D), dtype=q.dtype, device=q.device)
+    qq = torch.zeros((S, hq, qmax, d), dtype=q.dtype, device=q.device)
     mask = torch.zeros((S, 1, qmax, L), dtype=torch.bool, device=q.device)
     for s in range(S):
         n = -(-kl_l[s] // PAGE)
-        kv = pages[table[s, :n].long()].reshape(n * PAGE, 2 * HKV, D)[:kl_l[s]]
+        kv = pages[table[s, :n].long()].reshape(n * PAGE, 2 * hkv, d)[:kl_l[s]]
         k[s, :, :kl_l[s]] = kv[:, 0::2].transpose(0, 1)
         v[s, :, :kl_l[s]] = kv[:, 1::2].transpose(0, 1)
         qlen = cu_l[s + 1] - cu_l[s]
@@ -258,27 +286,44 @@ def sdpa_inputs(torch, case):
 
 def kernel_phase(torch, ops, ref, smi):
     rpa, rpa_ref = ops.ragged_paged_attention, ref.ragged_paged_attention_ref
-    scale = D ** -0.5
+    qwen = (HQ, HKV, D)
     decode = ([1, 1, 1, 1], [33, 77, 100, 128])
     mixed = ([5, 1, 48, 1], [37, 64, 80, 128])
     extend = ([48], [80])
     long = ([1, 1, 1, 1], [1000, 700, 1500, 333])   # more splits than one CTA takes
-    cases = [("decode", decode, {}, {}),
-             ("sparse_table", mixed, {"sparse": True}, {}),
-             ("extend48", extend, {}, {}),
-             ("decode_cap", decode, {}, {"cap": 30.0}),
-             ("decode_window", decode, {}, {"window": 40}),
-             ("extend48_cap_window", extend, {}, {"cap": 30.0, "window": 40}),
-             ("long_decode", long, {}, {}),
-             ("long_extend_window", ([20, 3], [1000, 600]), {}, {"window": 300}),
+    # hymba-1.5b: a group of 5 query heads packed into the 16-row tiles, D 64;
+    # decode behind the 128 meta tokens, the 160-row first chunk over five
+    # pages, the 32-row chunk after it; a binding window of 64 and the
+    # model's 2048
+    h_decode = ([1, 1, 1, 1], [161, 183, 207, 230])
+    h_first = ([HYMBA_META + PAGE], [HYMBA_META + PAGE])
+    h_next = ([PAGE], [HYMBA_META + 2 * PAGE])
+    cases = [("decode", qwen, decode, {}, {}),
+             ("sparse_table", qwen, mixed, {"sparse": True}, {}),
+             ("extend48", qwen, extend, {}, {}),
+             ("decode_cap", qwen, decode, {}, {"cap": 30.0}),
+             ("decode_window", qwen, decode, {}, {"window": 40}),
+             ("extend48_cap_window", qwen, extend, {}, {"cap": 30.0, "window": 40}),
+             ("long_decode", qwen, long, {}, {}),
+             ("long_extend_window", qwen, ([20, 3], [1000, 600]), {}, {"window": 300}),
              # 128 pages and more: several slots a split
-             ("multi_slot_splits", ([1, 3], [4500, 6000]), {}, {}),
-             ("multi_slot_window", ([1, 20], [6000, 4200]), {}, {"window": 2500})]
+             ("multi_slot_splits", qwen, ([1, 3], [4500, 6000]), {}, {}),
+             ("multi_slot_window", qwen, ([1, 20], [6000, 4200]), {}, {"window": 2500}),
+             ("hymba_decode", HYMBA, h_decode, {}, {}),
+             ("hymba_decode_window64", HYMBA, h_decode, {}, {"window": 64}),
+             ("hymba_decode_window2048", HYMBA, h_decode, {}, {"window": 2048}),
+             ("hymba_first_chunk", HYMBA, h_first, {}, {}),
+             ("hymba_first_chunk_window64", HYMBA, h_first, {}, {"window": 64}),
+             ("hymba_first_chunk_window2048", HYMBA, h_first, {}, {"window": 2048}),
+             ("hymba_next_chunk_window64", HYMBA, h_next, {}, {"window": 64}),
+             ("hymba_sparse_table", HYMBA, ([1, 32, 1], [161, 192, 230]),
+              {"sparse": True}, {"window": 2048})]
     errs, atols = {}, {}
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for name, (ql, kl), mk, kw in cases:
-            case = make_case(torch, ql, kl, dtype, **mk)
+        for name, geo, (ql, kl), mk, kw in cases:
+            scale = geo[2] ** -0.5
+            case = make_case(torch, ql, kl, dtype, geo=geo, **mk)
             out = rpa(*case, scale=scale, max_q_len=max(ql), **kw)
             want = rpa_ref(*case, scale=scale, **kw)
             torch.cuda.synchronize()
@@ -294,10 +339,13 @@ def kernel_phase(torch, ops, ref, smi):
             if not torch.allclose(out.float(), want.float(), atol=atol, rtol=tol):
                 raise AssertionError(f"{dname}/{name}: kernel vs plain max abs "
                                      f"err {err} over tolerance {atol} + {tol} |want|")
-        for name, (ql, kl) in (("decode", decode), ("extend48", extend),
-                               ("long_decode", long)):
-            base = make_case(torch, ql, kl, dtype, seed=3)
-            padded = make_case(torch, ql, kl, dtype, seed=3, extra_null=20)
+        for name, geo, (ql, kl) in (("decode", qwen, decode), ("extend48", qwen, extend),
+                                    ("long_decode", qwen, long),
+                                    ("hymba_decode", HYMBA, h_decode),
+                                    ("hymba_first_chunk", HYMBA, h_first)):
+            scale = geo[2] ** -0.5
+            base = make_case(torch, ql, kl, dtype, geo=geo, seed=3)
+            padded = make_case(torch, ql, kl, dtype, geo=geo, seed=3, extra_null=20)
             assert torch.equal(base[1], padded[1]) and torch.equal(base[0], padded[0])
             o0 = rpa(*base, scale=scale, max_q_len=max(ql))
             o4 = rpa(*padded, scale=scale, max_q_len=max(ql))
@@ -306,25 +354,35 @@ def kernel_phase(torch, ops, ref, smi):
                                      "trailing null table slots")
         # the last row of an extend launch (one CTA folds every group) and the
         # same row alone in a decode launch (the groups spread over CTAs)
-        for kv_len in (80, 1000, 4500):
-            q, pages, table, cu, kl = make_case(torch, [48], [kv_len], dtype, seed=4)
-            ext = rpa(q, pages, table, cu, kl, scale=scale, max_q_len=48)
+        for geo, q_len, kv_len, window in ((qwen, 48, 80, None), (qwen, 48, 1000, None),
+                                           (qwen, 48, 4500, None),
+                                           (HYMBA, HYMBA_META + PAGE, HYMBA_META + PAGE, None),
+                                           (HYMBA, PAGE, 230, 64)):
+            scale = geo[2] ** -0.5
+            q, pages, table, cu, kl = make_case(torch, [q_len], [kv_len], dtype,
+                                                geo=geo, seed=4)
+            ext = rpa(q, pages, table, cu, kl, scale=scale, max_q_len=q_len,
+                      window=window)
             one = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
-            dec = rpa(q[-1:].contiguous(), pages, table, one, kl, scale=scale, max_q_len=1)
+            dec = rpa(q[-1:].contiguous(), pages, table, one, kl, scale=scale,
+                      max_q_len=1, window=window)
             if not torch.equal(ext[-1:], dec):
-                raise AssertionError(f"{dname}: kv {kv_len}, a row's decode and "
-                                     "extend launches differ")
+                raise AssertionError(f"{dname}: {geo}, kv {kv_len}, a row's "
+                                     "decode and extend launches differ")
     emit("kernel_check", kernel="ragged_paged_attention", max_abs_err=errs,
          tolerance={"rtol": TOL, "atol": atols}, padding_bit_equal=True,
          decode_equals_extend_row=True)
 
-    # -- times at the main path's bf16 shapes ---------------------------
+    # -- times at the main paths' bf16 shapes ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     timing = {}
-    for name, (ql, kl) in (("decode", ([1, 1, 1, 1], [72, 80, 88, 96])),
-                           ("extend", ([48], [80])),
-                           ("long_decode", ([1, 1, 1, 1], [4096] * 4))):
-        case = make_case(torch, ql, kl, torch.bfloat16, seed=5)
+    for name, geo, (ql, kl) in (("decode", qwen, ([1, 1, 1, 1], [72, 80, 88, 96])),
+                                ("extend", qwen, ([48], [80])),
+                                ("long_decode", qwen, ([1, 1, 1, 1], [4096] * 4)),
+                                ("hymba_decode", HYMBA, ([1, 1, 1, 1], [170, 190, 210, 230])),
+                                ("hymba_first_chunk", HYMBA, h_first)):
+        scale = geo[2] ** -0.5
+        case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5)
         n_bytes, flops, bound_ms, bound_by = work(case, "bfloat16")
         qq, k, v, mask = sdpa_inputs(torch, case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -332,7 +390,8 @@ def kernel_phase(torch, ops, ref, smi):
                            enable_gqa=True)
         kernel = lambda: rpa(*case, scale=scale, max_q_len=max(ql))  # noqa: E731
         timing[name] = {
-            "q_lens": ql, "kv_lens": kl, "bytes": n_bytes, "flops": flops,
+            "geometry": list(geo), "q_lens": ql, "kv_lens": kl, "bytes": n_bytes,
+            "flops": flops,
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, lambda: rpa_ref(*case, scale=scale),
                                 flush, iters=20),
@@ -409,7 +468,14 @@ def ssd_kernel_phase(torch, sops, sref, smi):
     cases += [("S512_multichunk", 512, {}),
               ("B2_G4_S40", 40, {"B": 2, "H": 8, "G": 4, "N": 64}),
               # the serving geometry as ssm_sublayer hands it over
-              ("S32_projection_views", 32, {"views": True})]
+              ("S32_projection_views", 32, {"views": True}),
+              # hymba-1.5b: 50 heads in one group (two heads a cluster), N 16
+              # (one k-step over the state); decode-length and page-length
+              # chunks with a state, the 160-row first chunk from zeros
+              ("hymba_S1_state", 1, SSD_HYMBA),
+              ("hymba_S32_state", 32, SSD_HYMBA),
+              ("hymba_S160_zero", 160, {**SSD_HYMBA, "state": False}),
+              ("hymba_S32_projection_views", 32, {**SSD_HYMBA, "views": True})]
     errs, max_err = {}, {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for i, (name, S, kw) in enumerate(cases):
@@ -442,12 +508,14 @@ def ssd_kernel_phase(torch, sops, sref, smi):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     timing = {}
-    for S in (32, 9):
-        case, init = ssd_case(torch, S, torch.bfloat16, seed=100 + S)
+    for name, S, kw in (("S32", 32, {}), ("S9", 9, {}),
+                        ("hymba_S32", 32, SSD_HYMBA),
+                        ("hymba_S160", 160, {**SSD_HYMBA, "state": False})):
+        case, init = ssd_case(torch, S, torch.bfloat16, seed=100 + S, **kw)
         n_bytes, flops, bound_ms, bound_by = ssd_work(case, init, "bfloat16")
         kernel = lambda: scan(*case, chunk=SSD_CHUNK, init_state=init)  # noqa: E731
-        timing[f"S{S}"] = {
-            "shape": [1, S, SSD_H, SSD_P, SSD_N], "bytes": n_bytes,
+        timing[name] = {
+            "shape": [1, S, *case[0].shape[2:], case[3].shape[3]], "bytes": n_bytes,
             "flops": flops,
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, lambda: plain(*case, chunk=SSD_CHUNK,
@@ -719,11 +787,12 @@ def reduced_model_phase(torch, cfg_mod, tfm, param):
 def init_device_phase(torch, cfg_mod, tfm, param):
     """The port's copy of JAX's generator draws the same bits on the card
     as on the CPU, where tests/test_torch_jax_random.py holds them equal
-    to jax.random's: reduced qwen3-8b, mamba2-2.7b and gemma-2b at seed 3,
-    every leaf bit for bit (the SSM initialisers' float32 log and expm1
-    included). The launchers draw their weights on the card."""
+    to jax.random's: reduced qwen3-8b, mamba2-2.7b, gemma-2b and hymba-1.5b
+    at seed 3, every leaf bit for bit (the SSM initialisers' float32 log and
+    expm1 and hymba's meta tokens included). The launchers draw their
+    weights on the card."""
     unequal, total = {}, {}
-    for arch in ("qwen3-8b", "mamba2-2.7b", "gemma-2b"):
+    for arch in ("qwen3-8b", "mamba2-2.7b", "gemma-2b", "hymba-1.5b"):
         cfg = cfg_mod.reduced(cfg_mod.get_config(arch))
         on_card = param.tree_leaves(tfm.init_params(cfg, 3, device="cuda"))
         on_cpu = param.tree_leaves(tfm.init_params(cfg, 3, device="cpu"))
@@ -784,26 +853,99 @@ def reduced_ssm_phase(torch, cfg_mod, tfm, param, serve):
     hits, skipped = {}, {}
     for dname, c, w in (("float32", cfg, params),
                         ("bfloat16", cfg16, tfm.init_params(cfg16, 0, device="cuda"))):
-        runs = {}
-        for name, flags in (("hit", []), ("cold", ["--no-prefix-caching"])):
-            args = serve.parser().parse_args(["--arch", "mamba2-2.7b", *flags])
-            eng = serve.build_engine(args, c, full, w, device="cuda")
-            eng.ecfg.eos_token = -1
-            prompts = serve.make_prompts(c, 4, 32, args.seed)
-            eng.submit(prompts[0], max_new_tokens=6)
-            eng.run_until_idle()
-            for pr in prompts[1:]:
-                eng.submit(pr, max_new_tokens=6)
-            rep = eng.run_until_idle()
-            runs[name] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
-        hits[dname] = runs["hit"][1]["prefix"]["compute_hits"]
-        skipped[dname] = runs["hit"][1]["prefill_tokens_skipped"]
-        if runs["hit"][0] != runs["cold"][0] or hits[dname] < 1:
+        same, hits[dname], skipped[dname] = engine_hit_equals_cold(
+            serve, "mamba2-2.7b", c, full, w, [])
+        if not same or hits[dname] < 1:
             raise AssertionError(f"reduced mamba2 on CUDA, {dname}: prefix hit "
                                  f"({hits[dname]} hits) does not decode the "
                                  "cold-start tokens")
     emit("reduced_model_check", arch="mamba2-2.7b", relative_logit_err=errs,
          tolerance=1e-4, hit_equals_cold={"float32": True, "bfloat16": True},
+         compute_hits=hits, prefill_tokens_skipped=skipped)
+
+
+def engine_hit_equals_cold(serve, arch, c, full, params, flags, n=4,
+                           max_new=6):
+    """On CUDA, ``arch``'s engine with ``launch/serve.py``'s defaults and
+    ``flags``: the first of ``n`` prompts behind a shared 32-token head
+    alone (publishing the head), then the rest; with prefix caching and
+    without. Returns (tokens equal, compute hits, skipped tokens)."""
+    runs = {}
+    for name, extra in (("hit", []), ("cold", ["--no-prefix-caching"])):
+        args = serve.parser().parse_args(["--arch", arch, *flags, *extra])
+        eng = serve.build_engine(args, c, full, params, device="cuda")
+        eng.ecfg.eos_token = -1
+        prompts = serve.make_prompts(c, n, 32, args.seed)
+        eng.submit(prompts[0], max_new_tokens=max_new)
+        eng.run_until_idle()
+        for pr in prompts[1:]:
+            eng.submit(pr, max_new_tokens=max_new)
+        rep = eng.run_until_idle()
+        runs[name] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
+    rep = runs["hit"][1]
+    return (runs["hit"][0] == runs["cold"][0], rep["prefix"]["compute_hits"],
+            rep["prefill_tokens_skipped"])
+
+
+def reduced_hybrid_phase(torch, cfg_mod, tfm, param, serve):
+    """Reduced fp32 hymba-1.5b (8 meta tokens) at page 16: paged prefill
+    (meta + 8 prompt tokens, page 0), extend (page 1) and a batched decode
+    with an inactive row, CUDA (both kernels in every layer) against the
+    CPU path, same weights; then, on CUDA at page 4, where every first
+    chunk (8 meta tokens + 4) spans three pages, in fp32 and in bf16, an
+    engine whose prefix hits resume from state pages decodes the tokens of
+    a cold start."""
+    full = cfg_mod.get_config("hymba-1.5b")
+    cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
+    params = tfm.init_params(cfg, 0, device="cuda")
+    pt = 16
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = param.tree_map(lambda a: a.to(dev), params)
+        caches = tfm.init_paged_caches(cfg, 8, pt, torch.float32, device=dev)
+        g = torch.Generator().manual_seed(3)
+        toks = torch.randint(2, cfg.vocab_size, (1, pt - cfg.n_meta_tokens),
+                             generator=g).to(dev)
+        ext = torch.randint(2, cfg.vocab_size, (1, 6), generator=g).to(dev)
+        last = torch.randint(2, cfg.vocab_size, (2, 1), generator=g).to(dev)
+        tbl = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32, device=dev)
+        tbl2 = torch.tensor([[1, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32,
+                            device=dev)
+        res = []
+        lg, caches = tfm.paged_prefill(cfg, p, {"tokens": toks}, caches, tbl,
+                                       page_tokens=pt)
+        res.append(lg)
+        lg, caches = tfm.paged_extend(cfg, p, caches, ext, pt, tbl,
+                                      page_tokens=pt)
+        res.append(lg)
+        lg, caches = tfm.paged_decode(cfg, p, caches, last,
+                                      torch.tensor([pt + 6, 0], device=dev),
+                                      tbl2, page_tokens=pt,
+                                      active=torch.tensor([True, False], device=dev))
+        res.append(lg[:1])
+        outs[dev] = [r.float().cpu() for r in res]
+    errs = []
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        errs.append(rel)
+        if not rel < 1e-4:
+            raise AssertionError(f"reduced hymba on CUDA vs CPU: relative "
+                                 f"logit error {rel}")
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits on CUDA")
+
+    cfg16 = cfg_mod.reduced(full)                     # bf16
+    hits, skipped = {}, {}
+    for dname, c, w in (("float32", cfg, params),
+                        ("bfloat16", cfg16, tfm.init_params(cfg16, 0, device="cuda"))):
+        same, hits[dname], skipped[dname] = engine_hit_equals_cold(
+            serve, "hymba-1.5b", c, full, w, ["--page-tokens", "4"])
+        if not same or hits[dname] < 1:
+            raise AssertionError(f"reduced hymba on CUDA, {dname}, page 4: "
+                                 f"prefix hit ({hits[dname]} hits) does not "
+                                 "decode the cold-start tokens")
+    emit("reduced_model_check", arch="hymba-1.5b", relative_logit_err=errs,
+         tolerance=1e-4, hit_equals_cold_page4={"float32": True, "bfloat16": True},
          compute_hits=hits, prefill_tokens_skipped=skipped)
 
 
@@ -939,6 +1081,35 @@ def ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
          state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
     _require("mamba2-2.7b serve", checks)
     return n
+
+
+def hybrid_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+    """hymba-1.5b: every layer of every model call launched the attention
+    kernel, and every layer of every prefill chunk the SSD kernel; the
+    shared head ends at 128 + 32 = 160, a page boundary, so hits resume
+    from a state page with zero copy bytes."""
+    cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
+                                       "hymba-1.5b", kernels)
+    n_rpa, n_ssd = launches["ragged_paged_attention"], launches["ssd_scan"]
+    calls, chunks = st["model_calls"], rep["prefill_chunks"]
+    checks = {
+        "finished": rep["finished"] == 8,
+        "tokens_generated": rep["tokens_generated"] == 8 * 16,
+        "finite_logits": st["finite_logits"],
+        "full_width": (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.ssm_nheads, cfg.ssm_state,
+                       cfg.n_meta_tokens, cfg.dtype)
+        == (32, 1600, 25, 5, 64, 50, 16, 128, "bfloat16"),
+        "attention_launches": n_rpa == cfg.num_layers * calls and calls > 0,
+        "ssd_launches": n_ssd == cfg.num_layers * chunks and chunks > 0,
+        "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
+        "snapshot_kind": rep["prefix"]["snapshot_kind"] == "point",
+        "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+    }
+    emit("hybrid_serve", nvidia_smi=smi, **st,
+         state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
+    _require("hymba-1.5b serve", checks)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1339,7 @@ def train_phase(torch, cfg_mod, train_cli, kernels, smi):
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1217,38 +1389,74 @@ def main() -> int:
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
     kernels = [ops.ragged_paged_attention, sops.ssd_scan, *flash]
-    max_err, timing = kernel_phase(torch, ops, ref, smi)
-    ssd_err, ssd_timing = ssd_kernel_phase(torch, sops, sref, smi)
-    fa_err, fa_timing = flash_kernel_phase(torch, fops, fref, smi)
-    reduced_model_phase(torch, cfg_mod, tfm, param)
-    reduced_ssm_phase(torch, cfg_mod, tfm, param, serve)
-    init_device_phase(torch, cfg_mod, tfm, param)
-    reduced_train_phase(torch, cfg_mod, tfm, param, optim, train, data, ckpt)
-    full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops,
-                          fref)
-    rpa_launches = serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi)
+    seconds = {"build": build_s}    # each phase's wall time, for the budget
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    max_err, timing = timed("kernel", kernel_phase, torch, ops, ref, smi)
+    ssd_err, ssd_timing = timed("ssd kernel", ssd_kernel_phase, torch, sops, sref, smi)
+    fa_err, fa_timing = timed("flash", flash_kernel_phase, torch, fops, fref, smi)
+    timed("reduced qwen3", reduced_model_phase, torch, cfg_mod, tfm, param)
+    timed("reduced mamba2", reduced_ssm_phase, torch, cfg_mod, tfm, param, serve)
+    timed("reduced hymba", reduced_hybrid_phase, torch, cfg_mod, tfm, param, serve)
+    timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
+    timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
+          train, data, ckpt)
+    timed("full-width grads", full_width_grad_phase, torch, cfg_mod, tfm, param,
+          optim, train, data, fops, fref)
+    rpa_launches = timed("serve", serve_phase, torch, cfg_mod, tfm, serve, param,
+                         kernels, smi)
     gc.collect()                     # the qwen3-8b engine and weights
     torch.cuda.empty_cache()
-    ssd_launches = ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels,
-                                   smi)
-    fa_launches = train_phase(torch, cfg_mod, train_cli, kernels, smi)
+    ssd_launches = timed("ssm serve", ssm_serve_phase, torch, cfg_mod, tfm, serve,
+                         param, kernels, smi)
+    gc.collect()                     # the mamba2-2.7b engine and weights
+    torch.cuda.empty_cache()
+    hybrid_launches = timed("hybrid serve", hybrid_serve_phase, torch, cfg_mod, tfm,
+                            serve, param, kernels, smi)
+    fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
+    emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
+
+    # each serving path's counts, zeroed before it and read after it; an
+    # entry's launches are their sum, its times the first path's shape
+    # with the hymba-1.5b shape beside them
+    by_path = {
+        "ragged_paged_attention": {
+            "qwen3-8b serve": rpa_launches,
+            "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"]},
+        "ssd_scan": {"mamba2-2.7b serve": ssd_launches,
+                     "hymba-1.5b serve": hybrid_launches["ssd_scan"]}}
+
+    def times(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "device_ms")}
 
     dec, ssd = timing["decode"], ssd_timing["S32"]
     entries = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": str(ops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/paged_attention/kernel.py:225",
-        "launches": rpa_launches, "max_abs_err": max_err["bfloat16"],
+        "launches": sum(by_path["ragged_paged_attention"].values()),
+        "launches_by_path": by_path["ragged_paged_attention"],
+        "max_abs_err": max_err["bfloat16"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"]}, {
+        "library_ms": dec["library_ms"], "device_ms": dec["device_ms"],
+        "hymba_decode": times(timing["hymba_decode"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",
-        "launches": ssd_launches, "max_abs_err": ssd_err["bfloat16"],
+        "launches": sum(by_path["ssd_scan"].values()),
+        "launches_by_path": by_path["ssd_scan"],
+        "max_abs_err": ssd_err["bfloat16"],
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-        "library_ms": None, "device_ms": ssd["device_ms"]}]
+        "library_ms": None, "device_ms": ssd["device_ms"],
+        "hymba_S32": times(ssd_timing["hymba_S32"])}]
     replaces = {"flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:74",
                 "flash_attention_bwd_dkdv": "src/repro/models/attention.py:126",
                 "flash_attention_bwd_dq": "src/repro/models/attention.py:126"}

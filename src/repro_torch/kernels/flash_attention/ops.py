@@ -108,7 +108,7 @@ def _check(q, k, v, extra=()):
         raise NotImplementedError(
             f"the flash kernels take one head dim for K and V, got "
             f"{k.shape[-1]} and {v.shape[-1]}; Dk != Dv comes with MLA "
-            "(ROADMAP A.7)")
+            "(ROADMAP A.4)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q (B, Sq, H, D), k and v (B, Skv, Hkv, D)")
     B, Sq, H, D = q.shape

@@ -7,13 +7,14 @@ report as ``repro.launch.serve``, plus ``--device``.
       --requests 8 --max-new 16 --shared-prefix-tokens 32
 
 ``--arch`` takes the architectures the port registers: ``qwen3-8b`` and
-``gemma-2b`` (dense attention on KV pages) and ``mamba2-2.7b`` (SSM on
-point-state pages).
+``gemma-2b`` (dense attention on KV pages), ``mamba2-2.7b`` (SSM on
+point-state pages) and ``hymba-1.5b`` (hybrid: attention and SSM heads in
+every layer, KV and state pages under one table, 128 meta tokens).
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: other architectures (A.7-A.9), ``--replicas > 1`` (the
-cluster, A.11), ``--paged-kernel off`` (the ring path, A.10),
-``--inject-rber`` (faults, A.12) and the TPU autotuner's
-``--kernel-block-q/--kernel-block-kv/--kernel-buffers``.
+ROADMAP item: other architectures (A.4-A.5), ``--replicas > 1`` (the
+cluster, A.7), ``--paged-kernel off`` (the ring path, A.6),
+``--inject-rber`` (faults, A.8) and the TPU autotuner's
+``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
 """
 from __future__ import annotations
 
@@ -64,8 +65,8 @@ def build_engine(args, cfg, full, params, device=None):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="architecture: qwen3-8b, gemma-2b or mamba2-2.7b (the ones "
-                         "the port registers)")
+                    help="architecture: qwen3-8b, gemma-2b, mamba2-2.7b or "
+                         "hymba-1.5b (the ones the port registers)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "
                          "without a card; 'cpu' runs the kernels' plain "
@@ -164,7 +165,7 @@ def main(argv=None):
     args = parser().parse_args(argv)
     if args.replicas > 1:
         raise NotImplementedError("--replicas > 1: the cluster frontend is "
-                                  "not ported yet (ROADMAP A.11)")
+                                  "not ported yet (ROADMAP A.7)")
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.device import resolve_device

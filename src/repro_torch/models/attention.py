@@ -15,7 +15,7 @@ The port of ``repro.models.attention`` carries the parameter definitions,
   which launches the Hopper kernel on CUDA tensors);
 
 and the output projection. The ring-cache modes (``prefill`` and the ring
-``extend``/``decode``) are not ported yet (ROADMAP A.10).
+``extend``/``decode``) are not ported yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -110,7 +110,7 @@ def attention_sublayer(
     if mode != "train" and (cache is None or "kv_pages" not in cache
                             or page_table is None):
         raise NotImplementedError("the ring-cache attention path is not "
-                                  "ported yet (ROADMAP A.10)")
+                                  "ported yet (ROADMAP A.6)")
     B, S, d = x.shape
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -143,7 +143,7 @@ def attention_sublayer(
         cu = torch.arange(0, (B + 1) * S, S, dtype=torch.int32, device=dev)
         kv_lens = (pos[-1:] + 1).expand(B).contiguous()
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.10)")
+        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
     write_tokens_to_pages(kv_pages, interleave_kv(k, v), pos2d, page_table,
                           active=act)
     out = ragged_paged_attention(

@@ -1,0 +1,66 @@
+"""Hymba-style hybrid block: parallel attention + SSM heads
+[arXiv:2411.13676], on the paged compute plane (DESIGN.md §10).
+
+The port of ``repro.models.hybrid``. Both halves read the same normed
+input; each half's output is RMS-normed by its own zero-initialised scale
+and the two are averaged. The attention half attends on the layer's KV
+pages (sliding window except at ``cfg.global_layers``) through ragged paged
+attention; the SSM half runs the SSD chunk scan from its state page. One
+page table indexes both pools: ``{"attn": {"kv_pages"}, "ssm":
+{"conv_pages", "state_pages"}}``. The meta tokens are prepended by the
+transformer assembly and sit in both halves' pages like any other token.
+Training raises until SSM training lands (ROADMAP A.11).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attention_sublayer, attn_defs
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.param import ParamDef
+from repro_torch.models.ssm import ssm_defs, ssm_sublayer
+
+
+def hybrid_defs(cfg: ModelConfig) -> dict:
+    return {
+        "attn": attn_defs(cfg),
+        "ssm": ssm_defs(cfg),
+        "attn_out_norm": ParamDef((cfg.d_model,), ("embed",), init="zeros"),
+        "ssm_out_norm": ParamDef((cfg.d_model,), ("embed",), init="zeros"),
+    }
+
+
+def hybrid_sublayer(
+    cfg: ModelConfig,
+    p: dict,
+    x,
+    *,
+    positions,
+    window: Optional[int],
+    cache: Optional[dict] = None,
+    mode: str = "extend",  # extend | decode
+    cur_pos=None,
+    decode_active=None,
+    page_table=None,
+    page_tokens: Optional[int] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, d) -> (out, {"attn": {"kv_pages"}, "ssm": {"conv_pages",
+    "state_pages"}}), both pools written IN PLACE. ``decode_active`` masks
+    both halves' page writes for inactive rows."""
+    if mode == "train":
+        raise NotImplementedError(f"{cfg.name}: hybrid training needs SSM "
+                                  "training (ROADMAP A.11), not ported yet")
+    a_out, a_cache = attention_sublayer(
+        cfg, p["attn"], x, positions=positions, window=window,
+        cache=cache["attn"], mode=mode, cur_pos=cur_pos,
+        decode_active=decode_active, page_table=page_table)
+    s_out, s_cache = ssm_sublayer(
+        cfg, p["ssm"], x, cache=cache["ssm"], mode=mode,
+        decode_active=decode_active, positions=positions, cur_pos=cur_pos,
+        page_table=page_table, page_tokens=page_tokens)
+    out = 0.5 * (rmsnorm(a_out, p["attn_out_norm"], cfg.norm_eps)
+                 + rmsnorm(s_out, p["ssm_out_norm"], cfg.norm_eps))
+    return out, {"attn": a_cache, "ssm": s_cache}

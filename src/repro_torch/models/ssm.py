@@ -7,7 +7,7 @@ pools and the paged branches of ``ssm_sublayer``. Prefill and extend chunks
 run the SSD chunk scan (``kernels.ssd_scan``: the Hopper kernel on CUDA
 tensors, its plain version on the CPU), continuing from the state page they
 read; decode runs the O(1) recurrence in plain torch, as the JAX package
-does. The ring-cache modes are not ported yet (ROADMAP A.10).
+does. The ring-cache modes are not ported yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -95,24 +95,31 @@ def ssm_paged_init(cfg: ModelConfig, n_pages: int, dtype, device) -> dict:
     }
 
 
-def _paged_state_slots(page_table, q0, page_tokens: int):
+def _paged_state_slots(page_table, q0, page_tokens: int, q_last=None):
     """Resolve the state-page slots for a chunk/step whose first query sits
-    at absolute position ``q0`` ((B,), 0-d or int). Reads the state after
-    token ``q0 - 1``: slot ``j0 - 1`` when q0 opens page ``j0 = q0 // pt``
-    (the previous page's sealed boundary state), else slot ``j0`` (the open
-    page's running state); an empty history maps to null page 0, whose
-    zeros ARE the zero init state. Writes always land in slot ``j0`` —
-    ``ok`` masks rows whose table entry is null. Returns int64 page ids
-    (pid_read, pid_write) and ``ok``, all (B,) on the table's device."""
+    at absolute position ``q0`` and whose last sits at ``q_last`` (default
+    ``q0``; each (B,), 0-d or int). Reads the state after token ``q0 - 1``:
+    slot ``j0 - 1`` when q0 opens page ``j0 = q0 // pt`` (the previous
+    page's sealed boundary state), else slot ``j0`` (the open page's
+    running state); an empty history maps to null page 0, whose zeros ARE
+    the zero init state. Writes land in the slot of the page holding
+    ``q_last`` — ``j0`` for a chunk within one page, as in the JAX package;
+    for a first chunk whose meta prefix spans pages, the page where the
+    next chunk (or a prefix hit) reads it. ``ok`` masks rows whose table
+    entry is null. Returns int64 page ids (pid_read, pid_write) and ``ok``,
+    all (B,) on the table's device."""
     B, W = page_table.shape
     table = page_table.to(torch.int64)
     q0 = torch.as_tensor(q0, device=table.device).to(torch.int64).expand(B)
     j0 = torch.div(q0, page_tokens, rounding_mode="floor")
+    jw = j0 if q_last is None else torch.div(
+        torch.as_tensor(q_last, device=table.device).to(torch.int64).expand(B),
+        page_tokens, rounding_mode="floor")
     rs = torch.where(q0 % page_tokens == 0, j0 - 1, j0)
     rd = torch.gather(table, 1, rs.clamp(0, W - 1)[:, None])[:, 0]
     pid_read = torch.where(rs >= 0, rd, torch.zeros_like(rd))
-    pid_write = torch.gather(table, 1, j0.clamp(0, W - 1)[:, None])[:, 0]
-    ok = (j0 < W) & (pid_write != 0)
+    pid_write = torch.gather(table, 1, jw.clamp(0, W - 1)[:, None])[:, 0]
+    ok = (jw < W) & (pid_write != 0)
     return pid_read, pid_write, ok
 
 
@@ -148,15 +155,18 @@ def ssm_sublayer(
     through ``page_table`` and are updated IN PLACE (JAX returns new
     pools; here the returned dict holds the same tensors). The read slot
     is resolved from the first query position (``positions[0]`` for
-    extend — the engine chunks point stacks so every chunk lies within one
-    page — and ``cur_pos`` per row for decode), and the updated state is
-    written to the page owning that position. Null page 0's zeros are the
-    empty-history init, so a cold start and a chunk resumed at a page
-    boundary run the same recurrence. Decode rows where ``decode_active``
+    extend — the engine chunks point stacks so every chunk but a first one
+    carrying the meta prefix lies within one page — and ``cur_pos`` per row
+    for decode), and the updated state is written to the page owning the
+    last query position (``positions[-1]``; ``cur_pos`` for decode). The
+    JAX package writes to the first position's page; the two differ only
+    for a first chunk that spans pages (ROADMAP §C.5). Null page 0's zeros
+    are the empty-history init, so a cold start and a chunk resumed at a
+    page boundary run the same recurrence. Decode rows where ``decode_active``
     is False write nothing."""
     if cache is None or "state_pages" not in cache or page_table is None:
         raise NotImplementedError("the ring-cache SSM path is not ported yet "
-                                  "(ROADMAP A.10)")
+                                  "(ROADMAP A.6)")
     if page_tokens is None:
         raise ValueError("paged SSM layers need page_tokens to resolve "
                          "their state-page slots")
@@ -164,13 +174,14 @@ def ssm_sublayer(
     di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     ng, ns = cfg.ssm_ngroups, cfg.ssm_state
     if mode == "decode":
-        q0 = cur_pos
+        q0 = q_last = cur_pos
     elif mode == "extend":
-        q0 = positions[0]
+        q0, q_last = positions[0], positions[-1]
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.10)")
+        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
     conv_pages, state_pages = cache["conv_pages"], cache["state_pages"]
-    pid_read, pid_write, ok = _paged_state_slots(page_table, q0, page_tokens)
+    pid_read, pid_write, ok = _paged_state_slots(page_table, q0, page_tokens,
+                                                 q_last)
 
     zxbcdt = x @ p["in_proj"]
     z, xi, b, c, dt = _split_proj(cfg, zxbcdt)

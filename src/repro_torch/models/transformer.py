@@ -1,5 +1,6 @@
-"""Model assembly for dense attention and SSM stacks: embeddings -> layer
-groups -> head, on the paged compute plane and for training.
+"""Model assembly for dense attention, SSM and hybrid stacks: embeddings
+(and meta tokens) -> layer groups -> head, on the paged compute plane and
+for training.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
 layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
@@ -15,14 +16,17 @@ Entry points:
   chunk recomputed in the backward, so only one chunk's (B, chunk, V)
   logits are alive at a time) and z-loss; layers rematerialised per
   ``cfg.remat``;
-- ``paged_prefill`` — the first chunk of a prompt at positions 0..S-1;
+- ``paged_prefill`` — the first chunk of a prompt, meta tokens first, at
+  positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
 - ``paged_decode``  — one batched decode step at per-row positions.
 Attention layers compute on KV pages, SSM layers on point-state pages
-(conv left-context + SSD state at page boundaries); a point stack's
-prefill or extend chunk must lie within one page. MLA, hybrid, MoE,
-frontends, SSM training and the ring-cache path raise
-``NotImplementedError`` naming their ROADMAP item.
+(conv left-context + SSD state at page boundaries), hybrid layers on both
+under one page table. A point stack's extend chunk must lie within one
+page; its first chunk may span pages only as far as the meta prefix forces
+(``_check_point_chunk``). MLA, MoE, frontends, SSM and hybrid training and
+the ring-cache path raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -38,10 +42,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import jax_random
 from repro_torch.models import param as prm
 from repro_torch.models.attention import attention_sublayer, attn_defs
+from repro_torch.models.hybrid import hybrid_defs, hybrid_sublayer
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
+from repro_torch.models.param import ParamDef
 from repro_torch.models.ssm import ssm_defs, ssm_paged_init, ssm_sublayer
 
-_UNPORTED = {"mla": "MLA (ROADMAP A.7)", "hybrid": "hybrid (ROADMAP A.8)"}
+_UNPORTED = {"mla": "MLA (ROADMAP A.4)"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -50,11 +56,11 @@ def _check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name}: {_UNPORTED[spec.kind]} "
                                       "is not ported yet")
         if spec.mlp == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE (ROADMAP A.9) is not "
+            raise NotImplementedError(f"{cfg.name}: MoE (ROADMAP A.5) is not "
                                       "ported yet")
-    if cfg.frontend is not None or cfg.n_meta_tokens or cfg.n_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: frontends and meta tokens "
-                                  "(ROADMAP A.9) are not ported yet")
+    if cfg.frontend is not None or cfg.n_codebooks > 1:
+        raise NotImplementedError(f"{cfg.name}: frontends (ROADMAP A.5) are "
+                                  "not ported yet")
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -65,12 +71,13 @@ def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     defs: dict = {"norm1": rmsnorm_def(cfg.d_model)}
     if spec.kind in _UNPORTED:
         raise NotImplementedError(f"{_UNPORTED[spec.kind]} is not ported yet")
-    defs["mixer"] = ssm_defs(cfg) if spec.kind == "ssm" else attn_defs(cfg)
+    defs["mixer"] = {"attn": attn_defs, "ssm": ssm_defs,
+                     "hybrid": hybrid_defs}[spec.kind](cfg)
     if cfg.post_norms:
         defs["post_norm1"] = rmsnorm_def(cfg.d_model)
     if spec.mlp != "none":
         if spec.mlp == "moe":
-            raise NotImplementedError("MoE (ROADMAP A.9) is not ported yet")
+            raise NotImplementedError("MoE (ROADMAP A.5) is not ported yet")
         defs["norm2"] = rmsnorm_def(cfg.d_model)
         defs["mlp"] = mlp_defs(cfg, cfg.d_ff)
         if cfg.post_norms:
@@ -84,11 +91,15 @@ def model_defs(cfg: ModelConfig) -> dict:
     for g in cfg.scan_groups():
         unit_defs = tuple(prm.stack_defs(block_defs(cfg, spec), g.repeats) for spec in g.unit)
         groups.append(unit_defs)
-    return {
+    defs = {
         "embed": embed_defs(cfg),
         "groups": tuple(groups),
         "final_norm": rmsnorm_def(cfg.d_model),
     }
+    if cfg.n_meta_tokens:
+        defs["meta_tokens"] = ParamDef((cfg.n_meta_tokens, cfg.d_model),
+                                       (None, "embed"), std=0.02)
+    return defs
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -108,10 +119,17 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
                 cache, mode, cur_pos=None, decode_active=None, page_table=None,
                 page_tokens=None):
     """Pre-norm residual block over one layer's parameters and page pool
-    (``page_tokens`` is the page size SSM layers need to resolve their
-    state-page slots). Returns (x, cache)."""
+    (``page_tokens`` is the page size SSM and hybrid layers need to resolve
+    their state-page slots). Returns (x, cache)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    if spec.kind == "ssm":
+    if spec.kind == "hybrid":
+        h, new_cache = hybrid_sublayer(cfg, p["mixer"], h, positions=positions,
+                                       window=spec.window, cache=cache,
+                                       mode=mode, cur_pos=cur_pos,
+                                       decode_active=decode_active,
+                                       page_table=page_table,
+                                       page_tokens=page_tokens)
+    elif spec.kind == "ssm":
         h, new_cache = ssm_sublayer(cfg, p["mixer"], h, cache=cache, mode=mode,
                                     decode_active=decode_active,
                                     positions=positions, cur_pos=cur_pos,
@@ -145,11 +163,15 @@ def _paged_unit_cache(cfg: ModelConfig, spec: LayerSpec, n_pages: int,
                       page_tokens: int, dtype, device) -> dict:
     """One unit's paged-plane pool, unstacked. Attention pages hold fused
     head-interleaved KV; SSM pages hold the conv left-context + SSD
-    recurrent state after the last written token of the page."""
+    recurrent state after the last written token of the page; hybrid pages
+    are the union of the two under one table."""
     if spec.kind == "ssm":
         return ssm_paged_init(cfg, n_pages, dtype, device)
     shape = (n_pages, page_tokens, 2 * cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    kv = {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.kind == "hybrid":
+        return {"attn": kv, "ssm": ssm_paged_init(cfg, n_pages, dtype, device)}
+    return kv
 
 
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
@@ -158,7 +180,8 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
     group's repeats — the JAX package's layout, page axis 1:
     ``{"kv_pages": (R, P, ps, 2*Hkv, D)}`` for attention, ``{"conv_pages":
     (R, P, cw-1, conv_dim), "state_pages": (R, P, nh, hd, ns) fp32}`` for
-    SSM. Page id 0 is the reserved null page."""
+    SSM, ``{"attn": {...}, "ssm": {...}}`` for hybrid. Page id 0 is the
+    reserved null page."""
     _check_ported(cfg)
     dev = resolve_device(device)
     meta = torch.device("meta")   # shapes and dtypes only: nothing allocated
@@ -177,9 +200,14 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch: dict):
-    """tokens -> x (B, S, d), and the index of the first 'real' position
-    (always 0: frontends and meta tokens are not ported yet)."""
-    return embed(cfg, params["embed"], batch["tokens"]), 0
+    """tokens (+ meta tokens in front) -> x (B, S_total, d), and the index
+    of the first 'real' position (the meta prefix's length)."""
+    x = embed(cfg, params["embed"], batch["tokens"])
+    if not cfg.n_meta_tokens:
+        return x, 0
+    meta = params["meta_tokens"].to(x.dtype)[None].expand(
+        x.shape[0], cfg.n_meta_tokens, cfg.d_model)
+    return torch.cat([meta, x], dim=1), cfg.n_meta_tokens
 
 
 def _layers(tree, repeats: int) -> list:
@@ -276,8 +304,8 @@ def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
     loss = ce + 1e-4 * mean(lse²) + aux, as the JAX package computes it."""
     _check_ported(cfg)
     if snapshot_kind(cfg) == "point":
-        raise NotImplementedError(f"{cfg.name}: SSM training (the ring-cache "
-                                  "SSM modes, ROADMAP A.10) is not ported yet")
+        raise NotImplementedError(f"{cfg.name}: SSM and hybrid training "
+                                  "(ROADMAP A.11) is not ported yet")
     x, prefix = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = apply_groups(cfg, params, x, positions=positions, mode="train")
@@ -331,14 +359,19 @@ def _head(cfg: ModelConfig, params, x):
 
 def _check_point_chunk(cfg: ModelConfig, offset: int, S: int,
                        page_tokens) -> None:
-    """A point stack's chunk reads one state page and writes one: it must
-    lie within the page of its first position (the engine chunks point
-    stacks on the page grid)."""
+    """A point stack's chunk reads one state page and writes one, the page
+    of its last position: a later chunk must lie within one page (the
+    engine chunks point stacks on the page grid). The first chunk carries
+    the meta prefix, which cannot be cut, so it may reach from position 0
+    to the page of the first prompt token, and no further."""
     if snapshot_kind(cfg) != "point":
         return
     if page_tokens is None:
         raise ValueError(f"{cfg.name}: paged SSM layers need page_tokens")
-    if offset // page_tokens != (offset + S - 1) // page_tokens:
+    last = (offset + S - 1) // page_tokens
+    if offset == 0 and last <= cfg.n_meta_tokens // page_tokens:
+        return
+    if offset // page_tokens != last:
         raise ValueError(f"{cfg.name}: a chunk at positions [{offset}, "
                          f"{offset + S}) crosses a {page_tokens}-token page "
                          "boundary; point stacks chunk on the page grid")
@@ -346,9 +379,9 @@ def _check_point_chunk(cfg: ModelConfig, offset: int, S: int,
 
 def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table,
                   page_tokens=None):
-    """First chunk on the paged plane: the prompt at absolute positions
-    0..S-1, KV or state written straight into the pool pages named by
-    ``page_table`` (B, W). Returns (last_logits, caches)."""
+    """First chunk on the paged plane: the meta prefix and the prompt at
+    absolute positions 0..S-1, KV or state written straight into the pool
+    pages named by ``page_table`` (B, W). Returns (last_logits, caches)."""
     x, _ = _embed_inputs(cfg, params, batch)
     S_tot = x.shape[1]
     _check_point_chunk(cfg, 0, S_tot, page_tokens)

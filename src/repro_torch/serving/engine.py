@@ -23,10 +23,11 @@ into the borrower's page table (zero copy bytes); extend resumes from the
 boundary. Prompts always run unpadded (DESIGN.md §5).
 
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the ring-cache path (``paged_kernel=False``, A.10), fault
-injection (``inject_rber``, A.12), the TPU autotuner's launch overrides
-(``kernel_block_q/kv``, ``kernel_buffers``) and, in the model, the MLA,
-hybrid, MoE and frontend stacks (A.7-A.9).
+ROADMAP item: the ring-cache path (``paged_kernel=False``, A.6), fault
+injection (``inject_rber``, A.8), the TPU autotuner's launch overrides
+(``kernel_block_q/kv``, ``kernel_buffers``, A.9) and, in the model, the
+MLA, MoE and frontend stacks (A.4-A.5). Hybrid stacks (hymba) serve on
+one page table that holds KV pages and state pages together.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ class EngineConfig:
     # page of a session the round did not decode was written
     audit_decode_masking: bool = False
     # paged compute plane (DESIGN.md §10). The port computes on it only:
-    # False (the ring path) raises until ROADMAP A.10 lands. The default
+    # False (the ring path) raises until ROADMAP A.6 lands. The default
     # stays False, as in the JAX package.
     paged_kernel: bool = False
     # TPU autotuner launch overrides (kernels/paged_attention/tune.py in
@@ -470,14 +471,14 @@ class ServeEngine:
         if not ecfg.paged_kernel:
             raise NotImplementedError("the ring-cache compute path "
                                       "(paged_kernel=False) is not ported yet "
-                                      "(ROADMAP A.10)")
+                                      "(ROADMAP A.6)")
         if ecfg.kernel_block_q or ecfg.kernel_block_kv or ecfg.kernel_buffers:
             raise NotImplementedError("kernel launch overrides tune the TPU "
                                       "kernel's grid (tune.py), which is not "
-                                      "ported (ROADMAP)")
+                                      "ported (ROADMAP A.9)")
         if ecfg.inject_rber:
             raise NotImplementedError("fault injection is not ported yet "
-                                      "(ROADMAP A.12)")
+                                      "(ROADMAP A.8)")
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"params are on {leaf.device}, the engine "

@@ -103,7 +103,7 @@ def test_flash_attention_gradcheck_float64():
 def test_cuda_wrapper_checks_before_launch():
     q = torch.zeros(1, 8, 4, 64)
     k = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="A.4"):
         ops._check(q, k, torch.zeros(1, 8, 2, 32))        # Dk != Dv: MLA
     with pytest.raises(ValueError, match="head_dim"):
         ops._check(q[..., :48], k[..., :48], k[..., :48])

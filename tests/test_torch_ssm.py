@@ -162,7 +162,7 @@ def test_sublayer_refuses_ring_path_and_missing_page_size():
     x = torch.zeros((1, 2, cfg.d_model))
     cache = {k: torch.from_numpy(v) for k, v in pools.items()}
     tbl = torch.tensor([[1, 0]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError, match="A.6"):
         tssm.ssm_sublayer(cfg, p, x, cache=None, mode="extend",
                           positions=torch.arange(2))
     with pytest.raises(ValueError, match="page_tokens"):
