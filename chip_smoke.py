@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
-Hopper card: the three serving paths, dense attention (qwen3-8b), SSM
-(mamba2-2.7b) and hybrid (hymba-1.5b: attention and SSD heads in every
-layer), the training path (gemma-2b), and their five kernels.
+Hopper card: the four serving paths, dense attention (qwen3-8b), SSM
+(mamba2-2.7b), hybrid (hymba-1.5b: attention and SSD heads in every
+layer) and MLA + MoE (deepseek-v2-lite-16b), the training path
+(gemma-2b), and their five kernels.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -16,21 +17,27 @@ Phases, each printing one JSON line:
                  shared memory and spills per kernel and the HGMMA/HMMA
                  count of each (``cuobjdump -sass``), and requires HGMMA in
                  every instantiation of the bf16 flash forward, dK/dV and
-                 dQ kernels and HMMA in the bf16 paged-attention and SSD
-                 kernels;
+                 dQ kernels and HMMA in the bf16 paged-attention (the
+                 latent-head kernel included) and SSD kernels;
 3. kernel      — holds ragged paged attention against its plain PyTorch
                  version at the qwen3-8b path's geometry (32/8 heads, D
                  128: decode / sparse table / extend / softcap / window, and
                  KV ranges of more splits than one CTA takes) and at
                  hymba-1.5b's (25/5 heads, a group of 5, D 64: decode over
                  kv 161-230, the 160-row first chunk over five pages, the
-                 chunk after it, windows 64 and 2048), fp32 and bf16;
+                 chunk after it, windows 64 and 2048), at deepseek-v2-lite's
+                 latent head (16 query heads on one KV head of D 576) and
+                 its reduced config's (4 on one of D 80: decode over the
+                 serve traffic's lengths, a sparse table, a 32-row chunk
+                 over three pages, a whole prompt, softcap + window, long
+                 decodes, several slots a split), fp32 and bf16;
                  checks bit-equality under trailing null table slots and
                  between a row's decode and extend launches, and times the
                  kernel, its plain version and one PyTorch library call
                  (CUDA events, L2 flushed; the kernel and the library call
                  also by the profiler's device time) at the main paths'
-                 decodes, two extends and a long decode (4 x 4096);
+                 decodes, extends and long decodes (4 x 4096), naming the
+                 ``scaled_dot_product_attention`` backend that takes D 576;
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
@@ -61,9 +68,11 @@ Phases, each printing one JSON line:
                  weights; and on CUDA a reduced mamba2 engine's and a
                  reduced hymba engine's (page 4: the first chunk spans three
                  pages) prefix hits decode the tokens of a cold start, in
-                 fp32 and in bf16; the weights of reduced qwen3-8b,
-                 mamba2-2.7b, gemma-2b and hymba-1.5b drawn on the card equal
-                 the CPU's bit for bit;
+                 fp32 and in bf16; the same for reduced deepseek-v2-lite-16b
+                 (MLA on D 80 latent pages, MoE; engines at page and chunk
+                 16); the weights of reduced qwen3-8b, mamba2-2.7b,
+                 gemma-2b, hymba-1.5b and deepseek-v2-lite-16b drawn on the
+                 card equal the CPU's bit for bit;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -94,7 +103,13 @@ Phases, each printing one JSON line:
                  of every prefill chunk the SSD kernel; the shared head ends
                  at position 160, a page boundary, so hits resume from a
                  state page;
-12. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
+12. mla serve  — the same for deepseek-v2-lite-16b (27 layers, d 2048, MLA
+                 with 16 heads on a latent head of 512 + 64, MoE of 64
+                 routed experts top-6 and 2 shared behind one dense layer,
+                 vocab 102400, bf16, 15.7B parameters), after the hymba
+                 engine is freed: every layer of every model call launched
+                 the attention kernel at the latent head;
+13. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
                  8/1 at head_dim 256, GeGLU d_ff 16384, vocab 256000, bf16,
                  ``remat="full"``, AdamW) through ``repro_torch.launch.train``:
                  4 steps of 4 x 2048 tokens, after the serving engines are
@@ -126,6 +141,10 @@ PAGE = 32            # --page-tokens default
 HQ, HKV, D = 32, 8, 128          # qwen3-8b's attention geometry
 HYMBA = (25, 5, 64)              # hymba-1.5b's: a group of 5 query heads, D 64
 HYMBA_META = 128                 # its meta tokens: the first chunk is 160 rows
+MLA = (16, 1, 576)               # deepseek-v2-lite-16b's absorbed MLA: 16 query heads
+                                 # on one latent head [c, kr], r 512 + dr 64
+MLA_REDUCED = (4, 1, 80)         # its reduced config's: r 64 + dr 16
+SCALES = {MLA: (128 + 64) ** -0.5, MLA_REDUCED: (32 + 16) ** -0.5}   # (dn + dr)^-1/2
 HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / fp32 (no TF32)
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
@@ -213,6 +232,34 @@ def work(case, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def scale_of(geo) -> float:
+    """The attention scale at a geometry: MLA's (dn + dr)^-1/2, else
+    head_dim^-1/2."""
+    return SCALES.get(geo, geo[2] ** -0.5)
+
+
+def sdpa_backend(torch, call):
+    """The first ``scaled_dot_product_attention`` backend, fastest first,
+    that accepts ``call``'s inputs (flash and cuDNN take head dims up to
+    256; a boolean mask rules flash out): (its name, ``call`` under it)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return call()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, fn
+    raise AssertionError("no scaled_dot_product_attention backend takes the inputs")
+
+
 def time_ms(torch, fn, flush, iters=50, warmup=5):
     """Median per-call milliseconds over ``iters`` calls timed with CUDA
     events, the L2 cache flushed before each (a layer's pages arrive cold:
@@ -298,6 +345,13 @@ def kernel_phase(torch, ops, ref, smi):
     h_decode = ([1, 1, 1, 1], [161, 183, 207, 230])
     h_first = ([HYMBA_META + PAGE], [HYMBA_META + PAGE])
     h_next = ([PAGE], [HYMBA_META + 2 * PAGE])
+    # deepseek-v2-lite-16b's latent head (D 576, a group of 16: one decode
+    # token is one 16-row tile) and its reduced config's (D 80): decode over
+    # the serve traffic's lengths (a 32-token head, 8-47 prompt tokens, 16
+    # new), a 32-row chunk over three pages, a whole prompt, long decodes
+    # over many groups and, past 128 pages, several slots a split
+    m_decode = ([1, 1, 1, 1], [41, 66, 80, 95])
+    m_extend = ([32], [96])
     cases = [("decode", qwen, decode, {}, {}),
              ("sparse_table", qwen, mixed, {"sparse": True}, {}),
              ("extend48", qwen, extend, {}, {}),
@@ -318,11 +372,21 @@ def kernel_phase(torch, ops, ref, smi):
              ("hymba_next_chunk_window64", HYMBA, h_next, {}, {"window": 64}),
              ("hymba_sparse_table", HYMBA, ([1, 32, 1], [161, 192, 230]),
               {"sparse": True}, {"window": 2048})]
+    for tag, geo in (("mla", MLA), ("mla_reduced", MLA_REDUCED)):
+        cases += [(f"{tag}_decode", geo, m_decode, {}, {}),
+                  (f"{tag}_sparse_table", geo, ([5, 1, 32, 1], [37, 64, 96, 128]),
+                   {"sparse": True}, {}),
+                  (f"{tag}_extend32", geo, m_extend, {}, {}),
+                  (f"{tag}_first_chunk", geo, ([70], [70]), {}, {}),
+                  (f"{tag}_extend32_cap_window", geo, m_extend, {},
+                   {"cap": 30.0, "window": 40}),
+                  (f"{tag}_long_decode", geo, long, {}, {}),
+                  (f"{tag}_multi_slot_splits", geo, ([1, 3], [4500, 6000]), {}, {})]
     errs, atols = {}, {}
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for name, geo, (ql, kl), mk, kw in cases:
-            scale = geo[2] ** -0.5
+            scale = scale_of(geo)
             case = make_case(torch, ql, kl, dtype, geo=geo, **mk)
             out = rpa(*case, scale=scale, max_q_len=max(ql), **kw)
             want = rpa_ref(*case, scale=scale, **kw)
@@ -342,8 +406,13 @@ def kernel_phase(torch, ops, ref, smi):
         for name, geo, (ql, kl) in (("decode", qwen, decode), ("extend48", qwen, extend),
                                     ("long_decode", qwen, long),
                                     ("hymba_decode", HYMBA, h_decode),
-                                    ("hymba_first_chunk", HYMBA, h_first)):
-            scale = geo[2] ** -0.5
+                                    ("hymba_first_chunk", HYMBA, h_first),
+                                    ("mla_decode", MLA, m_decode),
+                                    ("mla_extend32", MLA, m_extend),
+                                    ("mla_long_decode", MLA, long),
+                                    ("mla_reduced_decode", MLA_REDUCED, m_decode),
+                                    ("mla_reduced_extend32", MLA_REDUCED, m_extend)):
+            scale = scale_of(geo)
             base = make_case(torch, ql, kl, dtype, geo=geo, seed=3)
             padded = make_case(torch, ql, kl, dtype, geo=geo, seed=3, extra_null=20)
             assert torch.equal(base[1], padded[1]) and torch.equal(base[0], padded[0])
@@ -357,8 +426,11 @@ def kernel_phase(torch, ops, ref, smi):
         for geo, q_len, kv_len, window in ((qwen, 48, 80, None), (qwen, 48, 1000, None),
                                            (qwen, 48, 4500, None),
                                            (HYMBA, HYMBA_META + PAGE, HYMBA_META + PAGE, None),
-                                           (HYMBA, PAGE, 230, 64)):
-            scale = geo[2] ** -0.5
+                                           (HYMBA, PAGE, 230, 64),
+                                           (MLA, 32, 96, None), (MLA, 70, 70, None),
+                                           (MLA, 32, 4500, None),
+                                           (MLA_REDUCED, 32, 96, None)):
+            scale = scale_of(geo)
             q, pages, table, cu, kl = make_case(torch, [q_len], [kv_len], dtype,
                                                 geo=geo, seed=4)
             ext = rpa(q, pages, table, cu, kl, scale=scale, max_q_len=q_len,
@@ -380,17 +452,24 @@ def kernel_phase(torch, ops, ref, smi):
                                 ("extend", qwen, ([48], [80])),
                                 ("long_decode", qwen, ([1, 1, 1, 1], [4096] * 4)),
                                 ("hymba_decode", HYMBA, ([1, 1, 1, 1], [170, 190, 210, 230])),
-                                ("hymba_first_chunk", HYMBA, h_first)):
-        scale = geo[2] ** -0.5
+                                ("hymba_first_chunk", HYMBA, h_first),
+                                ("mla_decode", MLA, ([1, 1, 1, 1], [72, 80, 88, 96])),
+                                ("mla_extend32", MLA, m_extend),
+                                ("mla_long_decode", MLA, ([1, 1, 1, 1], [4096] * 4))):
+        scale = scale_of(geo)
         case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5)
         n_bytes, flops, bound_ms, bound_by = work(case, "bfloat16")
         qq, k, v, mask = sdpa_inputs(torch, case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = lambda: sdpa(qq, k, v, attn_mask=mask, scale=scale,  # noqa: E731
                            enable_gqa=True)
+        backend = None
+        if geo == MLA:     # D 576: name the backend that takes it
+            backend, lib = sdpa_backend(torch, lib)
         kernel = lambda: rpa(*case, scale=scale, max_q_len=max(ql))  # noqa: E731
         timing[name] = {
             "geometry": list(geo), "q_lens": ql, "kv_lens": kl, "bytes": n_bytes,
+            "library_backend": backend,
             "flops": flops,
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, lambda: rpa_ref(*case, scale=scale),
@@ -551,7 +630,8 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
 # (HMMA) in paged attention and the SSD scan
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
-MMA_KERNELS = ("ragged_paged_attention_mma_kernel", "ssd_scan_mma_kernel")
+MMA_KERNELS = ("ragged_paged_attention_mma_kernel", "ragged_paged_attention_latent_kernel",
+               "ssd_scan_mma_kernel")
 FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
 # fp32: the reference's own flash tolerances — values 3e-5 atol and rtol
 # (tests/test_kernels.py), gradients 2e-4 (tests/test_models.py); sums run
@@ -787,12 +867,13 @@ def reduced_model_phase(torch, cfg_mod, tfm, param):
 def init_device_phase(torch, cfg_mod, tfm, param):
     """The port's copy of JAX's generator draws the same bits on the card
     as on the CPU, where tests/test_torch_jax_random.py holds them equal
-    to jax.random's: reduced qwen3-8b, mamba2-2.7b, gemma-2b and hymba-1.5b
-    at seed 3, every leaf bit for bit (the SSM initialisers' float32 log and
+    to jax.random's: reduced qwen3-8b, mamba2-2.7b, gemma-2b, hymba-1.5b and
+    deepseek-v2-lite-16b at seed 3, every leaf bit for bit (the SSM initialisers' float32 log and
     expm1 and hymba's meta tokens included). The launchers draw their
     weights on the card."""
     unequal, total = {}, {}
-    for arch in ("qwen3-8b", "mamba2-2.7b", "gemma-2b", "hymba-1.5b"):
+    for arch in ("qwen3-8b", "mamba2-2.7b", "gemma-2b", "hymba-1.5b",
+                 "deepseek-v2-lite-16b"):
         cfg = cfg_mod.reduced(cfg_mod.get_config(arch))
         on_card = param.tree_leaves(tfm.init_params(cfg, 3, device="cuda"))
         on_cpu = param.tree_leaves(tfm.init_params(cfg, 3, device="cpu"))
@@ -946,6 +1027,66 @@ def reduced_hybrid_phase(torch, cfg_mod, tfm, param, serve):
                                  "decode the cold-start tokens")
     emit("reduced_model_check", arch="hymba-1.5b", relative_logit_err=errs,
          tolerance=1e-4, hit_equals_cold_page4={"float32": True, "bfloat16": True},
+         compute_hits=hits, prefill_tokens_skipped=skipped)
+
+
+def reduced_mla_phase(torch, cfg_mod, tfm, param, serve):
+    """Reduced fp32 deepseek-v2-lite-16b (MLA on D 80 latent pages, 4
+    experts top-2 behind one dense layer): paged prefill of 40 tokens over
+    three pages, a 9-token extend and a batched decode with an inactive
+    row, CUDA (the kernel) against the CPU path, same weights; then, on
+    CUDA, in fp32 and in bf16, an engine at page 16 and chunk 16 (cold and
+    hit cut prompts at the same boundaries, so MoE groups and capacities
+    match) whose prefix hits decode the tokens of a cold start."""
+    full = cfg_mod.get_config("deepseek-v2-lite-16b")
+    cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
+    params = tfm.init_params(cfg, 0, device="cuda")
+    pt = 16
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = param.tree_map(lambda a: a.to(dev), params)
+        caches = tfm.init_paged_caches(cfg, 8, pt, torch.float32, device=dev)
+        g = torch.Generator().manual_seed(4)
+        toks = torch.randint(2, cfg.vocab_size, (1, 40), generator=g).to(dev)
+        ext = torch.randint(2, cfg.vocab_size, (1, 9), generator=g).to(dev)
+        last = torch.randint(2, cfg.vocab_size, (2, 1), generator=g).to(dev)
+        tbl = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
+        tbl2 = torch.tensor([[1, 2, 3, 4], [0, 0, 0, 0]], dtype=torch.int32,
+                            device=dev)
+        res = []
+        lg, caches = tfm.paged_prefill(cfg, p, {"tokens": toks}, caches, tbl)
+        res.append(lg)
+        lg, caches = tfm.paged_extend(cfg, p, caches, ext, 40, tbl)
+        res.append(lg)
+        lg, caches = tfm.paged_decode(cfg, p, caches, last,
+                                      torch.tensor([49, 0], device=dev), tbl2,
+                                      active=torch.tensor([True, False], device=dev))
+        res.append(lg[:1])
+        outs[dev] = [r.float().cpu() for r in res]
+    errs = []
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        errs.append(rel)
+        if not rel < 1e-4:
+            raise AssertionError(f"reduced deepseek-v2-lite on CUDA vs CPU: "
+                                 f"relative logit error {rel}")
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits on CUDA")
+
+    cfg16 = cfg_mod.reduced(full)                     # bf16
+    flags = ["--page-tokens", str(pt), "--chunk-tokens", str(pt)]
+    hits, skipped = {}, {}
+    for dname, c, w in (("float32", cfg, params),
+                        ("bfloat16", cfg16, tfm.init_params(cfg16, 0, device="cuda"))):
+        same, hits[dname], skipped[dname] = engine_hit_equals_cold(
+            serve, "deepseek-v2-lite-16b", c, full, w, flags)
+        if not same or hits[dname] < 1:
+            raise AssertionError(f"reduced deepseek-v2-lite on CUDA, {dname}: "
+                                 f"prefix hit ({hits[dname]} hits) does not "
+                                 "decode the cold-start tokens")
+    emit("reduced_model_check", arch="deepseek-v2-lite-16b", relative_logit_err=errs,
+         tolerance=1e-4, hit_equals_cold_page16_chunk16={"float32": True,
+                                                        "bfloat16": True},
          compute_hits=hits, prefill_tokens_skipped=skipped)
 
 
@@ -1110,6 +1251,37 @@ def hybrid_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
          state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
     _require("hymba-1.5b serve", checks)
     return launches
+
+
+def mla_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+    """deepseek-v2-lite-16b: every MLA layer of every model call launched
+    the attention kernel at the latent head (D 576, 16 query heads on one
+    KV head); prefix hits spliced pages with zero copy bytes."""
+    cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
+                                       "deepseek-v2-lite-16b", kernels)
+    n = launches["ragged_paged_attention"]
+    calls = st["model_calls"]
+    specs = cfg.layer_specs()
+    checks = {
+        "finished": rep["finished"] == 8,
+        "tokens_generated": rep["tokens_generated"] == 8 * 16,
+        "finite_logits": st["finite_logits"],
+        "full_width": (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                       cfg.qk_rope_dim, cfg.n_experts, cfg.moe_top_k,
+                       cfg.n_shared_experts, cfg.expert_d_ff, cfg.vocab_size, cfg.dtype)
+        == (27, 2048, 16, 512, 64, 64, 6, 2, 1408, 102400, "bfloat16"),
+        "mla_moe_layers": all(s.kind == "mla" for s in specs)
+        and [s.mlp for s in specs] == ["dense"] + ["moe"] * 26,
+        "launches": n == cfg.num_layers * calls and calls > 0,
+        "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
+        "kernel_read_bytes": rep["kernel_read_bytes"] > 0,
+        "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+    }
+    emit("mla_serve", nvidia_smi=smi, **st,
+         latent_bytes_token_layer=(cfg.kv_lora_rank + cfg.qk_rope_dim) * 2,
+         checks=checks)
+    _require("deepseek-v2-lite-16b serve", checks)
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -1384,7 +1556,7 @@ def main() -> int:
     _require("tensor-core build", {
         name: counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] is None
         or counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] > 0
-        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 17})
+        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 20})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
@@ -1403,6 +1575,7 @@ def main() -> int:
     timed("reduced qwen3", reduced_model_phase, torch, cfg_mod, tfm, param)
     timed("reduced mamba2", reduced_ssm_phase, torch, cfg_mod, tfm, param, serve)
     timed("reduced hymba", reduced_hybrid_phase, torch, cfg_mod, tfm, param, serve)
+    timed("reduced deepseek", reduced_mla_phase, torch, cfg_mod, tfm, param, serve)
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
@@ -1418,22 +1591,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_launches = timed("hybrid serve", hybrid_serve_phase, torch, cfg_mod, tfm,
                             serve, param, kernels, smi)
+    gc.collect()                     # the hymba-1.5b engine and weights
+    torch.cuda.empty_cache()
+    mla_launches = timed("mla serve", mla_serve_phase, torch, cfg_mod, tfm, serve,
+                         param, kernels, smi)
+    gc.collect()                     # the deepseek-v2-lite-16b engine and weights
+    torch.cuda.empty_cache()
     fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
     # each serving path's counts, zeroed before it and read after it; an
     # entry's launches are their sum, its times the first path's shape
-    # with the hymba-1.5b shape beside them
+    # with the hymba-1.5b and deepseek-v2-lite-16b shapes beside them
     by_path = {
         "ragged_paged_attention": {
             "qwen3-8b serve": rpa_launches,
-            "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"]},
+            "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"],
+            "deepseek-v2-lite-16b serve": mla_launches},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches,
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"]}}
 
     def times(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "device_ms")}
+                                  "library_ms", "device_ms", "library_backend")
+                if k in t}
 
     dec, ssd = timing["decode"], ssd_timing["S32"]
     entries = [{
@@ -1446,7 +1627,8 @@ def main() -> int:
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"], "device_ms": dec["device_ms"],
-        "hymba_decode": times(timing["hymba_decode"])}, {
+        "hymba_decode": times(timing["hymba_decode"]),
+        "mla_decode": times(timing["mla_decode"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main path spends its time on the card.
 
-    python3 scripts/profile_port_serve.py
+    python3 scripts/profile_port_serve.py                  # qwen3-8b, mamba2-2.7b
+    python3 scripts/profile_port_serve.py deepseek-v2-lite-16b
 
-For each serving path of ``chip_smoke.py`` in turn — qwen3-8b, then
-mamba2-2.7b, each at full width and depth with the serve defaults and
+For each serving path named (by default qwen3-8b, then mamba2-2.7b; any
+``--arch`` of ``chip_smoke.py``'s serve phases), each at full width and
+depth with the serve defaults and
 random weights from a seed — serves its 8 requests once to warm up, then
 serves them again under ``torch.profiler`` and prints one JSON line: wall
 time, device-busy time and idle share, time per model call, launch and
@@ -117,7 +119,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    for arch in ARCHS:
+    for arch in sys.argv[1:] or ARCHS:
         profile_arch(arch, smi)
         gc.collect()                # free one model before the next
         torch.cuda.empty_cache()

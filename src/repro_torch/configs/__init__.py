@@ -1,9 +1,10 @@
 """Architecture configs (``--arch <id>``). Importing this package registers
 the architectures the port runs so far: qwen3-8b and gemma-2b (serving and
-training), mamba2-2.7b and hymba-1.5b (serving)."""
+training), mamba2-2.7b, hymba-1.5b and deepseek-v2-lite-16b (serving)."""
 from repro_torch.configs.base import ModelConfig, LayerSpec, ScanGroup, REGISTRY, get_config, reduced, register
 
 # register all ported architectures
+from repro_torch.configs.deepseek_v2_lite_16b import DEEPSEEK_V2_LITE
 from repro_torch.configs.gemma_2b import GEMMA_2B
 from repro_torch.configs.hymba_1p5b import HYMBA_1P5B
 from repro_torch.configs.mamba2_2p7b import MAMBA2_2P7B

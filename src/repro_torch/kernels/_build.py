@@ -112,7 +112,7 @@ def _demangle(names):
                          text=True, check=True)
     out = {}
     for n, d in zip(names, res.stdout.splitlines()):
-        d = d.replace("(int)", "")
+        d = d.replace("(int)", "").replace("(bool)0", "false").replace("(bool)1", "true")
         m = re.search(r"(\w+(?:<[^()]*>)?)\(", d)
         out[n] = m.group(1) if m else d
     return out

@@ -45,12 +45,18 @@
 // - Arithmetic, bf16 (ragged_paged_attention_mma_kernel): S = Q Kᵀ and
 //   O += P V on the tensor cores by mma.sync.m16n8k16 (fp32 sums), P rounded
 //   to bf16; the softmax on the fragments.
-// - Arithmetic, fp32 (ragged_paged_attention_kernel): lane (kq, dq) =
-//   (lane / 8, lane % 8) owns keys kq + 4j of a block and D/8 columns; a
-//   score is a D/8-long FMA chain per lane and a 3-step shuffle sum over the
-//   8 lanes of its key group; every K and V element loaded feeds all rows.
-//   P.V accumulates per lane over its keys, summed over the 4 key groups by
-//   shuffles at the split's end. (TF32 would not hold the fp32 tolerance.)
+// - Arithmetic, fp32 (ragged_paged_attention_kernel): a key's row is split
+//   over LPK lanes (8, or 32 from D 512), so lane (kq, dq) = (lane / LPK,
+//   lane % LPK) owns keys kq + (32 / LPK) j of a block and every LPK-th
+//   16-byte chunk of the row (the last chunk of a lane may lie past D, as at
+//   D 80, and is skipped); a score is an FMA chain per lane and a shuffle sum
+//   over the LPK lanes of its key; every K and V element loaded feeds all
+//   rows. P.V accumulates per lane over its keys, summed over the key groups
+//   by shuffles at the split's end. (TF32 would not hold the fp32
+//   tolerance.)
+// - Latent head (bf16, D 576: MLA's fused [c, kr] row shared by all query
+//   heads): ragged_paged_attention_latent_kernel, below — the 4 warps of a
+//   CTA share one split instead of walking one each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,15 +133,16 @@ __device__ __forceinline__ void fold(float& m, float& l, float (&a)[N], float m2
 }
 
 // One thread's share of a tile's merged state: row threadIdx.x / TPR of
-// the tile, columns threadIdx.x % TPR + TPR k.
+// the tile, columns threadIdx.x % TPR + TPR k below D.
 template <int R, int D>
 struct RowState {
-  static constexpr int TPR = kThreads / R;   // threads a row
-  static constexpr int EPT = D / TPR;        // columns a thread
+  static constexpr int TPR = kThreads / R;            // threads a row
+  static constexpr int EPT = (D + TPR - 1) / TPR;     // columns a thread, at most
   float m = kNegInf, l = 0.f, a[EPT] = {};
 
   __device__ __forceinline__ int row() const { return threadIdx.x / TPR; }
   __device__ __forceinline__ int col(int k) const { return threadIdx.x % TPR + TPR * k; }
+  __device__ __forceinline__ bool has(int k) const { return D % TPR == 0 || col(k) < D; }
 
   // Folds a group's partial into this state: the fold, in split order, of
   // the warps' partials left in mbuf ([warp][row][D columns, m, l]).
@@ -143,7 +150,7 @@ struct RowState {
     float gm = kNegInf, gl = 0.f, ga[EPT];
     for (int w = 0; w < warps; ++w) {
       const float* mw = mbuf + (w * R + row()) * (D + 2);
-      fold(gm, gl, ga, mw[D], mw[D + 1], [&](int k) { return mw[col(k)]; });
+      fold(gm, gl, ga, mw[D], mw[D + 1], [&](int k) { return has(k) ? mw[col(k)] : 0.f; });
     }
     fold(m, l, a, gm, gl, [&](int k) { return ga[k]; });
   }
@@ -168,12 +175,18 @@ struct Params {
 
 template <int D>
 struct Geo {
+  static_assert(D % 4 == 0, "a row splits into 16-byte chunks");
   static constexpr int VW = 4;                           // floats a 16-byte load
-  static constexpr int CPL = D / 8;                      // columns per lane
-  static constexpr int NCH = CPL / VW;                   // chunks per lane
-  static constexpr int kBlockKeys_ = kStageBytes / (2 * D * 4);
-  static constexpr int kBlockKeys = kBlockKeys_ > 32 ? 32 : kBlockKeys_;
-  static constexpr int KPL = kBlockKeys / 4;             // keys per lane in a block
+  static constexpr int LPK = D >= 512 ? 32 : 8;          // lanes a key
+  static constexpr int KG = 32 / LPK;                    // keys a warp takes at once
+  static constexpr int NV = D / VW;                      // 16-byte chunks a row
+  static constexpr int NCH = (NV + LPK - 1) / LPK;       // chunks per lane, at most
+  static constexpr int CPL = NCH * VW;                   // columns per lane, at most
+  // about kStageBytes of K and V rows a block, at least 4 keys, whole key groups
+  static constexpr int kBlockKeys_ = kStageBytes / (2 * D * 4) < 4 ? 4 : kStageBytes / (2 * D * 4);
+  static constexpr int kBlockKeys = (kBlockKeys_ > 32 ? 32 : kBlockKeys_) / KG * KG;
+  static constexpr int KPL = kBlockKeys / KG;            // keys per lane in a block
+  static_assert(KPL >= 1 && KPL <= 32, "a block's keys fit the lanes' masks");
   static constexpr int ROW = 2 * D;                      // K row then V row, elements
   static constexpr int stage_elems = kBlockKeys * ROW;
   // shared memory: q (fp32), then per warp 2 stages; the merge buffer
@@ -199,7 +212,8 @@ __device__ __forceinline__ void write_rows(const Params& prm, const RowState<R, 
     const size_t pr = (size_t)group * prm.num_tokens * Hq + r;
     if (run.l != 0.f) {
 #pragma unroll
-      for (int k = 0; k < RowState<R, D>::EPT; ++k) prm.part_acc[pr * D + run.col(k)] = run.a[k];
+      for (int k = 0; k < RowState<R, D>::EPT; ++k)
+        if (run.has(k)) prm.part_acc[pr * D + run.col(k)] = run.a[k];
     }
     if (run.col(0) == 0) {
       prm.part_ml[2 * pr] = run.m;
@@ -209,7 +223,8 @@ __device__ __forceinline__ void write_rows(const Params& prm, const RowState<R, 
     const float denom = run.l == 0.f ? 1.f : run.l;
     T* out = static_cast<T*>(prm.out) + r * D;
 #pragma unroll
-    for (int k = 0; k < RowState<R, D>::EPT; ++k) from_float(out + run.col(k), run.a[k] / denom);
+    for (int k = 0; k < RowState<R, D>::EPT; ++k)
+      if (run.has(k)) from_float(out + run.col(k), run.a[k] / denom);
   }
 }
 
@@ -219,14 +234,16 @@ ragged_paged_attention_kernel(const Params prm) {
   using GE = Geo<D>;
   using T = float;
   constexpr int VW = GE::VW, NCH = GE::NCH, CPL = GE::CPL, KB = GE::kBlockKeys, KPL = GE::KPL;
-  constexpr int ROW = GE::ROW;
+  constexpr int ROW = GE::ROW, LPK = GE::LPK, KG = GE::KG, NV = GE::NV;
 
   const int n_split_ctas = prm.spread ? prm.n_groups : 1;
   const int tile = blockIdx.x / n_split_ctas;
   const int h = blockIdx.y;
   const int s = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kq = lane / 8, dq = lane % 8;
+  const int kq = lane / LPK, dq = lane % LPK;
+  // chunk c of this lane, (c LPK + dq), lies inside the row
+  auto live = [&](int c) { return NV % LPK == 0 || c * LPK + dq < NV; };
 
   const int ps = prm.page_size;
   const int Hq = prm.num_q_heads;
@@ -338,10 +355,11 @@ ragged_paged_attention_kernel(const Params prm) {
           for (int j = 0; j < KPL; ++j) sc[i][j] = 0.f;
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
-          const int col = (c * 8 + dq) * VW;
+          if (!live(c)) continue;
+          const int col = (c * LPK + dq) * VW;
           float kf[KPL][VW];
 #pragma unroll
-          for (int j = 0; j < KPL; ++j) load_vec<VW>(st + (j * 4 + kq) * ROW + col, kf[j]);
+          for (int j = 0; j < KPL; ++j) load_vec<VW>(st + (j * KG + kq) * ROW + col, kf[j]);
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
             float qf[VW];
@@ -355,11 +373,9 @@ ragged_paged_attention_kernel(const Params prm) {
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int j = 0; j < KPL; ++j) {
-            sc[i][j] += __shfl_xor_sync(0xffffffffu, sc[i][j], 1);
-            sc[i][j] += __shfl_xor_sync(0xffffffffu, sc[i][j], 2);
-            sc[i][j] += __shfl_xor_sync(0xffffffffu, sc[i][j], 4);
-          }
+          for (int j = 0; j < KPL; ++j)
+#pragma unroll
+            for (int o = 1; o < LPK; o <<= 1) sc[i][j] += __shfl_xor_sync(0xffffffffu, sc[i][j], o);
         // online softmax per row (m, l warp-uniform; each lane sums its own keys into l)
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
@@ -367,7 +383,7 @@ ragged_paged_attention_kernel(const Params prm) {
           float mx = kNegInf;
 #pragma unroll
           for (int j = 0; j < KPL; ++j) {
-            const int key = j * 4 + kq;
+            const int key = j * KG + kq;
             float x = sc[i][j] * prm.scale;
             if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
             const int kpos = kpos0 + key;
@@ -377,8 +393,8 @@ ragged_paged_attention_kernel(const Params prm) {
             sc[i][j] = valid ? x : kNegInf;
             mx = fmaxf(mx, sc[i][j]);
           }
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+#pragma unroll
+          for (int o = LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
           const float m_new = fmaxf(m[i], mx);
           float psum = 0.f;
 #pragma unroll
@@ -401,8 +417,9 @@ ragged_paged_attention_kernel(const Params prm) {
         for (int j = 0; j < KPL; ++j) {
 #pragma unroll
           for (int c = 0; c < NCH; ++c) {
+            if (!live(c)) continue;
             float vf[VW];
-            load_vec<VW>(st + (j * 4 + kq) * ROW + D + (c * 8 + dq) * VW, vf);
+            load_vec<VW>(st + (j * KG + kq) * ROW + D + (c * LPK + dq) * VW, vf);
 #pragma unroll
             for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -415,16 +432,15 @@ ragged_paged_attention_kernel(const Params prm) {
     }
     cp_async_wait<0>();
 
-    // the split's partial: sum acc and l over the 4 key groups
+    // the split's partial: sum acc and l over the key groups
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 8);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 16);
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 8);
-        acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 16);
-      }
+      for (int o = LPK; o < 32; o <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int o = LPK; o < 32; o <<= 1) acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], o);
     }
     __syncthreads();   // every warp is done with its stages: they become the merge buffer
     if (kq == 0) {
@@ -433,8 +449,9 @@ ragged_paged_attention_kernel(const Params prm) {
       for (int i = 0; i < kRows; ++i) {
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
+          if (live(c))
 #pragma unroll
-          for (int e = 0; e < VW; ++e) mw[i * (D + 2) + (c * 8 + dq) * VW + e] = acc[i][c * VW + e];
+            for (int e = 0; e < VW; ++e) mw[i * (D + 2) + (c * LPK + dq) * VW + e] = acc[i][c * VW + e];
         if (dq == 0) {
           mw[i * (D + 2) + D] = m[i];
           mw[i * (D + 2) + D + 1] = l[i];
@@ -773,6 +790,312 @@ ragged_paged_attention_mma_kernel(const Params prm) {
   write_rows<T>(prm, run, row0, row_end, q0, h, G, g_begin);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at the latent head (MLA): the 4 warps of a CTA share one split
+// ---------------------------------------------------------------------------
+//
+// DeepSeek-V2's absorbed MLA attends one fused latent KV head, K' = [c, kr]
+// and V' = [c, 0] of width r + dr = 576, with all its query heads (group
+// 16: a decode token is exactly one 16-row tile). The per-warp splits above
+// do not fit that width: each warp would keep O for all 576 columns (288
+// fp32 registers a thread), and 4 warps x 2 stages x 16 keys x 2,320 B of
+// K|V rows exceed a CTA's shared memory. Here a group is one split, and
+// the CTA walks it with all 4 warps on each block of 16 keys:
+// - S = Q K'ᵀ: warp w contracts columns [144 w, 144 w + 144) (9 k-steps of
+//   mma.sync); the 4 partial 16x16 tiles meet in shared memory and every
+//   warp sums them in warp order, so all warps hold the same scores, bit
+//   for bit, and run the same online softmax (m, l);
+// - O += P V': warp w accumulates output columns [144 w, 144 w + 144) (72
+//   fp32 registers a thread), V' by ldmatrix.trans as above;
+// - a 16-key K|V stage is 37,120 B, two stages, one block in flight while
+//   the other is computed; two barriers a block.
+// Splits, groups and folds keep the rules above: slots cut at fixed
+// boundaries (split_slots), empty groups identities, spread decode folded
+// by the merge launch (kPartial: the CTA writes its group's partial),
+// otherwise the CTA folds its groups in order in registers with the same
+// fold — so a row's bits do not depend on the launch. The two
+// instantiations share every line of a group's arithmetic; the partial one
+// keeps no running state, which leaves its registers to O. K' and V' are
+// read as the pool stores them, c twice.
+
+constexpr int kLatentD = 576;
+constexpr int kLatentCols = kLatentD / kWarps;   // a warp's share of the contraction and of O
+
+struct LatentGeo {
+  static constexpr int D = kLatentD;
+  static constexpr int QS = D + 8;               // padded Q row: 1,168 B, an odd number of 16 B
+  static constexpr int RS = 2 * D + 8;           // padded K'|V' row: 2,320 B, likewise
+  static constexpr int stage_elems = kMmaKeys * RS;
+  static constexpr size_t q_bytes = 2 * kMmaRows * QS;
+  static constexpr size_t stage_bytes = 2 * stage_elems;
+  static constexpr size_t score_bytes = sizeof(float) * kWarps * 32 * 8;   // [warp][lane][8]
+  static constexpr size_t bytes = q_bytes + 2 * stage_bytes + score_bytes;
+  static_assert(kLatentCols % 16 == 0, "a warp's columns are whole k-steps");
+};
+
+template <bool kPartial>
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attention_latent_kernel(const Params prm) {
+  using GE = LatentGeo;
+  using T = __nv_bfloat16;
+  constexpr int D = GE::D, R = kMmaRows, KB = kMmaKeys, RS = GE::RS, QS = GE::QS;
+  constexpr int WC = kLatentCols, NT = WC / 8;
+
+  const int n_split_ctas = prm.spread ? prm.n_groups : 1;
+  const int tile = blockIdx.x / n_split_ctas;
+  const int h = blockIdx.y;
+  const int s = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;            // fragment row, column pair
+  const int mi = lane / 8;                           // ldmatrix: this lane's 8x8 matrix
+
+  const int ps = prm.page_size;
+  const int Hq = prm.num_q_heads;
+  const int G = Hq / prm.num_kv_heads;
+  const int H2 = 2 * prm.num_kv_heads;
+
+  const int q0 = prm.cu_q_lens[s];
+  const int qlen = prm.cu_q_lens[s + 1] - q0;
+  const int kv_len = prm.kv_lens[s];
+  const int row0 = tile * R;
+  if (row0 >= qlen * G) return;
+  const int row_end = min(row0 + R, qlen * G);
+
+  const int first_qpos = kv_len - qlen + row0 / G;
+  const int last_qpos = kv_len - qlen + (row_end - 1) / G;
+  const int n_pages = (kv_len + ps - 1) / ps;
+  const int hi = min(min(n_pages, last_qpos / ps + 1), prm.table_width);
+  const int lo = prm.has_window ? max(first_qpos - prm.window + 1, 0) / ps : 0;
+  const int slots = split_slots(n_pages);           // a group is one split
+  int g_begin, g_end;   // the groups this CTA folds
+  if (prm.spread) {
+    g_begin = blockIdx.x % n_split_ctas;
+    g_end = g_begin + 1;
+  } else {
+    g_begin = lo / slots;
+    g_end = hi > lo ? (hi - 1) / slots + 1 : g_begin;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);                                        // R x QS
+  T* stages = reinterpret_cast<T*>(smem + GE::q_bytes);                       // 2 x KB x RS
+  float* sbuf = reinterpret_cast<float*>(smem + GE::q_bytes + 2 * GE::stage_bytes);
+
+  const T* q = static_cast<const T*>(prm.q);
+  const T* kv = static_cast<const T*>(prm.kv_pages);
+  for (int i = threadIdx.x; i < R * D / 8; i += kThreads) {
+    const int r = i / (D / 8), d = (i % (D / 8)) * 8;
+    const int fr = row0 + r;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (fr < row_end)
+      x = *reinterpret_cast<const uint4*>(q + ((size_t)(q0 + fr / G) * Hq + h * G + fr % G) * D + d);
+    *reinterpret_cast<uint4*>(q_s + r * QS + d) = x;
+  }
+  int qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) qpos[hh] = kv_len - qlen + (row0 + g8 + 8 * hh) / G;
+  const int bpp = (ps + KB - 1) / KB;
+  static_assert(kMaxSlots <= 32, "a lane per slot of a split");
+
+  // the folded state of this thread's rows (g8, g8 + 8) and columns
+  constexpr int RT = kPartial ? 1 : NT;
+  float rm[2] = {kNegInf, kNegInf}, rl[2] = {0.f, 0.f}, ro[RT][4];
+#pragma unroll
+  for (int j = 0; j < RT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ro[j][e] = 0.f;
+
+  for (int grp = g_begin; grp < g_end; ++grp) {
+    const int s_lo = max(lo, grp * slots);
+    const int s_hi = min(hi, (grp + 1) * slots);
+    const int n_blocks = s_hi > s_lo ? (s_hi - s_lo) * bpp : 0;
+
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float o[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+    // the split's page ids, lane j holding slot s_lo + j (-1: null, skipped);
+    // every warp reads the same ids, so a block's skip is CTA-uniform
+    int my_pid = -1;
+    if (lane < s_hi - s_lo) my_pid = prm.page_table[s * prm.table_width + s_lo + lane];
+    if (my_pid <= 0 || my_pid >= prm.num_pages) my_pid = -1;
+    auto page_of = [&](int b) { return __shfl_sync(0xffffffffu, my_pid, b / bpp); };
+    auto issue = [&](int b) {   // every thread copies its share of block b
+      const int pid = page_of(b < n_blocks ? b : 0);
+      if (b < n_blocks && pid >= 0) {
+        const int kb = (b % bpp) * KB;
+        const int nk = min(KB, ps - kb);
+        T* dst = stages + (b & 1) * GE::stage_elems;
+        constexpr int CH = 2 * D / 8;   // 16-byte chunks a key
+        for (int c = threadIdx.x; c < KB * CH; c += kThreads) {
+          const int key = c / CH, e = (c % CH) * 8;
+          const bool ok = key < nk;
+          cp_async16(dst + key * RS + e,
+                     ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + 2 * h) * D + e : kv, ok);
+        }
+      }
+      cp_async_commit();
+    };
+
+    __syncthreads();   // Q staged; the previous group's last stage is consumed
+    issue(0);
+    for (int b = 0; b < n_blocks; ++b) {
+      cp_async_wait<0>();
+      // block b has landed from every thread's copies, and every warp is
+      // done with block b - 1: its stage and the score buffer are free
+      __syncthreads();
+      issue(b + 1);
+      const int pid = page_of(b);
+      if (pid < 0) continue;
+      const T* st = stages + (b & 1) * GE::stage_elems;
+      const int kb = (b % bpp) * KB;
+      const int kpos0 = (s_lo + b / bpp) * ps + kb;
+      const int nk = min(KB, ps - kb);
+      // this warp's partial S over its columns; sc[n][e]: row g8 + 8 (e / 2), key 8n + 2 t4 + e % 2
+      float sc[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < WC / 16; ++ks) {
+        const int col = warp * WC + ks * 16;
+        uint32_t kf[4], qf[4];
+        ldmatrix_x4(kf, st + ((mi / 2) * 8 + lane % 8) * RS + col + (mi % 2) * 8);
+        ldmatrix_x4(qf, q_s + ((mi % 2) * 8 + lane % 8) * QS + col + (mi / 2) * 8);
+        mma_bf16(sc[0], qf, kf[0], kf[1]);
+        mma_bf16(sc[1], qf, kf[2], kf[3]);
+      }
+      float4* mine = reinterpret_cast<float4*>(sbuf + (warp * 32 + lane) * 8);
+      mine[0] = make_float4(sc[0][0], sc[0][1], sc[0][2], sc[0][3]);
+      mine[1] = make_float4(sc[1][0], sc[1][1], sc[1][2], sc[1][3]);
+      __syncthreads();
+      // the whole S, summed in warp order
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float4* part = reinterpret_cast<const float4*>(sbuf + (w * 32 + lane) * 8);
+        const float4 a = part[0], c = part[1];
+        if (w == 0) {
+          sc[0][0] = a.x; sc[0][1] = a.y; sc[0][2] = a.z; sc[0][3] = a.w;
+          sc[1][0] = c.x; sc[1][1] = c.y; sc[1][2] = c.z; sc[1][3] = c.w;
+        } else {
+          sc[0][0] += a.x; sc[0][1] += a.y; sc[0][2] += a.z; sc[0][3] += a.w;
+          sc[1][0] += c.x; sc[1][1] += c.y; sc[1][2] += c.z; sc[1][3] += c.w;
+        }
+      }
+      // online softmax, as the per-warp kernel runs it
+      uint32_t ok = 0;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e / 2, key = 8 * n + 2 * t4 + e % 2, kpos = kpos0 + key;
+          float x = sc[n][e] * prm.scale;
+          if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
+          bool valid = key < nk && kpos <= qpos[hh];
+          if (prm.has_window) valid = valid && kpos > qpos[hh] - prm.window;
+          if (valid) ok |= 1u << (4 * n + e);
+          sc[n][e] = valid ? x : kNegInf;
+          mx[hh] = fmaxf(mx[hh], sc[n][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        corr[hh] = fast_exp2((m[hh] - m_new) * kLog2e);
+        l[hh] *= corr[hh];
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e / 2;
+          sc[n][e] = (ok >> (4 * n + e)) & 1u ? fast_exp2((sc[n][e] - m[hh]) * kLog2e) : 0.f;
+          l[hh] += sc[n][e];
+        }
+      if (corr[0] != 1.f || corr[1] != 1.f) {   // a factor of 1 leaves O exact
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] *= corr[e / 2];
+      }
+      // O[:, this warp's columns] += P V'
+      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int dn = 0; dn < WC / 16; ++dn) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + D + warp * WC + dn * 16 + (mi / 2) * 8);
+        mma_bf16(o[2 * dn], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dn + 1], pa, vf[2], vf[3]);
+      }
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    if constexpr (kPartial) {
+      // this group's fp32 partial; a group with no visible key (l = 0) is the
+      // fold's identity: the merge reads its (m, l) only
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int fr = row0 + g8 + 8 * hh;
+        if (fr >= row_end) continue;
+        const size_t pr = (size_t)grp * prm.num_tokens * Hq
+                          + (size_t)(q0 + fr / G) * Hq + h * G + fr % G;
+        if (l[hh] != 0.f) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            float* dst = prm.part_acc + pr * D + warp * WC + 8 * j + 2 * t4;
+            dst[0] = o[j][2 * hh];
+            dst[1] = o[j][2 * hh + 1];
+          }
+        }
+        if (warp == 0 && t4 == 0) {
+          prm.part_ml[2 * pr] = m[hh];
+          prm.part_ml[2 * pr + 1] = l[hh];
+        }
+      }
+    } else {
+      // fold the group into the running state, in group order (the merge
+      // launch's fold, column by column)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float a[2 * RT];
+#pragma unroll
+        for (int k = 0; k < 2 * RT; ++k) a[k] = ro[k / 2][2 * hh + k % 2];
+        fold(rm[hh], rl[hh], a, m[hh], l[hh], [&](int k) { return o[k / 2][2 * hh + k % 2]; });
+#pragma unroll
+        for (int k = 0; k < 2 * RT; ++k) ro[k / 2][2 * hh + k % 2] = a[k];
+      }
+    }
+  }
+  if constexpr (!kPartial) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int fr = row0 + g8 + 8 * hh;
+      if (fr >= row_end) continue;
+      const float denom = rl[hh] == 0.f ? 1.f : rl[hh];
+      T* out = static_cast<T*>(prm.out) + ((size_t)(q0 + fr / G) * Hq + h * G + fr % G) * D
+               + warp * WC + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < RT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(ro[j][2 * hh] / denom, ro[j][2 * hh + 1] / denom);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t launch_tiles(K kernel, size_t smem, int rows, const Params& prm, int num_seqs,
                          int max_q_len, cudaStream_t stream) {
@@ -791,7 +1114,13 @@ cudaError_t launch_tiles(K kernel, size_t smem, int rows, const Params& prm, int
 
 template <typename T, int D>
 cudaError_t launch(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == kLatentD)
+    return prm.spread && prm.n_groups > 1
+        ? launch_tiles(ragged_paged_attention_latent_kernel<true>, LatentGeo::bytes, kMmaRows,
+                       prm, num_seqs, max_q_len, stream)
+        : launch_tiles(ragged_paged_attention_latent_kernel<false>, LatentGeo::bytes, kMmaRows,
+                       prm, num_seqs, max_q_len, stream);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_tiles(ragged_paged_attention_mma_kernel<D>, MmaGeo<D>::bytes, kMmaRows, prm,
                         num_seqs, max_q_len, stream);
   else
@@ -814,19 +1143,26 @@ cudaError_t dispatch_head_dim(const Params& prm, int head_dim, int num_seqs,
   switch (head_dim) {
     case 32: return launch_and_merge<T, 32>(prm, num_seqs, max_q_len, stream);
     case 64: return launch_and_merge<T, 64>(prm, num_seqs, max_q_len, stream);
+    case 80: return launch_and_merge<T, 80>(prm, num_seqs, max_q_len, stream);
     case 128: return launch_and_merge<T, 128>(prm, num_seqs, max_q_len, stream);
     case 256: return launch_and_merge<T, 256>(prm, num_seqs, max_q_len, stream);
+    case kLatentD: return launch_and_merge<T, kLatentD>(prm, num_seqs, max_q_len, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 constexpr int kSpreadRows = 16;   // (token, group-head) rows a sequence, at most, to spread
 
+// Splits a group: one a warp, except the bf16 latent kernel's one a CTA.
+int group_splits(int head_dim, int dtype) {
+  return dtype == 1 && head_dim == kLatentD ? 1 : kWarps;
+}
+
 // The groups of splits a sequence of at most `table_width` live slots can
 // need: on each range of page counts where split_slots is constant the
 // count grows with the pages, so the most is at a range's end or at W.
-int max_groups(int table_width) {
-  auto groups = [](int n) { return (n + split_slots(n) * kWarps - 1) / (split_slots(n) * kWarps); };
+int max_groups(int table_width, int splits) {
+  auto groups = [&](int n) { return (n + split_slots(n) * splits - 1) / (split_slots(n) * splits); };
   int most = groups(table_width);
   for (int end = 127; end < 64 * (kMaxSlots + 1); end += 64)
     most = std::max(most, groups(std::min(end, table_width)));
@@ -846,10 +1182,10 @@ bool spreads(int num_q_heads, int num_kv_heads, int max_q_len) {
 // its partials (0: none); the caller passes that much to the launch.
 extern "C" long long ragged_paged_attention_scratch_floats(
     int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int table_width,
-    int max_q_len) {
+    int max_q_len, int dtype) {
   if (num_kv_heads <= 0 || table_width <= 0 || !spreads(num_q_heads, num_kv_heads, max_q_len))
     return 0;
-  const int n_groups = max_groups(table_width);
+  const int n_groups = max_groups(table_width, group_splits(head_dim, dtype));
   return n_groups == 1 ? 0 : (long long)n_groups * num_tokens * num_q_heads * (head_dim + 2);
 }
 
@@ -868,7 +1204,7 @@ extern "C" int ragged_paged_attention_launch(
       || table_width <= 0)
     return (int)cudaErrorInvalidValue;
   const int spread = spreads(num_q_heads, num_kv_heads, max_q_len);
-  const int n_groups = max_groups(table_width);
+  const int n_groups = max_groups(table_width, group_splits(head_dim, dtype));
   if (spread && n_groups > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc == nullptr ? nullptr

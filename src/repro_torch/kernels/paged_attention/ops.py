@@ -25,7 +25,7 @@ from .ref import ragged_paged_attention_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ragged_paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256, 576)
 
 
 def _library():
@@ -39,7 +39,7 @@ def _library():
                        F, I, F, I, I,               # scale has_cap cap has_win win
                        I, P, P]                     # dtype scratch stream
         fn.restype = ctypes.c_int
-        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 6
+        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 7
         lib.ragged_paged_attention_scratch_floats.restype = ctypes.c_longlong
     return lib
 
@@ -108,7 +108,8 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     max_q_len = T if max_q_len is None else int(max_q_len)
     out = torch.empty_like(q)
     lib = _library()
-    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, H2 // 2, D, W, max_q_len)
+    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, H2 // 2, D, W, max_q_len,
+                                                          _DTYPES[q.dtype])
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
     with torch.cuda.device(q.device):

@@ -8,10 +8,11 @@ report as ``repro.launch.serve``, plus ``--device``.
 
 ``--arch`` takes the architectures the port registers: ``qwen3-8b`` and
 ``gemma-2b`` (dense attention on KV pages), ``mamba2-2.7b`` (SSM on
-point-state pages) and ``hymba-1.5b`` (hybrid: attention and SSM heads in
-every layer, KV and state pages under one table, 128 meta tokens).
+point-state pages), ``hymba-1.5b`` (hybrid: attention and SSM heads in
+every layer, KV and state pages under one table, 128 meta tokens) and
+``deepseek-v2-lite-16b`` (MLA on latent pages, MoE routing).
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: other architectures (A.4-A.5), ``--replicas > 1`` (the
+ROADMAP item: other architectures (A.5), ``--replicas > 1`` (the
 cluster, A.7), ``--paged-kernel off`` (the ring path, A.6),
 ``--inject-rber`` (faults, A.8) and the TPU autotuner's
 ``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
@@ -65,8 +66,9 @@ def build_engine(args, cfg, full, params, device=None):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="architecture: qwen3-8b, gemma-2b, mamba2-2.7b or "
-                         "hymba-1.5b (the ones the port registers)")
+                    help="architecture: qwen3-8b, gemma-2b, mamba2-2.7b, "
+                         "hymba-1.5b or deepseek-v2-lite-16b (the ones the "
+                         "port registers)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "
                          "without a card; 'cpu' runs the kernels' plain "

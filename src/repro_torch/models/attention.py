@@ -85,6 +85,24 @@ def chunked_attention(q, k, v, *, window: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 
+def paged_rows(mode: str, B: int, S: int, positions, cur_pos, decode_active,
+               device):
+    """The ragged layout of a paged step: (positions (B, S) the rows write
+    at, the rows allowed to write (None: all), cu_q_lens (B+1,), kv_lens
+    (B,)). Extend: every row is one sequence whose S queries sit at
+    ``positions``; decode: B sequences of one query at ``cur_pos``."""
+    if mode == "decode":
+        cur = cur_pos.to(torch.int32).reshape(-1)
+        return (cur.reshape(-1, 1), decode_active,
+                torch.arange(B + 1, dtype=torch.int32, device=device), cur + 1)
+    if mode == "extend":
+        pos = positions.to(torch.int32).reshape(S)
+        return (pos.reshape(1, S).expand(B, S), None,
+                torch.arange(0, (B + 1) * S, S, dtype=torch.int32, device=device),
+                (pos[-1:] + 1).expand(B).contiguous())
+    raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
+
+
 def attention_sublayer(
     cfg: ModelConfig,
     p: dict,
@@ -128,22 +146,9 @@ def attention_sublayer(
         out = out.reshape(B * S, Hq * v.shape[3]) @ p["wo"].reshape(-1, d)
         return out.reshape(B, S, d), None
 
-    dev = x.device
     kv_pages = cache["kv_pages"]
-    if mode == "decode":
-        cur = cur_pos.to(torch.int32).reshape(-1)
-        pos2d = cur.reshape(-1, 1)
-        act = decode_active
-        cu = torch.arange(B + 1, dtype=torch.int32, device=dev)
-        kv_lens = cur + 1
-    elif mode == "extend":
-        pos = positions.to(torch.int32).reshape(S)
-        pos2d = pos.reshape(1, S).expand(B, S)
-        act = None
-        cu = torch.arange(0, (B + 1) * S, S, dtype=torch.int32, device=dev)
-        kv_lens = (pos[-1:] + 1).expand(B).contiguous()
-    else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
+    pos2d, act, cu, kv_lens = paged_rows(mode, B, S, positions, cur_pos,
+                                         decode_active, x.device)
     write_tokens_to_pages(kv_pages, interleave_kv(k, v), pos2d, page_table,
                           active=act)
     out = ragged_paged_attention(

@@ -1,6 +1,6 @@
-"""Model assembly for dense attention, SSM and hybrid stacks: embeddings
-(and meta tokens) -> layer groups -> head, on the paged compute plane and
-for training.
+"""Model assembly for dense attention, MLA, SSM and hybrid stacks, with
+dense or MoE MLPs: embeddings (and meta tokens) -> layer groups -> head,
+on the paged compute plane and for training.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
 layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
@@ -24,9 +24,11 @@ Attention layers compute on KV pages, SSM layers on point-state pages
 (conv left-context + SSD state at page boundaries), hybrid layers on both
 under one page table. A point stack's extend chunk must lie within one
 page; its first chunk may span pages only as far as the meta prefix forces
-(``_check_point_chunk``). MLA, MoE, frontends, SSM and hybrid training and
-the ring-cache path raise ``NotImplementedError`` naming their ROADMAP
-item.
+(``_check_point_chunk``). MLA layers compute on latent pages; an MoE
+layer's aux loss is dropped on the serving path (the paged entry points
+return logits and pools only). Frontends, MLA, MoE, SSM and hybrid
+training and the ring-cache path raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,20 +46,13 @@ from repro_torch.models import param as prm
 from repro_torch.models.attention import attention_sublayer, attn_defs
 from repro_torch.models.hybrid import hybrid_defs, hybrid_sublayer
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
+from repro_torch.models.mla import mla_defs, mla_sublayer
+from repro_torch.models.moe import moe_defs, moe_sublayer
 from repro_torch.models.param import ParamDef
 from repro_torch.models.ssm import ssm_defs, ssm_paged_init, ssm_sublayer
 
-_UNPORTED = {"mla": "MLA (ROADMAP A.4)"}
-
 
 def _check_ported(cfg: ModelConfig) -> None:
-    for spec in cfg.layer_specs():
-        if spec.kind in _UNPORTED:
-            raise NotImplementedError(f"{cfg.name}: {_UNPORTED[spec.kind]} "
-                                      "is not ported yet")
-        if spec.mlp == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE (ROADMAP A.5) is not "
-                                      "ported yet")
     if cfg.frontend is not None or cfg.n_codebooks > 1:
         raise NotImplementedError(f"{cfg.name}: frontends (ROADMAP A.5) are "
                                   "not ported yet")
@@ -69,17 +64,13 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     defs: dict = {"norm1": rmsnorm_def(cfg.d_model)}
-    if spec.kind in _UNPORTED:
-        raise NotImplementedError(f"{_UNPORTED[spec.kind]} is not ported yet")
-    defs["mixer"] = {"attn": attn_defs, "ssm": ssm_defs,
+    defs["mixer"] = {"attn": attn_defs, "mla": mla_defs, "ssm": ssm_defs,
                      "hybrid": hybrid_defs}[spec.kind](cfg)
     if cfg.post_norms:
         defs["post_norm1"] = rmsnorm_def(cfg.d_model)
     if spec.mlp != "none":
-        if spec.mlp == "moe":
-            raise NotImplementedError("MoE (ROADMAP A.5) is not ported yet")
         defs["norm2"] = rmsnorm_def(cfg.d_model)
-        defs["mlp"] = mlp_defs(cfg, cfg.d_ff)
+        defs["mlp"] = moe_defs(cfg) if spec.mlp == "moe" else mlp_defs(cfg, cfg.d_ff)
         if cfg.post_norms:
             defs["post_norm2"] = rmsnorm_def(cfg.d_model)
     return defs
@@ -129,6 +120,11 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
                                        decode_active=decode_active,
                                        page_table=page_table,
                                        page_tokens=page_tokens)
+    elif spec.kind == "mla":
+        h, new_cache = mla_sublayer(cfg, p["mixer"], h, positions=positions,
+                                    cache=cache, mode=mode, cur_pos=cur_pos,
+                                    decode_active=decode_active,
+                                    page_table=page_table)
     elif spec.kind == "ssm":
         h, new_cache = ssm_sublayer(cfg, p["mixer"], h, cache=cache, mode=mode,
                                     decode_active=decode_active,
@@ -147,7 +143,10 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
     x = x + h
     if spec.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        h = mlp(cfg, p["mlp"], h)
+        if spec.mlp == "moe":
+            h = moe_sublayer(cfg, p["mlp"], h)[0]      # the aux loss: training only
+        else:
+            h = mlp(cfg, p["mlp"], h)
         if cfg.post_norms:
             h = rmsnorm(h, p["post_norm2"], cfg.norm_eps)
         x = x + h
@@ -163,10 +162,14 @@ def _paged_unit_cache(cfg: ModelConfig, spec: LayerSpec, n_pages: int,
                       page_tokens: int, dtype, device) -> dict:
     """One unit's paged-plane pool, unstacked. Attention pages hold fused
     head-interleaved KV; SSM pages hold the conv left-context + SSD
-    recurrent state after the last written token of the page; hybrid pages
-    are the union of the two under one table."""
+    recurrent state after the last written token of the page; MLA pages
+    hold one fused latent head, K' = [c, kr] and V' = [c, 0]; hybrid pages
+    are the union of the attention and SSM pools under one table."""
     if spec.kind == "ssm":
         return ssm_paged_init(cfg, n_pages, dtype, device)
+    if spec.kind == "mla":
+        shape = (n_pages, page_tokens, 2, cfg.kv_lora_rank + cfg.qk_rope_dim)
+        return {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
     shape = (n_pages, page_tokens, 2 * cfg.n_kv_heads, cfg.resolved_head_dim)
     kv = {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
     if spec.kind == "hybrid":
@@ -178,7 +181,8 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
                       dtype=torch.bfloat16, device=None):
     """Per-group tuple of per-unit page pools, each leaf stacked over the
     group's repeats — the JAX package's layout, page axis 1:
-    ``{"kv_pages": (R, P, ps, 2*Hkv, D)}`` for attention, ``{"conv_pages":
+    ``{"kv_pages": (R, P, ps, 2*Hkv, D)}`` for attention, ``{"kv_pages":
+    (R, P, ps, 2, r + dr)}`` for MLA, ``{"conv_pages":
     (R, P, cw-1, conv_dim), "state_pages": (R, P, nh, hd, ns) fp32}`` for
     SSM, ``{"attn": {...}, "ssm": {...}}`` for hybrid. Page id 0 is the
     reserved null page."""
@@ -306,6 +310,10 @@ def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
     if snapshot_kind(cfg) == "point":
         raise NotImplementedError(f"{cfg.name}: SSM and hybrid training "
                                   "(ROADMAP A.11) is not ported yet")
+    if any(s.kind == "mla" or s.mlp == "moe" for s in cfg.layer_specs()):
+        raise NotImplementedError(f"{cfg.name}: MLA and MoE training (Dk != Dv "
+                                  "in the flash kernels, the aux loss; ROADMAP "
+                                  "A.4, A.5) is not ported yet")
     x, prefix = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = apply_groups(cfg, params, x, positions=positions, mode="train")

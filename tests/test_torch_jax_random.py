@@ -10,8 +10,8 @@ both serve launchers at the same flags.
   bits;
 - ``repro_torch.launch.serve`` and ``repro.launch.serve`` at default flags
   print the same memory-plane report, and in float32 (reduced configs
-  forced to float32 on both sides; qwen3-8b and hymba-1.5b) also decode
-  the same tokens. In bf16
+  forced to float32 on both sides; qwen3-8b, hymba-1.5b and
+  deepseek-v2-lite-16b) also decode the same tokens. In bf16
   their tokens part once (ROADMAP §C.4), which a strict xfail records.
 """
 import contextlib
@@ -97,7 +97,7 @@ def _bits(x):
     return x.view(np.int32).astype(np.int64)
 
 
-ARCHS = ("gemma-2b", "hymba-1.5b", "mamba2-2.7b", "qwen3-8b")
+ARCHS = ("deepseek-v2-lite-16b", "gemma-2b", "hymba-1.5b", "mamba2-2.7b", "qwen3-8b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -150,7 +150,7 @@ def test_serve_launchers_tokens_equal_at_default_flags(monkeypatch):
     assert tokens["torch"] == tokens["jax"]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b", "deepseek-v2-lite-16b"])
 def test_serve_launchers_agree_in_float32(monkeypatch, arch):
     reports, tokens = _run_launchers(monkeypatch, ["--arch", arch],
                                      float32=True)
