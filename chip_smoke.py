@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
-Hopper card: the four serving paths, dense attention (qwen3-8b), SSM
+Hopper card: the seven serving paths, dense attention (qwen3-8b), SSM
 (mamba2-2.7b), hybrid (hymba-1.5b: attention and SSD heads in every
-layer) and MLA + MoE (deepseek-v2-lite-16b), the training path
-(gemma-2b), and their five kernels.
+layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
+(mixtral-8x22b), multi-codebook audio (musicgen-large) and a vision
+prefix (internvl2-76b), the training path (gemma-2b), and their five
+kernels.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -30,7 +32,14 @@ Phases, each printing one JSON line:
                  its reduced config's (4 on one of D 80: decode over the
                  serve traffic's lengths, a sparse table, a 32-row chunk
                  over three pages, a whole prompt, softcap + window, long
-                 decodes, several slots a split), fp32 and bf16;
+                 decodes, several slots a split), at mixtral-8x22b's (48/8
+                 at D 128, a group of 6: decode over the serve lengths, a
+                 64-row chunk, a sparse table, and with its window of 4096 a
+                 decode and a 64-row chunk over kv 4160-4700), at
+                 internvl2-76b's (64/8 at D 128, a group of 8: the 320-row
+                 first chunk over ten pages, the 64-row chunk after it,
+                 decode) and at musicgen-large's (MHA 32/32 at D 64, a group
+                 of 1: decode, a 32-row chunk), fp32 and bf16;
                  checks bit-equality under trailing null table slots and
                  between a row's decode and extend launches, and times the
                  kernel, its plain version and one PyTorch library call
@@ -70,9 +79,14 @@ Phases, each printing one JSON line:
                  pages) prefix hits decode the tokens of a cold start, in
                  fp32 and in bf16; the same for reduced deepseek-v2-lite-16b
                  (MLA on D 80 latent pages, MoE; engines at page and chunk
-                 16); the weights of reduced qwen3-8b, mamba2-2.7b,
-                 gemma-2b, hymba-1.5b and deepseek-v2-lite-16b drawn on the
-                 card equal the CPU's bit for bit;
+                 16); the same for reduced mixtral-8x22b (8 experts top-2,
+                 window 64), musicgen-large (4 codebooks) and internvl2-76b
+                 (8 patch embeddings, drawn by ``models/frontends.py``),
+                 page and chunk 16, wq/wk conditioned for CUDA vs CPU; the
+                 weights of reduced qwen3-8b, mamba2-2.7b, gemma-2b,
+                 hymba-1.5b, deepseek-v2-lite-16b, mixtral-8x22b,
+                 musicgen-large and internvl2-76b drawn on the card equal
+                 the CPU's bit for bit;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -109,7 +123,24 @@ Phases, each printing one JSON line:
                  vocab 102400, bf16, 15.7B parameters), after the hymba
                  engine is freed: every layer of every model call launched
                  the attention kernel at the latent head;
-13. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
+13. moe serve  — mixtral-8x22b at full width (d 6144, GQA 48/8 at 128, MoE
+                 of 8 experts top-2 of d_ff 16384 and no shared experts in
+                 every layer, window 4096 everywhere, vocab 32768, bf16) cut
+                 to its first 8 of 56 layers (20.4B parameters, 40.9 GB; the
+                 memory plane meters all 56), after the deepseek engine is
+                 freed: every layer of every model call launched the
+                 attention kernel at a group of 6;
+14. audio serve — musicgen-large at full width and depth (48 layers, d 2048,
+                 MHA 32/32 at 64, ungated GELU d_ff 8192, 4 codebooks of
+                 vocab 2048, bf16): a token is a 4-tuple, 8 x 16 positions
+                 generated; the kernel at a group of 1;
+15. vision serve — internvl2-76b at full width (d 8192, GQA 64/8 at 128,
+                 d_ff 28672, vocab 128256, 256 zero patch embeddings in front
+                 of every prompt, bf16) cut to its first 8 of 80 layers
+                 (8.95B parameters, 17.9 GB): first chunks of up to 320 rows
+                 over ten pages, hits resuming at 288; the kernel at a group
+                 of 8;
+16. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
                  8/1 at head_dim 256, GeGLU d_ff 16384, vocab 256000, bf16,
                  ``remat="full"``, AdamW) through ``repro_torch.launch.train``:
                  4 steps of 4 x 2048 tokens, after the serving engines are
@@ -144,6 +175,11 @@ HYMBA_META = 128                 # its meta tokens: the first chunk is 160 rows
 MLA = (16, 1, 576)               # deepseek-v2-lite-16b's absorbed MLA: 16 query heads
                                  # on one latent head [c, kr], r 512 + dr 64
 MLA_REDUCED = (4, 1, 80)         # its reduced config's: r 64 + dr 16
+MIXTRAL = (48, 8, 128)           # mixtral-8x22b's: a group of 6, window 4096
+INTERNVL2 = (64, 8, 128)         # internvl2-76b's: a group of 8
+INTERNVL2_IMAGE = 256            # its patch embeddings: the first chunk is 320 rows
+MUSICGEN = (32, 32, 64)          # musicgen-large's MHA: a group of 1
+SERVE_LAYERS = {"mixtral-8x22b": 8, "internvl2-76b": 8}   # cut depths on one card
 SCALES = {MLA: (128 + 64) ** -0.5, MLA_REDUCED: (32 + 16) ** -0.5}   # (dn + dr)^-1/2
 HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / fp32 (no TF32)
@@ -382,6 +418,28 @@ def kernel_phase(torch, ops, ref, smi):
                    {"cap": 30.0, "window": 40}),
                   (f"{tag}_long_decode", geo, long, {}, {}),
                   (f"{tag}_multi_slot_splits", geo, ([1, 3], [4500, 6000]), {}, {})]
+    # mixtral-8x22b (a group of 6: a decode token spans two 16-row tiles),
+    # internvl2-76b (a group of 8; 256 patch embeddings, so the serve path's
+    # first chunk is 320 rows over 10 pages and the chunk after it 64) and
+    # musicgen-large (MHA, a group of 1: one row a KV head and token); the
+    # serve lengths, and mixtral's window of 4096 binding over kv 4160-4700,
+    # where whole pages fall below every query's window
+    x_decode = ([1, 1, 1, 1], [4160, 4300, 4500, 4700])
+    v_decode = ([1, 1, 1, 1], [297, 322, 336, 351])
+    v_first = ([INTERNVL2_IMAGE + 64], [INTERNVL2_IMAGE + 64])
+    v_next = ([64], [INTERNVL2_IMAGE + 128])
+    cases += [("mixtral_decode", MIXTRAL, m_decode, {}, {}),
+              ("mixtral_extend64", MIXTRAL, ([64], [96]), {}, {}),
+              ("mixtral_sparse_table", MIXTRAL, ([5, 1, 32, 1], [37, 64, 96, 128]),
+               {"sparse": True}, {}),
+              ("mixtral_decode_window4096", MIXTRAL, x_decode, {}, {"window": 4096}),
+              ("mixtral_extend64_window4096", MIXTRAL, ([64], [4700]), {},
+               {"window": 4096}),
+              ("internvl2_first_chunk", INTERNVL2, v_first, {}, {}),
+              ("internvl2_next_chunk", INTERNVL2, v_next, {}, {}),
+              ("internvl2_decode", INTERNVL2, v_decode, {}, {}),
+              ("musicgen_decode", MUSICGEN, m_decode, {}, {}),
+              ("musicgen_extend32", MUSICGEN, m_extend, {}, {})]
     errs, atols = {}, {}
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -411,7 +469,13 @@ def kernel_phase(torch, ops, ref, smi):
                                     ("mla_extend32", MLA, m_extend),
                                     ("mla_long_decode", MLA, long),
                                     ("mla_reduced_decode", MLA_REDUCED, m_decode),
-                                    ("mla_reduced_extend32", MLA_REDUCED, m_extend)):
+                                    ("mla_reduced_extend32", MLA_REDUCED, m_extend),
+                                    ("mixtral_decode", MIXTRAL, m_decode),
+                                    ("mixtral_long_decode", MIXTRAL, x_decode),
+                                    ("internvl2_first_chunk", INTERNVL2, v_first),
+                                    ("internvl2_decode", INTERNVL2, v_decode),
+                                    ("musicgen_decode", MUSICGEN, m_decode),
+                                    ("musicgen_extend32", MUSICGEN, m_extend)):
             scale = scale_of(geo)
             base = make_case(torch, ql, kl, dtype, geo=geo, seed=3)
             padded = make_case(torch, ql, kl, dtype, geo=geo, seed=3, extra_null=20)
@@ -429,7 +493,13 @@ def kernel_phase(torch, ops, ref, smi):
                                            (HYMBA, PAGE, 230, 64),
                                            (MLA, 32, 96, None), (MLA, 70, 70, None),
                                            (MLA, 32, 4500, None),
-                                           (MLA_REDUCED, 32, 96, None)):
+                                           (MLA_REDUCED, 32, 96, None),
+                                           (MIXTRAL, 64, 96, None),
+                                           (MIXTRAL, 64, 4700, 4096),
+                                           (INTERNVL2, INTERNVL2_IMAGE + 64,
+                                            INTERNVL2_IMAGE + 64, None),
+                                           (INTERNVL2, 64, INTERNVL2_IMAGE + 128, None),
+                                           (MUSICGEN, 32, 96, None)):
             scale = scale_of(geo)
             q, pages, table, cu, kl = make_case(torch, [q_len], [kv_len], dtype,
                                                 geo=geo, seed=4)
@@ -455,7 +525,12 @@ def kernel_phase(torch, ops, ref, smi):
                                 ("hymba_first_chunk", HYMBA, h_first),
                                 ("mla_decode", MLA, ([1, 1, 1, 1], [72, 80, 88, 96])),
                                 ("mla_extend32", MLA, m_extend),
-                                ("mla_long_decode", MLA, ([1, 1, 1, 1], [4096] * 4))):
+                                ("mla_long_decode", MLA, ([1, 1, 1, 1], [4096] * 4)),
+                                ("mixtral_decode", MIXTRAL, ([1, 1, 1, 1], [72, 80, 88, 96])),
+                                ("internvl2_decode", INTERNVL2,
+                                 ([1, 1, 1, 1], [328, 336, 344, 352])),
+                                ("internvl2_first_chunk", INTERNVL2, v_first),
+                                ("musicgen_decode", MUSICGEN, ([1, 1, 1, 1], [72, 80, 88, 96]))):
         scale = scale_of(geo)
         case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5)
         n_bytes, flops, bound_ms, bound_by = work(case, "bfloat16")
@@ -867,13 +942,15 @@ def reduced_model_phase(torch, cfg_mod, tfm, param):
 def init_device_phase(torch, cfg_mod, tfm, param):
     """The port's copy of JAX's generator draws the same bits on the card
     as on the CPU, where tests/test_torch_jax_random.py holds them equal
-    to jax.random's: reduced qwen3-8b, mamba2-2.7b, gemma-2b, hymba-1.5b and
-    deepseek-v2-lite-16b at seed 3, every leaf bit for bit (the SSM initialisers' float32 log and
+    to jax.random's: reduced qwen3-8b, mamba2-2.7b, gemma-2b, hymba-1.5b,
+    deepseek-v2-lite-16b, mixtral-8x22b, musicgen-large and internvl2-76b
+    at seed 3, every leaf bit for bit (the SSM initialisers' float32 log and
     expm1 and hymba's meta tokens included). The launchers draw their
     weights on the card."""
     unequal, total = {}, {}
     for arch in ("qwen3-8b", "mamba2-2.7b", "gemma-2b", "hymba-1.5b",
-                 "deepseek-v2-lite-16b"):
+                 "deepseek-v2-lite-16b", "mixtral-8x22b", "musicgen-large",
+                 "internvl2-76b"):
         cfg = cfg_mod.reduced(cfg_mod.get_config(arch))
         on_card = param.tree_leaves(tfm.init_params(cfg, 3, device="cuda"))
         on_cpu = param.tree_leaves(tfm.init_params(cfg, 3, device="cpu"))
@@ -1090,19 +1167,93 @@ def reduced_mla_phase(torch, cfg_mod, tfm, param, serve):
          compute_hits=hits, prefill_tokens_skipped=skipped)
 
 
+def reduced_frontend_phase(torch, cfg_mod, tfm, param, serve, frontends, arch):
+    """Reduced fp32 mixtral-8x22b (8 experts top-2, window 64), musicgen-large
+    (4 codebooks) or internvl2-76b (8 patch embeddings): a 40-token first
+    chunk (internvl2: behind its patch embeddings) over three pages of 16,
+    a 9-token extend and a batched decode with an inactive row, CUDA (the
+    kernel) against the CPU path, same weights (wq and wk conditioned, see
+    ``conditioned``: at the reference's fan-in std of 0.5 on 4 heads the
+    scores saturate, and the reference's own fp32 logits move by up to 4e-5
+    under a one-ulp weight nudge). Then, on CUDA, in fp32 and in bf16, an
+    engine at page and chunk 16 whose prefix hits decode the tokens of a
+    cold start."""
+    full = cfg_mod.get_config(arch)
+    kw = {"n_experts": 8} if arch == "mixtral-8x22b" else {}
+    cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32", **kw)
+    params = tfm.init_params(cfg, 0, device="cuda")
+    cond = conditioned(params, cfg.d_model)
+    pt = 16
+    image = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tail = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = param.tree_map(lambda a: a.to(dev), cond)
+        caches = tfm.init_paged_caches(cfg, 8, pt, torch.float32, device=dev)
+        batch = frontends.sample_batch(cfg, 1, image + 40, seed=5,
+                                       with_labels=False, device=dev)
+        g = torch.Generator().manual_seed(6)
+        ext = torch.randint(0, cfg.vocab_size, (1, 9) + tail, generator=g).to(dev)
+        last = torch.randint(0, cfg.vocab_size, (2, 1) + tail, generator=g).to(dev)
+        tbl = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
+        tbl2 = torch.tensor([[1, 2, 3, 4], [0, 0, 0, 0]], dtype=torch.int32,
+                            device=dev)
+        res = []
+        lg, caches = tfm.paged_prefill(cfg, p, batch, caches, tbl)
+        res.append(lg)
+        lg, caches = tfm.paged_extend(cfg, p, caches, ext, image + 40, tbl)
+        res.append(lg)
+        lg, caches = tfm.paged_decode(cfg, p, caches, last,
+                                      torch.tensor([image + 49, 0], device=dev),
+                                      tbl2, active=torch.tensor([True, False],
+                                                                device=dev))
+        res.append(lg[:1])
+        outs[dev] = [r.float().cpu() for r in res]
+    errs = []
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        errs.append(rel)
+        if not rel < 1e-4:
+            raise AssertionError(f"reduced {arch} on CUDA vs CPU: relative "
+                                 f"logit error {rel}")
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits on CUDA")
+
+    cfg16 = cfg_mod.reduced(full, **kw)               # bf16
+    flags = ["--page-tokens", str(pt), "--chunk-tokens", str(pt)]
+    hits, skipped = {}, {}
+    for dname, c, w in (("float32", cfg, params),
+                        ("bfloat16", cfg16, tfm.init_params(cfg16, 0, device="cuda"))):
+        same, hits[dname], skipped[dname] = engine_hit_equals_cold(
+            serve, arch, c, full, w, flags)
+        if not same or hits[dname] < 1:
+            raise AssertionError(f"reduced {arch} on CUDA, {dname}: prefix hit "
+                                 f"({hits[dname]} hits) does not decode the "
+                                 "cold-start tokens")
+    emit("reduced_model_check", arch=arch, relative_logit_err=errs,
+         tolerance=1e-4, hit_equals_cold_page16_chunk16={"float32": True,
+                                                        "bfloat16": True},
+         compute_hits=hits, prefill_tokens_skipped=skipped)
+
+
 # ---------------------------------------------------------------------------
 # Main path at full width and depth
 # ---------------------------------------------------------------------------
 
 
-def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
-    """Drive one serving path once at full width and depth: ``arch`` with
-    nothing reduced, random weights from ``launch/serve.py``'s seed and
-    defaults, 8 requests x 16 new tokens behind a shared 32-token
-    head (the first alone, publishing the head; then the rest). Every
-    kernel wrapper in ``kernels`` has its launch count set to 0 just before
-    the run and read just after. Returns (cfg, report, launches, stats)."""
-    cfg = cfg_mod.get_config(arch)           # nothing reduced
+def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None):
+    """Drive one serving path once at full width: ``arch`` with nothing
+    reduced but, where ``layers`` is given, its depth (the first ``layers``
+    layers; the memory plane still meters the published config, as the
+    launcher meters it behind a reduced compute config), random weights
+    from ``launch/serve.py``'s seed and defaults, 8 requests x 16 new
+    tokens behind a shared 32-token head (the first alone, publishing the
+    head; then the rest). Every kernel wrapper in ``kernels`` has its launch
+    count set to 0 just before the run and read just after. Returns (cfg,
+    report, launches, stats), ``cfg`` the config that computed."""
+    import dataclasses
+    full = cfg_mod.get_config(arch)          # nothing reduced
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
     args = serve.parser().parse_args(["--arch", arch])   # serve defaults
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, args.seed, device="cuda")
@@ -1110,7 +1261,7 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in param.tree_leaves(params))
-    eng = serve.build_engine(args, cfg, cfg, params, device="cuda")
+    eng = serve.build_engine(args, cfg, full, params, device="cuda")
     # random weights may emit the default eos (1) and end a request early;
     # the config object is shared by the engine's parts
     eng.ecfg.eos_token = -1
@@ -1134,6 +1285,15 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
         return out
 
     eng.backend.run_decode = timed_decode
+    first_rows = []                         # rows of each prompt's first chunk
+    run_chunk = eng.backend.run_prefill_chunk
+
+    def recorded_chunk(ck, *a, **kw):
+        if ck.first:
+            first_rows.append(ck.offset + len(ck.tokens))
+        return run_chunk(ck, *a, **kw)
+
+    eng.backend.run_prefill_chunk = recorded_chunk
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:
         fn.launches = 0
@@ -1150,7 +1310,8 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
     launches = {fn.__name__: fn.launches for fn in kernels}
     decode_tokens = rep["tokens_generated"] - rep["finished"]
     stats = dict(
-        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        arch=cfg.name, layers=cfg.num_layers, published_layers=full.num_layers,
+        d_model=cfg.d_model,
         vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes,
         pool_bytes=sum(t.numel() * t.element_size()
                        for t in param.tree_leaves(eng.backend.paged_caches)),
@@ -1162,6 +1323,7 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels):
         model_calls=eng.backend.model_calls, kernel_launches=launches,
         finished=rep["finished"], tokens_generated=rep["tokens_generated"],
         prefill_chunks=rep["prefill_chunks"],
+        first_chunk_rows_max=max(first_rows, default=0),
         prefill_tokens_skipped=rep["prefill_tokens_skipped"],
         compute_hits=rep["prefix"]["compute_hits"],
         snapshot_kind=rep["prefix"]["snapshot_kind"],
@@ -1281,6 +1443,45 @@ def mla_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
          latent_bytes_token_layer=(cfg.kv_lora_rank + cfg.qk_rope_dim) * 2,
          checks=checks)
     _require("deepseek-v2-lite-16b serve", checks)
+    return n
+
+
+def frontend_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi,
+                         phase, arch, full_width):
+    """mixtral-8x22b (``moe_serve``: MoE of 8 experts top-2 and a 4096
+    window in every layer, the first 8 of 56 layers), musicgen-large
+    (``audio_serve``: 4 codebooks, all 48 layers) or internvl2-76b
+    (``vision_serve``: 256 patch embeddings in front of every prompt, the
+    first 8 of 80 layers) at full width: every layer of every model call
+    launched the attention kernel; prefix hits spliced pages with zero copy
+    bytes. ``full_width`` is the published widths the config must have."""
+    cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param, arch,
+                                       kernels, SERVE_LAYERS.get(arch))
+    n = launches["ragged_paged_attention"]
+    calls = st["model_calls"]
+    widths = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+              cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts,
+              cfg.expert_d_ff or cfg.d_ff, {s.window for s in cfg.layer_specs()},
+              cfg.n_codebooks, cfg.n_frontend_tokens, cfg.vocab_size, cfg.dtype)
+    checks = {
+        "finished": rep["finished"] == 8,
+        "tokens_generated": rep["tokens_generated"] == 8 * 16,
+        "finite_logits": st["finite_logits"],
+        "full_width": widths == full_width,
+        "layers": cfg.num_layers == SERVE_LAYERS.get(arch, st["published_layers"]),
+        "launches": n == cfg.num_layers * calls and calls > 0,
+        "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
+        "kernel_read_bytes": rep["kernel_read_bytes"] > 0,
+        "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+    }
+    emit(phase, nvidia_smi=smi, **st, full_width=dict(zip(
+        ("d_model", "n_heads", "n_kv_heads", "head_dim", "n_experts", "top_k",
+         "shared_experts", "d_ff", "windows", "codebooks", "image_tokens",
+         "vocab", "dtype"), [sorted(w, key=str) if isinstance(w, set) else w
+                             for w in widths])),
+         kv_bytes_token_layer=2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2,
+         checks=checks)
+    _require(f"{arch} serve", checks)
     return n
 
 
@@ -1528,7 +1729,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import param
+    from repro_torch.models import frontends, param
     from repro_torch.models import transformer as tfm
 
     smi = nvidia_smi()
@@ -1576,6 +1777,9 @@ def main() -> int:
     timed("reduced mamba2", reduced_ssm_phase, torch, cfg_mod, tfm, param, serve)
     timed("reduced hymba", reduced_hybrid_phase, torch, cfg_mod, tfm, param, serve)
     timed("reduced deepseek", reduced_mla_phase, torch, cfg_mod, tfm, param, serve)
+    for arch in ("mixtral-8x22b", "musicgen-large", "internvl2-76b"):
+        timed(f"reduced {arch}", reduced_frontend_phase, torch, cfg_mod, tfm, param,
+              serve, frontends, arch)
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
@@ -1597,17 +1801,31 @@ def main() -> int:
                          param, kernels, smi)
     gc.collect()                     # the deepseek-v2-lite-16b engine and weights
     torch.cuda.empty_cache()
+    frontend_launches = {}
+    for phase, arch, widths in (
+            ("moe_serve", "mixtral-8x22b",
+             (6144, 48, 8, 128, 8, 2, 0, 16384, {4096}, 1, 0, 32768, "bfloat16")),
+            ("audio_serve", "musicgen-large",
+             (2048, 32, 32, 64, 0, 0, 0, 8192, {None}, 4, 0, 2048, "bfloat16")),
+            ("vision_serve", "internvl2-76b",
+             (8192, 64, 8, 128, 0, 0, 0, 28672, {None}, 1, 256, 128256, "bfloat16"))):
+        frontend_launches[arch] = timed(
+            phase.replace("_", " "), frontend_serve_phase, torch, cfg_mod, tfm, serve,
+            param, kernels, smi, phase, arch, widths)
+        gc.collect()                 # this engine and its weights
+        torch.cuda.empty_cache()
     fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
     # each serving path's counts, zeroed before it and read after it; an
     # entry's launches are their sum, its times the first path's shape
-    # with the hymba-1.5b and deepseek-v2-lite-16b shapes beside them
+    # with the other paths' decode shapes beside them
     by_path = {
         "ragged_paged_attention": {
             "qwen3-8b serve": rpa_launches,
             "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"],
-            "deepseek-v2-lite-16b serve": mla_launches},
+            "deepseek-v2-lite-16b serve": mla_launches,
+            **{f"{arch} serve": n for arch, n in frontend_launches.items()}},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches,
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"]}}
 
@@ -1628,7 +1846,10 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"], "device_ms": dec["device_ms"],
         "hymba_decode": times(timing["hymba_decode"]),
-        "mla_decode": times(timing["mla_decode"])}, {
+        "mla_decode": times(timing["mla_decode"]),
+        "mixtral_decode": times(timing["mixtral_decode"]),
+        "internvl2_decode": times(timing["internvl2_decode"]),
+        "musicgen_decode": times(timing["musicgen_decode"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",

@@ -2,12 +2,14 @@
 """Where the PyTorch port's main path spends its time on the card.
 
     python3 scripts/profile_port_serve.py                  # qwen3-8b, mamba2-2.7b
-    python3 scripts/profile_port_serve.py deepseek-v2-lite-16b
+    python3 scripts/profile_port_serve.py deepseek-v2-lite-16b mixtral-8x22b
 
 For each serving path named (by default qwen3-8b, then mamba2-2.7b; any
 ``--arch`` of ``chip_smoke.py``'s serve phases), each at full width and
-depth with the serve defaults and
-random weights from a seed — serves its 8 requests once to warm up, then
+the depth ``chip_smoke.py`` serves it at (mixtral-8x22b and internvl2-76b
+cut to their first layers, ``SERVE_LAYERS``; the memory plane meters the
+published config), with the serve defaults and random weights from a
+seed — serves its 8 requests once to warm up, then
 serves them again under ``torch.profiler`` and prints one JSON line: wall
 time, device-busy time and idle share, time per model call, launch and
 host-sync counts, and the top operators by device time and by host time,
@@ -16,6 +18,7 @@ the device activities' intervals (``device_busy_s``). Needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -25,6 +28,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 REQUESTS = 8
 TOP = 15
@@ -57,11 +61,13 @@ def profile_arch(arch: str, smi: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import SERVE_LAYERS
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS.get(arch, full.num_layers))
     args = serve.parser().parse_args(["--arch", arch])
     params = tfm.init_params(cfg, args.seed, device="cuda")
 
@@ -74,7 +80,7 @@ def profile_arch(arch: str, smi: str) -> None:
         return eng.run_until_idle()
 
     def engine():
-        eng = serve.build_engine(args, cfg, cfg, params, device="cuda")
+        eng = serve.build_engine(args, cfg, full, params, device="cuda")
         eng.ecfg.eos_token = -1     # random weights: never end early
         return eng
 
@@ -98,6 +104,7 @@ def profile_arch(arch: str, smi: str) -> None:
 
     print(json.dumps({
         "nvidia_smi": smi, "arch": arch, "layers": cfg.num_layers,
+        "published_layers": full.num_layers,
         "requests": REQUESTS, "tokens_generated": rep["tokens_generated"],
         "model_calls": eng.backend.model_calls, "wall_s": wall,
         "ms_per_model_call": wall * 1e3 / eng.backend.model_calls,

@@ -9,13 +9,15 @@ report as ``repro.launch.serve``, plus ``--device``.
 ``--arch`` takes the architectures the port registers: ``qwen3-8b`` and
 ``gemma-2b`` (dense attention on KV pages), ``mamba2-2.7b`` (SSM on
 point-state pages), ``hymba-1.5b`` (hybrid: attention and SSM heads in
-every layer, KV and state pages under one table, 128 meta tokens) and
-``deepseek-v2-lite-16b`` (MLA on latent pages, MoE routing).
+every layer, KV and state pages under one table, 128 meta tokens),
+``deepseek-v2-lite-16b`` (MLA on latent pages, MoE routing),
+``mixtral-8x22b`` (MoE of 8 experts top-2, a 4096 window in every layer),
+``musicgen-large`` (4 codebooks: a token is a 4-tuple) and
+``internvl2-76b`` (256 patch embeddings in front of every prompt).
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: other architectures (A.5), ``--replicas > 1`` (the
-cluster, A.7), ``--paged-kernel off`` (the ring path, A.6),
-``--inject-rber`` (faults, A.8) and the TPU autotuner's
-``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
+ROADMAP item: ``--replicas > 1`` (the cluster, A.7), ``--paged-kernel
+off`` (the ring path, A.6), ``--inject-rber`` (faults, A.8) and the TPU
+autotuner's ``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
 """
 from __future__ import annotations
 
@@ -67,8 +69,9 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
                     help="architecture: qwen3-8b, gemma-2b, mamba2-2.7b, "
-                         "hymba-1.5b or deepseek-v2-lite-16b (the ones the "
-                         "port registers)")
+                         "hymba-1.5b, deepseek-v2-lite-16b, mixtral-8x22b, "
+                         "musicgen-large or internvl2-76b (the ones the port "
+                         "registers)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "
                          "without a card; 'cpu' runs the kernels' plain "
@@ -155,12 +158,17 @@ def parser() -> argparse.ArgumentParser:
 def make_prompts(cfg, n: int, shared_prefix_tokens: int, seed: int) -> list:
     """``n`` prompts of 8-48 random tokens behind a shared head of
     ``shared_prefix_tokens`` tokens, drawn as ``repro.launch.serve`` draws
-    them."""
+    them. With K codebooks a token is a list of K ids in [0, vocab)."""
     rng = np.random.default_rng(seed)
-    shared_head = list(rng.integers(2, cfg.vocab_size, shared_prefix_tokens))
-    return [shared_head + list(rng.integers(2, cfg.vocab_size,
-                                            rng.integers(8, 48)))
-            for _ in range(n)]
+    K = cfg.n_codebooks
+
+    def tokens(m):
+        if K > 1:
+            return [list(rng.integers(0, cfg.vocab_size, K)) for _ in range(m)]
+        return list(rng.integers(2, cfg.vocab_size, m))
+
+    shared_head = tokens(shared_prefix_tokens)
+    return [shared_head + tokens(rng.integers(8, 48)) for _ in range(n)]
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
 """Model assembly for dense attention, MLA, SSM and hybrid stacks, with
-dense or MoE MLPs: embeddings (and meta tokens) -> layer groups -> head,
+dense or MoE MLPs: embeddings (and meta tokens, image embeds) -> layer
+groups -> head (one per codebook for multi-codebook audio),
 on the paged compute plane and for training.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
@@ -16,8 +17,8 @@ Entry points:
   chunk recomputed in the backward, so only one chunk's (B, chunk, V)
   logits are alive at a time) and z-loss; layers rematerialised per
   ``cfg.remat``;
-- ``paged_prefill`` — the first chunk of a prompt, meta tokens first, at
-  positions 0..S-1;
+- ``paged_prefill`` — the first chunk of a prompt, meta tokens and image
+  embeds first, at positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
 - ``paged_decode``  — one batched decode step at per-row positions.
 Attention layers compute on KV pages, SSM layers on point-state pages
@@ -26,9 +27,10 @@ under one page table. A point stack's extend chunk must lie within one
 page; its first chunk may span pages only as far as the meta prefix forces
 (``_check_point_chunk``). MLA layers compute on latent pages; an MoE
 layer's aux loss is dropped on the serving path (the paged entry points
-return logits and pools only). Frontends, MLA, MoE, SSM and hybrid
-training and the ring-cache path raise ``NotImplementedError`` naming their
-ROADMAP item.
+return logits and pools only). The frontends are stubs: multi-codebook
+tokens (summed embeddings, one head per codebook) and image embeds in
+front of the text. Frontend, MLA, MoE, SSM and hybrid training and the
+ring-cache path raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,11 +54,6 @@ from repro_torch.models.param import ParamDef
 from repro_torch.models.ssm import ssm_defs, ssm_paged_init, ssm_sublayer
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.frontend is not None or cfg.n_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: frontends (ROADMAP A.5) are "
-                                  "not ported yet")
-
 # ---------------------------------------------------------------------------
 # Parameter definitions
 # ---------------------------------------------------------------------------
@@ -77,7 +74,6 @@ def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     groups = []
     for g in cfg.scan_groups():
         unit_defs = tuple(prm.stack_defs(block_defs(cfg, spec), g.repeats) for spec in g.unit)
@@ -186,7 +182,6 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
     (R, P, cw-1, conv_dim), "state_pages": (R, P, nh, hd, ns) fp32}`` for
     SSM, ``{"attn": {...}, "ssm": {...}}`` for hybrid. Page id 0 is the
     reserved null page."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     meta = torch.device("meta")   # shapes and dtypes only: nothing allocated
     return tuple(
@@ -204,14 +199,21 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch: dict):
-    """tokens (+ meta tokens in front) -> x (B, S_total, d), and the index
-    of the first 'real' position (the meta prefix's length)."""
+    """tokens (+ image embeds, then meta tokens, in front) -> x (B, S_total,
+    d) in the order meta, image, text, and the index of the first 'real'
+    position (the prefix's length)."""
     x = embed(cfg, params["embed"], batch["tokens"])
-    if not cfg.n_meta_tokens:
-        return x, 0
-    meta = params["meta_tokens"].to(x.dtype)[None].expand(
-        x.shape[0], cfg.n_meta_tokens, cfg.d_model)
-    return torch.cat([meta, x], dim=1), cfg.n_meta_tokens
+    prefix = 0
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        img = batch["image_embeds"].to(x.dtype)
+        x = torch.cat([img, x], dim=1)
+        prefix += img.shape[1]
+    if cfg.n_meta_tokens:
+        meta = params["meta_tokens"].to(x.dtype)[None].expand(
+            x.shape[0], cfg.n_meta_tokens, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+        prefix += cfg.n_meta_tokens
+    return x, prefix
 
 
 def _layers(tree, repeats: int) -> list:
@@ -306,7 +308,9 @@ def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
     """Causal-LM loss. batch: tokens (B, S) int, labels (B, S) int with
     -100 = masked. Returns (loss, {"ce", "z_loss", "aux", "tokens"}) with
     loss = ce + 1e-4 * mean(lse²) + aux, as the JAX package computes it."""
-    _check_ported(cfg)
+    if cfg.frontend is not None or cfg.n_codebooks > 1:
+        raise NotImplementedError(f"{cfg.name}: frontend training (ROADMAP "
+                                  "A.5) is not ported yet")
     if snapshot_kind(cfg) == "point":
         raise NotImplementedError(f"{cfg.name}: SSM and hybrid training "
                                   "(ROADMAP A.11) is not ported yet")
@@ -387,9 +391,10 @@ def _check_point_chunk(cfg: ModelConfig, offset: int, S: int,
 
 def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table,
                   page_tokens=None):
-    """First chunk on the paged plane: the meta prefix and the prompt at
-    absolute positions 0..S-1, KV or state written straight into the pool
-    pages named by ``page_table`` (B, W). Returns (last_logits, caches)."""
+    """First chunk on the paged plane: the meta prefix, the image embeds
+    (``batch["image_embeds"]``, vision stacks) and the prompt at absolute
+    positions 0..S-1, KV or state written straight into the pool pages
+    named by ``page_table`` (B, W). Returns (last_logits, caches)."""
     x, _ = _embed_inputs(cfg, params, batch)
     S_tot = x.shape[1]
     _check_point_chunk(cfg, 0, S_tot, page_tokens)
@@ -402,7 +407,7 @@ def paged_prefill(cfg: ModelConfig, params, batch: dict, caches, page_table,
 
 def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table,
                  page_tokens=None):
-    """Later chunks on the paged plane: ``tokens`` (B, S) at absolute
+    """Later chunks on the paged plane: ``tokens`` (B, S[, K]) at absolute
     positions ``offset + [0, S)``; earlier context is whatever the pages in
     ``page_table`` hold — including pages spliced in from a prefix hit."""
     x = embed(cfg, params["embed"], tokens)

@@ -24,10 +24,14 @@ boundary. Prompts always run unpadded (DESIGN.md §5).
 
 What the port leaves out raises ``NotImplementedError`` naming its
 ROADMAP item: the ring-cache path (``paged_kernel=False``, A.6), fault
-injection (``inject_rber``, A.8), the TPU autotuner's launch overrides
-(``kernel_block_q/kv``, ``kernel_buffers``, A.9) and, in the model, the
-MLA, MoE and frontend stacks (A.4-A.5). Hybrid stacks (hymba) serve on
-one page table that holds KV pages and state pages together.
+injection (``inject_rber``, A.8) and the TPU autotuner's launch overrides
+(``kernel_block_q/kv``, ``kernel_buffers``, A.9). Hybrid stacks (hymba)
+serve on one page table that holds KV pages and state pages together.
+Multi-codebook stacks (musicgen) carry a token as a K-tuple: prompts are
+(L, K), ``last_tokens`` (B, 1, K), greedy sampling is per codebook, the
+report counts one token per position and the eos check is off. Vision
+stacks (internvl2) put zero patch embeddings in front of every prompt's
+first chunk, so ``prefix_len`` counts them.
 """
 from __future__ import annotations
 
@@ -192,7 +196,8 @@ class ComputeBackend:
         self.device = device
         B = ecfg.max_slots
         self.positions = np.full((B,), -1, np.int64)  # last written position
-        self.last_tokens = np.zeros((B, 1), np.int32)
+        self.last_tokens = np.zeros((B, 1) if cfg.n_codebooks == 1
+                                    else (B, 1, cfg.n_codebooks), np.int32)
         self.seed_copy_bytes = 0.0  # a paged hit splices pages: no seed copy
         self.model_calls = 0        # prefill chunks + decode rounds run
         self.page_tokens = ecfg.page_tokens
@@ -265,6 +270,8 @@ class ComputeBackend:
                                          if self.cfg.frontend == "vision" else 0)
 
     def sample(self, logits):
+        """Greedy: (B, V) logits -> (B,) tokens, or (B, K, V) -> (B, K), one
+        per codebook."""
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _tensor(self, a, dtype=torch.int32):
@@ -279,8 +286,15 @@ class ComputeBackend:
         toks = self._tensor(np.asarray(ck.tokens, np.int32))[None]
         tbl = self._tensor(page_table)[None]
         if ck.first:
+            batch = {"tokens": toks}
+            if self.cfg.frontend == "vision":
+                # the vision frontend is a stub: zero patch embeddings, as the
+                # reference engine feeds them
+                batch["image_embeds"] = torch.zeros(
+                    (1, self.cfg.n_frontend_tokens, self.cfg.d_model),
+                    dtype=torch_dtype(self.cfg.dtype), device=self.device)
             logits, self.paged_caches = tfm.paged_prefill(
-                self.cfg, self.params, {"tokens": toks}, self.paged_caches, tbl,
+                self.cfg, self.params, batch, self.paged_caches, tbl,
                 page_tokens=self.page_tokens)
         else:
             logits, self.paged_caches = tfm.paged_extend(
@@ -300,7 +314,7 @@ class ComputeBackend:
         (B, W) compute-page table (inactive rows all-null, and masked out
         of the KV write) and ``audit_pages`` lists compute pages the round
         must not write (other sessions' pages). Returns the sampled tokens
-        for all B rows."""
+        for all B rows ((B,), or (B, K) for K codebooks)."""
         B = self.ecfg.max_slots
         act = np.zeros((B,), bool)
         act[slots] = True

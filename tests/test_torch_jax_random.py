@@ -10,9 +10,12 @@ both serve launchers at the same flags.
   bits;
 - ``repro_torch.launch.serve`` and ``repro.launch.serve`` at default flags
   print the same memory-plane report, and in float32 (reduced configs
-  forced to float32 on both sides; qwen3-8b, hymba-1.5b and
-  deepseek-v2-lite-16b) also decode the same tokens. In bf16
-  their tokens part once (ROADMAP §C.4), which a strict xfail records.
+  forced to float32 on both sides; qwen3-8b, hymba-1.5b,
+  deepseek-v2-lite-16b, mixtral-8x22b, musicgen-large and internvl2-76b)
+  also decode the same tokens. In bf16 their tokens part once (ROADMAP
+  §C.4), which a strict xfail records;
+- the port's launcher draws the reference launcher's musicgen-large
+  prompts (4 codebooks: a token is 4 ids).
 """
 import contextlib
 import functools
@@ -97,7 +100,8 @@ def _bits(x):
     return x.view(np.int32).astype(np.int64)
 
 
-ARCHS = ("deepseek-v2-lite-16b", "gemma-2b", "hymba-1.5b", "mamba2-2.7b", "qwen3-8b")
+ARCHS = ("deepseek-v2-lite-16b", "gemma-2b", "hymba-1.5b", "internvl2-76b",
+         "mamba2-2.7b", "mixtral-8x22b", "musicgen-large", "qwen3-8b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -150,10 +154,44 @@ def test_serve_launchers_tokens_equal_at_default_flags(monkeypatch):
     assert tokens["torch"] == tokens["jax"]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b", "deepseek-v2-lite-16b",
+                                  "mixtral-8x22b", "musicgen-large", "internvl2-76b"])
 def test_serve_launchers_agree_in_float32(monkeypatch, arch):
     reports, tokens = _run_launchers(monkeypatch, ["--arch", arch],
                                      float32=True)
     assert reports["torch"] == reports["jax"]
     assert tokens["torch"] == tokens["jax"]
     assert sum(map(len, tokens["torch"].values())) == reports["jax"]["tokens_generated"] > 0
+
+
+class _Prompts:
+    """Stands in for a launcher's engine: records what ``main`` submits."""
+
+    def __init__(self):
+        self.prompts = []
+
+    def submit(self, prompt, max_new_tokens):
+        self.prompts.append([np.asarray(t).tolist() for t in prompt])
+
+    def run_until_idle(self):
+        return {}
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_musicgen_launcher_prompts_equal_reference(monkeypatch, seed):
+    """With 4 codebooks a prompt token is 4 ids in [0, vocab): the port's
+    ``make_prompts`` draws the reference launcher's prompts, shared head
+    first, then each prompt's length and tail."""
+    rec = _Prompts()
+    monkeypatch.setattr(jax_serve, "build_engine", lambda *a, **kw: rec)
+    argv = ["--arch", "musicgen-large", "--shared-prefix-tokens", "32",
+            "--seed", str(seed)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_serve.main(argv)
+    cfg = reduced(get_config("musicgen-large"))
+    got = torch_serve.make_prompts(cfg, 8, 32, seed)
+    assert [[list(map(int, t)) for t in p] for p in got] == rec.prompts
+    assert len(rec.prompts) == 8
+    assert all(len(t) == 4 for p in rec.prompts for t in p)
+    assert all(p[:32] == rec.prompts[0][:32] for p in rec.prompts)
+

@@ -5,7 +5,11 @@ expert, expert d_ff 128), weights from the reference's initialiser:
 and 40, B 1 and 4, within 1e-5 of the reference's largest magnitude; a
 router biased toward one expert, which drops pairs at capacity; forced
 ties, which go to the lower expert id as ``jax.lax.top_k`` sends them; and
-the group size and capacity rules on the reduced and full configs."""
+the group size and capacity rules on the reduced and full configs. On
+mixtral-8x22b (8 experts top-2, no shared experts): the group size and
+capacity at expert d_ff 16384, where groups grow past 256 on sequences of
+512 and more, route and the sublayer on the reduced config with 8 experts,
+and the sublayer at d_ff 16384 on S 512 and 1024."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,3 +131,72 @@ def test_group_size_and_capacity_follow_the_reference(full):
         cap = min(max(4, int(round(g / jcfg.n_experts * jcfg.moe_top_k
                                    * jcfg.capacity_factor))), g)
         assert tmoe._capacity(cfg, g) == cap, S
+
+
+# ---------------------------------------------------------------------------
+# mixtral-8x22b: 8 experts top-2, no shared experts, expert d_ff 16384
+# ---------------------------------------------------------------------------
+
+MIXTRAL = "mixtral-8x22b"
+
+
+@pytest.mark.parametrize("S", [1, 40, 256, 512, 1024, 2048, 4096])
+def test_mixtral_group_size_and_capacity_follow_the_reference(S):
+    """At expert d_ff 16384 a group grows past 256 while 2g*1.25/(3*16384)
+    < 0.03: to 512 on S 512 and to 1024 from S 1024 on."""
+    jcfg, cfg = jax_get_config(MIXTRAL), get_config(MIXTRAL)
+    assert (cfg.n_experts, cfg.moe_top_k, cfg.expert_d_ff) == (8, 2, 16384)
+    g = jmoe._group_size(jcfg, S)
+    assert tmoe._group_size(cfg, S) == g
+    assert g == {1: 1, 40: 8, 256: 256, 512: 512}.get(S, 1024)
+    cap = min(max(4, int(round(g / jcfg.n_experts * jcfg.moe_top_k
+                               * jcfg.capacity_factor))), g)
+    assert tmoe._capacity(cfg, g) == cap
+
+
+def _mixtral(**kw):
+    over = dict(dtype="float32", param_dtype="float32", n_experts=8, **kw)
+    jcfg = jax_reduced(jax_get_config(MIXTRAL), **over)
+    cfg = reduced(get_config(MIXTRAL), **over)
+    assert (cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts) == (8, 2, 0)
+    tree = jax.tree.map(np.asarray, jprm.materialize(
+        jmoe.moe_defs(jcfg), jax.random.key(9), "float32"))
+    assert not any(k.startswith("shared") for k in tree)
+    return jcfg, cfg, tree
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    return _mixtral()
+
+
+@pytest.mark.parametrize("S", [1, 16, 40])
+def test_mixtral_route_and_sublayer_match_jax(mixtral, S):
+    """8 experts top-2, no shared experts: expert ids equal, weights, aux
+    loss and output within 1e-5, B 2."""
+    jcfg, cfg, tree = mixtral
+    x = np.random.default_rng(20 + S).normal(0, 1, (2, S, cfg.d_model)).astype(np.float32)
+    flat = x.reshape(-1, cfg.d_model)
+    jw, jidx, jaux = jmoe.route(jcfg, jnp.asarray(tree["router"]), jnp.asarray(flat))
+    tw, tidx, taux = tmoe.route(cfg, torch.from_numpy(tree["router"].copy()),
+                                torch.from_numpy(flat))
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    _close(tw.numpy(), jw)
+    _close(float(taux), float(jaux))
+    (jout, jaux), (tout, taux) = _both(mixtral, x)
+    _close(tout, jout)
+    _close(taux, jaux)
+
+
+@pytest.mark.parametrize("S", [512, 1024])
+def test_mixtral_grown_groups_match_jax(S):
+    """The sublayer at expert d_ff 16384 (d_model cut to 32), where groups
+    grow past 256: one group of S tokens, capacity 1.25 S / 4."""
+    setup = _mixtral(d_model=32, expert_d_ff=16384)
+    cfg = setup[1]
+    g = tmoe._group_size(cfg, S)
+    assert g == S and tmoe._capacity(cfg, g) == round(S * 2 * 1.25 / 8)
+    x = np.random.default_rng(S).normal(0, 1, (1, S, cfg.d_model)).astype(np.float32)
+    (jout, jaux), (tout, taux) = _both(setup, x)
+    _close(tout, jout)
+    _close(taux, jaux)
