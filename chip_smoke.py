@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
-Hopper card: the seven serving paths, dense attention (qwen3-8b), SSM
+Hopper card: the serving paths, dense attention (qwen3-8b), SSM
 (mamba2-2.7b), hybrid (hymba-1.5b: attention and SSD heads in every
 layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
-(mixtral-8x22b), multi-codebook audio (musicgen-large) and a vision
-prefix (internvl2-76b), the training path (gemma-2b), and their five
-kernels.
+(mixtral-8x22b), multi-codebook audio (musicgen-large), a vision prefix
+(internvl2-76b) and the ring-cache path beside the paged one
+(gemma2-27b: alternating 4096/global windows), the training path
+(gemma-2b), and their five kernels, ragged paged attention in both its
+position modes.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -47,6 +49,16 @@ Phases, each printing one JSON line:
                  also by the profiler's device time) at the main paths'
                  decodes, extends and long decodes (4 x 4096), naming the
                  ``scaled_dot_product_attention`` backend that takes D 576;
+3b. ring kernel — ragged paged attention in its explicit-position mode
+                 (the ring path's) at gemma2-27b's geometry (32/16 heads, D
+                 128, softcap 50), fp32 and bf16, against its plain version:
+                 a wrapped 4096-slot ring under the 4096 window with queries
+                 up to 120 past its newest key, a 4800-slot ring with empty
+                 slots, decodes of 4 sequences, 504-row extend chunks; and
+                 with the slot-derived positions written out, bit-equal to
+                 the slot-derived mode on the same pages; times the kernel,
+                 the ring path's whole call on the fused ring, its plain
+                 version and SDPA with the stored positions' mask;
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
@@ -62,7 +74,9 @@ Phases, each printing one JSON line:
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
                  Hkv 1, D 256) and qwen3-8b (H 32, Hkv 8, D 128) geometries,
-                 with softcap 50 + window 64, at a ragged S 1000, at D 64
+                 with softcap 50 + window 64, at gemma2-27b's ring prefill
+                 (S 4400, 32/16 heads at D 128, softcap 50, window 4096), at a
+                 ragged S 1000, at D 64
                  and D 32, at S 17 (below a tile) and with G = 3, fp32 and
                  bf16 (bf16 through the tensor-core forward, dK/dV and dQ
                  kernels); checks that repeat launches are bit-equal; times the
@@ -86,7 +100,10 @@ Phases, each printing one JSON line:
                  weights of reduced qwen3-8b, mamba2-2.7b, gemma-2b,
                  hymba-1.5b, deepseek-v2-lite-16b, mixtral-8x22b,
                  musicgen-large and internvl2-76b drawn on the card equal
-                 the CPU's bit for bit;
+                 the CPU's bit for bit; the ring path on a reduced fp32
+                 gemma2-27b (prefill / extend that wraps the local rings /
+                 decode, CUDA vs CPU), and a reduced qwen3-8b's ring and
+                 paged engines decoding the same tokens on CUDA;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -140,6 +157,18 @@ Phases, each printing one JSON line:
                  (8.95B parameters, 17.9 GB): first chunks of up to 320 rows
                  over ten pages, hits resuming at 288; the kernel at a group
                  of 8;
+15b. ring serve — gemma2-27b at full width and depth (46 layers, d 4608,
+                 GQA 32/16 at 128, the 4096 window on alternate layers,
+                 softcaps 50/30, post-norms, GeGLU d_ff 36864, vocab 256000,
+                 bf16, 54.4 GB of weights drawn once), after the internvl2
+                 engine is freed: the ring engine (``--paged-kernel off``,
+                 rings of 4800 and 4096 slots), freed, then the paged engine,
+                 on 4 prompts of 1000-4700 tokens (two past the window, one
+                 a hit on the first) x 32 new tokens; the flash forward in
+                 every layer of every first chunk and the position mode in
+                 every layer of every later ring step; the window binds; the
+                 ring hit copies a snapshot, the paged one nothing; both
+                 engines run under the profiler, for their idle share;
 16. train      — gemma-2b at full width and depth (18 layers, d 2048, MQA
                  8/1 at head_dim 256, GeGLU d_ff 16384, vocab 256000, bf16,
                  ``remat="full"``, AdamW) through ``repro_torch.launch.train``:
@@ -180,7 +209,11 @@ INTERNVL2 = (64, 8, 128)         # internvl2-76b's: a group of 8
 INTERNVL2_IMAGE = 256            # its patch embeddings: the first chunk is 320 rows
 MUSICGEN = (32, 32, 64)          # musicgen-large's MHA: a group of 1
 SERVE_LAYERS = {"mixtral-8x22b": 8, "internvl2-76b": 8}   # cut depths on one card
-SCALES = {MLA: (128 + 64) ** -0.5, MLA_REDUCED: (32 + 16) ** -0.5}   # (dn + dr)^-1/2
+GEMMA2 = (32, 16, 128)           # gemma2-27b's: a group of 2, softcap 50,
+GEMMA2_CAP, GEMMA2_WINDOW = 50.0, 4096   # window 4096 on alternate layers
+SCALES = {MLA: (128 + 64) ** -0.5, MLA_REDUCED: (32 + 16) ** -0.5,   # (dn + dr)^-1/2
+          GEMMA2: (4608 / 32) ** -0.5}                                # (d / H)^-1/2
+RING_PAGE = 32                   # the ring view's page: the serve default page_tokens
 HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / fp32 (no TF32)
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
@@ -530,7 +563,10 @@ def kernel_phase(torch, ops, ref, smi):
                                 ("internvl2_decode", INTERNVL2,
                                  ([1, 1, 1, 1], [328, 336, 344, 352])),
                                 ("internvl2_first_chunk", INTERNVL2, v_first),
-                                ("musicgen_decode", MUSICGEN, ([1, 1, 1, 1], [72, 80, 88, 96]))):
+                                ("musicgen_decode", MUSICGEN, ([1, 1, 1, 1], [72, 80, 88, 96])),
+                                # gemma2-27b's paged decode at the ring case's lengths
+                                ("gemma2_decode", GEMMA2,
+                                 ([1, 1, 1, 1], [1000, 2300, 3700, 4700]))):
         scale = scale_of(geo)
         case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5)
         n_bytes, flops, bound_ms, bound_by = work(case, "bfloat16")
@@ -558,6 +594,201 @@ def kernel_phase(torch, ops, ref, smi):
         }
     emit("kernel_time", kernel="ragged_paged_attention", dtype="bfloat16",
          nvidia_smi=smi, shapes=timing)
+    return max_err, timing
+
+
+# ---------------------------------------------------------------------------
+# The explicit-position mode: rings viewed as pages (gemma2-27b's geometry)
+# ---------------------------------------------------------------------------
+
+
+def ring_case(torch, spans, q_lens, C, dtype, *, geo=GEMMA2, empty=0.0, ahead=None,
+              seed=0):
+    """B rings of C slots at gemma2-27b's geometry, viewed as pages of
+    RING_PAGE slots as ``kernels/decode_attention`` views them: ring b
+    holds positions ``range(*spans[b])`` at slot p % C (a span longer than
+    C wraps it; a shorter one leaves -1 slots), a fraction ``empty`` of
+    slots is emptied, and its q_lens[b] queries end ``ahead[b]`` (default
+    0) positions past its newest key. Returns ([q, kv_pages, table, cu, kv_lens], q_pos, kv_pos)
+    on the card."""
+    hq, hkv, d = geo
+    g = torch.Generator().manual_seed(seed)
+    B, n_per = len(spans), C // RING_PAGE
+    pos = torch.full((B, C), -1, dtype=torch.int32)
+    q_pos = []
+    for b, (lo, hi) in enumerate(spans):
+        p = torch.arange(max(lo, hi - C), hi, dtype=torch.int32)
+        pos[b, p.long() % C] = p
+        last = hi + (ahead[b] if ahead else 0)
+        q_pos += list(range(last - q_lens[b], last))
+    if empty:
+        pos[torch.rand((B, C), generator=g) < empty] = -1
+    pages = torch.randn((B * n_per, RING_PAGE, 2 * hkv, d), generator=g)
+    q = torch.randn((sum(q_lens), hq, d), generator=g)
+    cu = torch.tensor([0] + list(torch.tensor(q_lens).cumsum(0).tolist()),
+                      dtype=torch.int32)
+    table = torch.arange(B * n_per, dtype=torch.int32).reshape(B, n_per)
+    kv_lens = torch.full((B,), C, dtype=torch.int32)
+    return ([q.to(dtype).cuda(), pages.to(dtype).cuda(), table.cuda(), cu.cuda(),
+             kv_lens.cuda()], torch.tensor(q_pos, dtype=torch.int32).cuda(),
+            pos.reshape(B * n_per, RING_PAGE).cuda())
+
+
+def ring_masks(torch, case, q_pos, kv_pos, window):
+    """(per sequence, the (S, C) boolean mask the stored positions give) —
+    what the kernel attends, for the byte count and the library call."""
+    _, _, table, cu, _ = case
+    cu_l = cu.tolist()
+    out = []
+    for b in range(table.shape[0]):
+        kp = kv_pos[table[b].long()].reshape(-1)
+        qp = q_pos[cu_l[b]:cu_l[b + 1]]
+        m = (kp[None] >= 0) & (kp[None] <= qp[:, None])
+        if window is not None:
+            m &= kp[None] > qp[:, None] - window
+        out.append(m)
+    return out
+
+
+def ring_work(torch, case, q_pos, kv_pos, window, dtype_name):
+    """(bytes, flops, bound ms, bound_by) of one position-mode call: the K/V
+    rows that some query of their sequence attends (a stored position >= 0
+    inside at least one query's window: empty slots and keys behind every
+    window are not needed), the whole position plane, q and the
+    descriptors read once, the output written once; 4*D flops per (query
+    head, visible key)."""
+    q, pages, table, cu, kl = case
+    _, hq, d = q.shape
+    masks = ring_masks(torch, case, q_pos, kv_pos, window)
+    needed = sum(int(m.any(0).sum()) for m in masks)
+    row_bytes = pages[0, 0].numel() * pages.element_size()
+    n_bytes = (2 * q.numel() * q.element_size() + needed * row_bytes
+               + 4 * (kv_pos.numel() + q_pos.numel() + table.numel() + cu.numel()
+                      + kl.numel()))
+    flops = 4 * d * hq * sum(int(m.sum()) for m in masks)
+    return (n_bytes, flops, *_bound(flops, n_bytes, dtype_name))
+
+
+def ring_sdpa(torch, case, q_pos, kv_pos, scale, window):
+    """One ``scaled_dot_product_attention`` call on the same rings with a
+    boolean mask from the stored positions (no softcap: SDPA has none).
+    Inputs laid out outside the timed call; never used by the port."""
+    q, pages, table, cu, _ = case
+    _, hq, d = q.shape
+    hkv = pages.shape[2] // 2
+    B, S = table.shape[0], int(cu[1] - cu[0])
+    kv = pages[table.long()].reshape(B, -1, 2 * hkv, d)
+    k = kv[:, :, 0::2].transpose(1, 2).contiguous()
+    v = kv[:, :, 1::2].transpose(1, 2).contiguous()
+    qq = q.reshape(B, S, hq, d).transpose(1, 2).contiguous()
+    mask = torch.stack(ring_masks(torch, case, q_pos, kv_pos, window))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qq, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def ring_kernel_phase(torch, ops, ref, ring_view, smi):
+    """The explicit-position mode at gemma2-27b's geometry (32/16 heads, D
+    128, softcap 50), fp32 and bf16, against the plain version: a wrapped
+    ring under the 4096 window (positions p % 4096 for p in 600..4695,
+    queries up to 120 past the newest key, so the window masks up to 120
+    of them), a 4800-slot ring with empty slots, 4-sequence decodes, a
+    504-row extend chunk; and where the positions are the slot-derived
+    ones, bit-equal to the slot-derived mode on the same pages. Times the
+    bf16 cases: the kernel (events and device time), the ring path's whole
+    call (``ring_view.decode_attention``/``extend_attention`` on the fused
+    ring, which it views as the pages without a copy; bit-equal to the
+    kernel's output), the plain version and SDPA with the stored
+    positions' mask."""
+    rpa, rpa_ref = ops.ragged_paged_attention, ref.ragged_paged_attention_ref
+    scale = scale_of(GEMMA2)
+    W = GEMMA2_WINDOW
+    cases = {   # name: (spans, q_lens, C, empty, queries past the newest key, window)
+        "wrapped_window_decode": ([(600, 4696)] * 4, [1] * 4, 4096, 0.0,
+                                  [0, 40, 80, 120], W),
+        "empty_slots_decode": ([(0, n) for n in (1000, 2300, 3700, 4700)], [1] * 4,
+                               4800, 0.02, None, None),
+        "wrapped_window_extend504": ([(1112, 5208)], [504], 4096, 0.0, None, W),
+        "global_extend504": ([(0, 4704)], [504], 4800, 0.0, None, None),
+    }
+    errs, atols, max_err = {}, {}, {"float32": 0.0, "bfloat16": 0.0}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for name, (spans, ql, C, empty, ahead, window) in cases.items():
+            case, q_pos, kv_pos = ring_case(torch, spans, ql, C, dtype, empty=empty,
+                                            ahead=ahead)
+            kw = dict(scale=scale, cap=GEMMA2_CAP, window=window, q_pos=q_pos,
+                      kv_pos_pages=kv_pos)
+            out = rpa(*case, max_q_len=max(ql), **kw)
+            want = rpa_ref(*case, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            errs[f"{dname}/{name}"] = err
+            max_err[dname] = max(max_err[dname], err)
+            tol = TOL[dname]
+            atol = tol if dname == "float32" else tol * min(1.0, want.float().abs().max().item())
+            atols[f"{dname}/{name}"] = atol
+            if not torch.allclose(out.float(), want.float(), atol=atol, rtol=tol):
+                raise AssertionError(f"{dname}/{name}: position mode vs plain max abs "
+                                     f"err {err} over tolerance {atol} + {tol} |want|")
+        # slot-derived positions written out: bit-equal to the slot-derived mode
+        for name, (ql, kl, window) in {"decode": ([1, 1, 1, 1], [33, 700, 4100, 4700], W),
+                                       "extend504": ([504], [4700], W),
+                                       "mixed": ([5, 1, 48, 1], [37, 64, 80, 4500], None)}.items():
+            case = make_case(torch, ql, kl, dtype, geo=GEMMA2, seed=6, extra_null=3)
+            _, pages, table, cu, kvl = case
+            kv_pos = torch.full(pages.shape[:2], -1, dtype=torch.int32, device="cuda")
+            for b, n in enumerate(kvl.tolist()):
+                for j in range(-(-n // PAGE)):
+                    kv_pos[table[b, j].long()] = j * PAGE + torch.arange(
+                        PAGE, dtype=torch.int32, device="cuda")
+            q_pos = torch.cat([torch.arange(n - q, n, dtype=torch.int32, device="cuda")
+                               for q, n in zip(ql, kvl.tolist())])
+            kw = dict(scale=scale, cap=GEMMA2_CAP, window=window, max_q_len=max(ql))
+            slot = rpa(*case, **kw)
+            pos = rpa(*case, q_pos=q_pos, kv_pos_pages=kv_pos, **kw)
+            if not torch.equal(slot, pos):
+                raise AssertionError(f"{dname}/{name}: slot-derived positions in "
+                                     "position mode differ from the slot-derived mode")
+    emit("kernel_check", kernel="ragged_paged_attention", mode="explicit positions",
+         geometry=list(GEMMA2), cap=GEMMA2_CAP, max_abs_err=errs,
+         tolerance={"rtol": TOL, "atol": atols}, slot_positions_bit_equal=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    for name, (spans, ql, C, empty, ahead, window) in cases.items():
+        case, q_pos, kv_pos = ring_case(torch, spans, ql, C, torch.bfloat16,
+                                        empty=empty, ahead=ahead, seed=5)
+        kw = dict(scale=scale, cap=GEMMA2_CAP, window=window, q_pos=q_pos,
+                  kv_pos_pages=kv_pos)
+        n_bytes, flops, bound_ms, bound_by = ring_work(torch, case, q_pos, kv_pos,
+                                                       window, "bfloat16")
+        kernel = lambda: rpa(*case, max_q_len=max(ql), **kw)  # noqa: E731
+        lib = ring_sdpa(torch, case, q_pos, kv_pos, scale, window)
+        q, pages = case[0], case[1]
+        B, S = len(spans), ql[0]
+        ring, ring_pos = pages.reshape(B, C, *pages.shape[2:]), kv_pos.reshape(B, C)
+        entry = ring_view.decode_attention if S == 1 else ring_view.extend_attention
+        view = lambda: entry(q.reshape(B, S, *q.shape[1:]), ring, ring_pos,  # noqa: E731
+                             q_pos if S == 1 else q_pos[:S], scale=scale, cap=GEMMA2_CAP,
+                             window=window, page_size=RING_PAGE)
+        if not torch.equal(view().reshape(q.shape), kernel()):
+            raise AssertionError(f"{name}: the ring view's output differs from the "
+                                 "kernel's on the same pages")
+        timing[name] = {
+            "geometry": list(GEMMA2), "ring_slots": C, "q_lens": ql, "window": window,
+            "bytes": n_bytes, "flops": flops,
+            "ms": time_ms(torch, kernel, flush),
+            "view_ms": time_ms(torch, view, flush),
+            "plain_ms": time_ms(torch, lambda: rpa_ref(*case, **kw), flush, iters=5,
+                                warmup=1),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": device_ms(torch, kernel, flush,
+                                   lambda key: "ragged_paged_attention" in key),
+            "library_device_ms": device_ms(torch, lib, flush),
+        }
+        del case, q_pos, kv_pos, lib, view, q, pages, ring, ring_pos
+    emit("kernel_time", kernel="ragged_paged_attention", mode="explicit positions",
+         dtype="bfloat16", nvidia_smi=smi, shapes=timing)
     return max_err, timing
 
 
@@ -701,6 +932,8 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
     ("S17", 2, 17, 8, 1, 256, None, None),
     ("d64_S17_window5", 1, 17, 8, 1, 64, None, 5),
     ("d128_G3_S200", 2, 200, 6, 2, 128, None, None),   # G does not divide 64
+    # gemma2-27b's ring prefill: 32/16 heads, softcap 50, its 4096 window binding
+    ("gemma2_27b_S4400_window4096", 1, 4400, 32, 16, 128, 50.0, 4096),
 ]
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
 # (HMMA) in paged attention and the SSD scan
@@ -857,7 +1090,26 @@ def flash_kernel_phase(torch, fops, fref, smi):
     # the dK/dV kernel without its row split: one unit per key tile
     no_split_ms = time_ms(torch, lambda: fops._dkdv_launch(*bwd_args, scale, None, None,
                                                            unit_rows=None), flush)
-    for t in timing.values():
+    # the ring path's first chunk at gemma2-27b (32/16 heads at D 128,
+    # softcap 50, window 4096, its longest first chunk: 2048 rows); SDPA has
+    # no softcap and is timed causal on the same inputs
+    B2, S2, H2, Hkv2, D2 = 1, 2048, *GEMMA2
+    q2, k2, v2, _ = flash_case(torch, B2, S2, H2, Hkv2, D2, torch.bfloat16, seed=8)
+    kw2 = dict(scale=scale_of(GEMMA2), cap=GEMMA2_CAP, window=GEMMA2_WINDOW)
+    flops2, bytes2 = flash_work(B2, S2, H2, Hkv2, D2, 2)["flash_attention_fwd"]
+    qs2, ks2, vs2 = (t.transpose(1, 2).contiguous() for t in (q2, k2, v2))
+    gemma2 = {
+        "shape": [B2, S2, H2, Hkv2, D2], "cap": GEMMA2_CAP, "window": GEMMA2_WINDOW,
+        "flops": flops2, "bytes": bytes2,
+        "ms": time_ms(torch, lambda: fops.flash_attention_fwd(q2, k2, v2, **kw2), flush),
+        "plain_ms": time_ms(torch, lambda: fref.flash_fwd_ref(q2, k2, v2, **kw2), flush,
+                            iters=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: sdpa(qs2, ks2, vs2, is_causal=True,
+                                                  scale=kw2["scale"], enable_gqa=True),
+                              flush)}
+    gemma2["bound_ms"], gemma2["bound_by"] = _bound(flops2, bytes2, "bfloat16")
+    timing["flash_attention_fwd"]["gemma2_27b_prefill"] = gemma2
+    for t in (*timing.values(), gemma2):
         t["tflops"] = t["flops"] / t["ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["ms"]
     sdpa_fwd_ms = timing["flash_attention_fwd"]["library_ms"]
@@ -1043,6 +1295,70 @@ def engine_hit_equals_cold(serve, arch, c, full, params, flags, n=4,
     rep = runs["hit"][1]
     return (runs["hit"][0] == runs["cold"][0], rep["prefix"]["compute_hits"],
             rep["prefill_tokens_skipped"])
+
+
+def reduced_ring_phase(torch, cfg_mod, tfm, param, serve):
+    """The ring path on a reduced fp32 gemma2-27b (group 2 at D 128, the
+    window of 64 on alternate layers, softcap 50): prefill 40 tokens into
+    rings of 96 (local: 64), extend 30 (the local rings wrap), one decode
+    round with row 1 inactive — CUDA (the flash forward and the position
+    mode) against the CPU (the plain versions), same weights; and a reduced
+    fp32 qwen3-8b's ring and paged engines on CUDA decode the same tokens,
+    the ring hit copying a snapshot, the paged one nothing."""
+    cfg = cfg_mod.reduced(cfg_mod.get_config("gemma2-27b"), dtype="float32",
+                          param_dtype="float32", head_dim=128, n_heads=8,
+                          n_kv_heads=4, d_model=256)
+    params = tfm.init_params(cfg, 0, device="cuda")
+    outs, rings = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = param.tree_map(lambda a: a.to(dev), params)
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(2, cfg.vocab_size, (2, 40), generator=g).to(dev)
+        ext = torch.randint(2, cfg.vocab_size, (2, 30), generator=g).to(dev)
+        last = torch.randint(2, cfg.vocab_size, (2, 1), generator=g).to(dev)
+        kw = dict(page_tokens=16)
+        res = []
+        lg, caches = tfm.prefill(cfg, p, {"tokens": toks}, max_cache_len=96)
+        res.append(lg)
+        lg, caches = tfm.extend(cfg, p, caches, ext, 40, **kw)
+        res.append(lg)
+        lg, caches = tfm.decode(cfg, p, caches, last, torch.tensor([70, 70], device=dev),
+                                active=torch.tensor([True, False], device=dev), **kw)
+        res.append(lg[:1])
+        outs[dev] = [r.float().cpu() for r in res]
+        rings[dev] = [a.float().cpu() for a in param.tree_leaves(caches)]
+    errs = []
+    for a, b in zip(outs["cuda"] + rings["cuda"], outs["cpu"] + rings["cpu"]):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        errs.append(rel)
+        if not (rel < 1e-4 and torch.isfinite(a).all()):
+            raise AssertionError(f"reduced ring steps on CUDA vs CPU: relative error {rel}")
+    c = cfg_mod.reduced(cfg_mod.get_config("qwen3-8b"), dtype="float32",
+                        param_dtype="float32", head_dim=128, n_heads=8, n_kv_heads=2,
+                        d_model=256)
+    qp = tfm.init_params(c, 0, device="cuda")
+    runs = {}
+    for mode in ("off", "on"):
+        args = serve.parser().parse_args(["--arch", "qwen3-8b", "--page-tokens", "16",
+                                          "--chunk-tokens", "16", "--paged-kernel", mode])
+        eng = serve.build_engine(args, c, c, qp, device="cuda")
+        eng.ecfg.eos_token = -1
+        prompts = serve.make_prompts(c, 4, 32, args.seed)
+        eng.submit(prompts[0], max_new_tokens=6)
+        eng.run_until_idle()
+        for pr in prompts[1:]:
+            eng.submit(pr, max_new_tokens=6)
+        rep = eng.run_until_idle()
+        runs[mode] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
+    checks = {
+        "ring_equals_paged": runs["off"][0] == runs["on"][0],
+        "ring_hit": runs["off"][1]["prefix"]["compute_hits"] >= 1,
+        "ring_seed_copy": runs["off"][1]["seed_copy_bytes"] > 0,
+        "paged_zero_copy": runs["on"][1]["seed_copy_bytes"] == 0,
+    }
+    emit("reduced_ring_check", arch="gemma2-27b", relative_err=errs, tolerance=1e-4,
+         engines="qwen3-8b ring vs paged", checks=checks)
+    _require("reduced ring", checks)
 
 
 def reduced_hybrid_phase(torch, cfg_mod, tfm, param, serve):
@@ -1485,6 +1801,186 @@ def frontend_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi,
     return n
 
 
+def device_busy_s(torch, prof) -> float:
+    """Seconds in which the card ran anything: the union of the device
+    activities' intervals (as ``scripts/profile_port_serve.py`` counts),
+    read from the raw trace events without building the profiler's event
+    tree."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.name().startswith("Command Buffer"))
+    busy, start, end = 0.0, None, None
+    for a, b in spans:
+        if end is None or a > end:
+            if end is not None:
+                busy += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    if end is not None:
+        busy += end - start
+    return busy / 1e9
+
+
+RING_MAX_NEW = 32
+RING_CACHE_LEN = 4800      # 150 pages of 32: the longest prompt + 32 fits
+
+
+def ring_prompts(cfg, seed):
+    """4 requests: a 1000-token donor (short of the 4096-slot local rings,
+    so its finished rings publish a snapshot), then a 1192-token prompt
+    sharing its first 992 tokens (31 pages: a hit) and two of 4400 and 4700
+    tokens, past the 4096 window."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    head = rng.integers(2, cfg.vocab_size, 1000).tolist()
+    return [head, head[:992] + rng.integers(2, cfg.vocab_size, 200).tolist(),
+            rng.integers(2, cfg.vocab_size, 4400).tolist(),
+            rng.integers(2, cfg.vocab_size, 4700).tolist()]
+
+
+def drive_ring_serve(torch, serve, param, args, cfg, params, kernels, paged):
+    """One engine over ``ring_prompts``: the donor alone, then the rest,
+    under ``torch.profiler`` (CUDA activity only) for the device-busy
+    share of the run's wall time; every time is taken under it (on an
+    H100 it added about 7% to the ring run's wall time). Every wrapper's
+    count is zeroed just before and read just after. Returns (stats,
+    tokens, launches)."""
+    args.paged_kernel = "on" if paged else "off"
+    eng = serve.build_engine(args, cfg, cfg, params, device="cuda",
+                             max_cache_len=RING_CACHE_LEN)
+    eng.ecfg.eos_token = -1     # random weights may emit the default eos
+    prompts = ring_prompts(cfg, args.seed)
+    finite, firsts, decode_s = [], [0], [0.0]
+    sample, run_decode, run_chunk = (eng.backend.sample, eng.backend.run_decode,
+                                     eng.backend.run_prefill_chunk)
+
+    def checked_sample(logits):
+        finite.append(bool(torch.isfinite(logits).all()))
+        return sample(logits)
+
+    def timed_decode(*a, **kw):
+        t = time.perf_counter()
+        out = run_decode(*a, **kw)          # ends in a host copy: synchronous
+        decode_s[0] += time.perf_counter() - t
+        return out
+
+    def counted_chunk(ck, *a, **kw):
+        firsts[0] += ck.first
+        return run_chunk(ck, *a, **kw)
+
+    eng.backend.sample, eng.backend.run_decode = checked_sample, timed_decode
+    eng.backend.run_prefill_chunk = counted_chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.submit(prompts[0], max_new_tokens=RING_MAX_NEW)
+        eng.run_until_idle()
+        for pr in prompts[1:]:
+            eng.submit(pr, max_new_tokens=RING_MAX_NEW)
+        rep = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+    decode_tokens = rep["tokens_generated"] - rep["finished"]
+    caches = eng.backend.paged_caches if paged else eng.backend.caches
+    stats = dict(
+        engine="paged" if paged else "ring", wall_s=wall_s, decode_s=decode_s[0],
+        decode_tokens=decode_tokens, decode_tokens_per_s=decode_tokens / decode_s[0],
+        tokens_per_s=rep["tokens_generated"] / wall_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        cache_bytes=sum(t.numel() * t.element_size() for t in param.tree_leaves(caches)),
+        model_calls=eng.backend.model_calls, first_chunks=firsts[0],
+        prefill_chunks=rep["prefill_chunks"], kernel_launches=launches,
+        finished=rep["finished"], tokens_generated=rep["tokens_generated"],
+        compute_hits=rep["prefix"]["compute_hits"],
+        prefill_tokens_skipped=rep["prefill_tokens_skipped"],
+        seed_copy_bytes=rep["seed_copy_bytes"], snapshot_bytes=rep["snapshot_bytes"],
+        kernel_read_bytes=rep["kernel_read_bytes"],
+        finite_logits=bool(finite) and all(finite),
+        max_position=max(len(p) for p in prompts) + RING_MAX_NEW - 1)
+    if not paged:   # a local ring wrapped: it holds positions past its 4096 slots
+        stats["local_ring_max_position"] = max(
+            int(caches[gi][u]["pos"].max())
+            for gi, g in enumerate(cfg.scan_groups()) for u, spec in enumerate(g.unit)
+            if spec.window is not None)
+    busy = device_busy_s(torch, prof)
+    stats.update(device_busy_s=busy, device_idle_share=1 - busy / wall_s)
+    tokens = {k: [int(t) for t in v] for k, v in eng.outputs.items()}
+    del eng, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, tokens, launches
+
+
+def ring_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+    """gemma2-27b at full width and depth (46 layers, d 4608, GQA 32/16 at
+    128, the 4096 window on alternate layers, softcaps 50/30, post-norms,
+    GeGLU d_ff 36864, vocab 256000, bf16, 27.2B parameters), weights drawn
+    once from the serve seed: the ring engine, freed, then the paged
+    engine, on the same 4 prompts (1000 to 4700 tokens, 32 new each;
+    ``--paged-kernel off``/``on`` with the serve defaults and rings of 4800
+    slots). Every layer of every first chunk launched the flash forward and
+    every layer of every later ring chunk and decode round the paged
+    kernel in position mode; the paged engine launched the paged kernel in
+    every layer of every model call. Each engine runs under the profiler,
+    for its device idle share."""
+    cfg = cfg_mod.get_config("gemma2-27b")        # nothing reduced
+    args = serve.parser().parse_args(["--arch", "gemma2-27b"])   # serve defaults
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, args.seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in param.tree_leaves(params))
+    ring, ring_tokens, ring_launches = drive_ring_serve(
+        torch, serve, param, args, cfg, params, kernels, paged=False)
+    paged, paged_tokens, paged_launches = drive_ring_serve(
+        torch, serve, param, args, cfg, params, kernels, paged=True)
+    L = cfg.num_layers
+    same = sum(a == b for r in ring_tokens for a, b in zip(ring_tokens[r], paged_tokens[r]))
+    total = sum(len(v) for v in ring_tokens.values())
+    windowed = [s.window for s in cfg.layer_specs()]
+    checks = {
+        "full_width": (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+                       cfg.attn_softcap, cfg.final_softcap, cfg.post_norms, cfg.dtype)
+        == (46, 4608, 32, 16, 128, 36864, 256000, 50.0, 30.0, True, "bfloat16"),
+        "windows": windowed == [GEMMA2_WINDOW, None] * 23,
+        "finished": ring["finished"] == paged["finished"] == 4,
+        "tokens_generated": ring["tokens_generated"] == paged["tokens_generated"]
+        == 4 * RING_MAX_NEW,
+        "finite_logits": ring["finite_logits"] and paged["finite_logits"],
+        # a hit resumes with an extend: one first chunk a request without one
+        "ring_flash_launches": ring_launches["flash_attention_fwd"] == L * ring["first_chunks"]
+        and ring["first_chunks"] == 4 - ring["compute_hits"],
+        "ring_position_mode_launches": ring_launches["ragged_paged_attention"]
+        == L * (ring["model_calls"] - ring["first_chunks"]) and ring["model_calls"] > 4,
+        "paged_launches": paged_launches["ragged_paged_attention"] == L * paged["model_calls"]
+        and paged_launches["flash_attention_fwd"] == 0,
+        # the window binds: queries reach past 4096 + the first keys, so the
+        # local layers mask keys (the paged pages keep them; the local ring
+        # has overwritten them)
+        "window_binds": paged["max_position"] >= GEMMA2_WINDOW + 512
+        and ring["local_ring_max_position"] >= GEMMA2_WINDOW + 512,
+        "ring_hit_seeds": ring["compute_hits"] >= 1 and ring["seed_copy_bytes"] > 0,
+        "paged_hit_zero_copy": paged["compute_hits"] >= 1 and paged["seed_copy_bytes"] == 0,
+    }
+    emit("ring_serve", nvidia_smi=smi, arch=cfg.name, layers=L, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, weight_bytes=weight_bytes, init_s=init_s,
+         ring_slots={"global": RING_CACHE_LEN, "local": GEMMA2_WINDOW},
+         page_tokens=args.page_tokens, ring=ring, paged=paged,
+         ring_tokens_equal_paged_share=same / total, checks=checks)
+    _require("gemma2-27b ring serve", checks)
+    return ring_launches, paged_launches
+
+
 # ---------------------------------------------------------------------------
 # Training: reduced gemma-2b CUDA vs CPU, then full width and depth
 # ---------------------------------------------------------------------------
@@ -1724,6 +2220,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels import decode_attention as ring_view
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
@@ -1771,6 +2268,8 @@ def main() -> int:
         return out
 
     max_err, timing = timed("kernel", kernel_phase, torch, ops, ref, smi)
+    ring_err, ring_timing = timed("ring kernel", ring_kernel_phase, torch, ops, ref,
+                                  ring_view, smi)
     ssd_err, ssd_timing = timed("ssd kernel", ssd_kernel_phase, torch, sops, sref, smi)
     fa_err, fa_timing = timed("flash", flash_kernel_phase, torch, fops, fref, smi)
     timed("reduced qwen3", reduced_model_phase, torch, cfg_mod, tfm, param)
@@ -1780,6 +2279,7 @@ def main() -> int:
     for arch in ("mixtral-8x22b", "musicgen-large", "internvl2-76b"):
         timed(f"reduced {arch}", reduced_frontend_phase, torch, cfg_mod, tfm, param,
               serve, frontends, arch)
+    timed("reduced ring", reduced_ring_phase, torch, cfg_mod, tfm, param, serve)
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
@@ -1814,6 +2314,10 @@ def main() -> int:
             param, kernels, smi, phase, arch, widths)
         gc.collect()                 # this engine and its weights
         torch.cuda.empty_cache()
+    ring_launches, ring_paged_launches = timed("ring serve", ring_serve_phase, torch,
+                                               cfg_mod, tfm, serve, param, kernels, smi)
+    gc.collect()                     # the gemma2-27b weights
+    torch.cuda.empty_cache()
     fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
@@ -1825,12 +2329,17 @@ def main() -> int:
             "qwen3-8b serve": rpa_launches,
             "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"],
             "deepseek-v2-lite-16b serve": mla_launches,
-            **{f"{arch} serve": n for arch, n in frontend_launches.items()}},
+            **{f"{arch} serve": n for arch, n in frontend_launches.items()},
+            "gemma2-27b paged serve": ring_paged_launches["ragged_paged_attention"]},
+        "ragged_paged_attention_positions": {
+            "gemma2-27b ring serve": ring_launches["ragged_paged_attention"]},
+        "flash_attention_fwd": {"gemma-2b train": fa_launches["flash_attention_fwd"],
+                                "gemma2-27b ring serve": ring_launches["flash_attention_fwd"]},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches,
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"]}}
 
     def times(t):
-        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+        return {k: t[k] for k in ("ms", "view_ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "device_ms", "library_backend")
                 if k in t}
 
@@ -1849,7 +2358,20 @@ def main() -> int:
         "mla_decode": times(timing["mla_decode"]),
         "mixtral_decode": times(timing["mixtral_decode"]),
         "internvl2_decode": times(timing["internvl2_decode"]),
-        "musicgen_decode": times(timing["musicgen_decode"])}, {
+        "musicgen_decode": times(timing["musicgen_decode"]),
+        "gemma2_decode": times(timing["gemma2_decode"])}, {
+        # the same kernels in their explicit-position mode: the ring path
+        "name": "ragged_paged_attention_positions", "route": "cuda",
+        "mode": "explicit positions (q_pos, kv_pos_pages)",
+        "source": str(ops.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:225",
+        "launches": sum(by_path["ragged_paged_attention_positions"].values()),
+        "launches_by_path": by_path["ragged_paged_attention_positions"],
+        "max_abs_err": ring_err["bfloat16"],
+        **times(ring_timing["wrapped_window_decode"]),
+        "empty_slots_decode": times(ring_timing["empty_slots_decode"]),
+        "wrapped_window_extend504": times(ring_timing["wrapped_window_extend504"]),
+        "global_extend504": times(ring_timing["global_extend504"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",
@@ -1865,9 +2387,14 @@ def main() -> int:
                 "flash_attention_bwd_dq": "src/repro/models/attention.py:126"}
     for fn in flash:
         name, t = fn.__name__, fa_timing[fn.__name__]
+        by = by_path.get(name, {"gemma-2b train": fa_launches[name]})
+        extra = ({"gemma2_27b_prefill": times(t["gemma2_27b_prefill"])}
+                 if "gemma2_27b_prefill" in t else {})
         entries.append({
+            **extra,
             "name": name, "route": "cuda", "source": str(fops.SOURCE.relative_to(ROOT)),
-            "replaces": replaces[name], "launches": fa_launches[name],
+            "replaces": replaces[name], "launches": sum(by.values()),
+            "launches_by_path": by,
             "max_abs_err": fa_err[name]["bfloat16"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -2,13 +2,25 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/paged_attention/kernel.py::ragged_paged_attention_pallas
-// (body _kernel, inner _attend_page) in its slot-derived-position mode.
+// (body _kernel, inner _attend_page) in both its modes.
 //
 // What it computes: T query rows of S ragged sequences (cu_q_lens, kv_lens)
 // attend causally, with an optional tanh softcap and sliding window, over
 // fused head-interleaved KV pages (P, ps, 2*Hkv, D) found through an (S, W)
-// page table. Key positions derive from the table slot; null page 0 is
-// skipped. Online softmax in fp32; output in the input dtype.
+// page table. Online softmax in fp32; output in the input dtype. Positions:
+// - slot-derived (q_pos and kv_pos null): key j of table slot i sits at
+//   i*ps + j, query r of a sequence at kv_len - q_len + r; null page 0 is
+//   skipped, and so are the slots past the tile's last query and below its
+//   first one's window;
+// - explicit (q_pos (T,) and kv_pos (P, ps) given, the ring-cache view):
+//   every slot below ceil(kv_len / ps) is visited, page 0 included (a ring
+//   that wraps is not in position order, so no slot can be skipped from the
+//   lengths), and a key counts only if 0 <= kv_pos <= q_pos (and inside the
+//   window). A split whose keys are all masked stays the merge's identity
+//   (l = 0), a row with no visible key writes 0, and where kv_pos holds the
+//   slot-derived positions the output equals the slot-derived mode's bit for
+//   bit: the extra slots are fully masked, and a fully masked block leaves
+//   (m, l, acc) exactly as they were.
 //
 // What bounds it: decode reads each reachable page once per KV head and does
 // 4*D flops per (query row, key) — far below the card's ~295 flop/byte bf16
@@ -162,6 +174,8 @@ struct Params {
   const int* page_table;    // (S, W)
   const int* cu_q_lens;     // (S+1,)
   const int* kv_lens;       // (S,)
+  const int* q_pos;         // (T,), or null: slot-derived positions
+  const int* kv_pos;        // (P, ps), -1 an empty row; null with q_pos
   void* out;                // (T, Hq, D)
   float* part_acc;          // spread, n_groups > 1: (n_groups, T, Hq, D)
   float* part_ml;           // (n_groups, T, Hq, 2): m, l
@@ -263,8 +277,11 @@ ragged_paged_attention_kernel(const Params prm) {
   const int first_qpos = kv_len - qlen + row0 / G;
   const int last_qpos = kv_len - qlen + (row_end - 1) / G;
   const int n_pages = (kv_len + ps - 1) / ps;
-  const int hi = min(min(n_pages, last_qpos / ps + 1), prm.table_width);
-  const int lo = prm.has_window ? max(first_qpos - prm.window + 1, 0) / ps : 0;
+  const bool has_pos = prm.q_pos != nullptr;
+  // explicit positions: every slot below n_pages (kernel.py:108, :127)
+  const int hi = has_pos ? min(n_pages, prm.table_width)
+                         : min(min(n_pages, last_qpos / ps + 1), prm.table_width);
+  const int lo = prm.has_window && !has_pos ? max(first_qpos - prm.window + 1, 0) / ps : 0;
   const int slots = split_slots(n_pages), group_slots = slots * kWarps;
   int g_begin, g_end;   // the groups this CTA folds
   if (prm.spread) {
@@ -290,9 +307,11 @@ ragged_paged_attention_kernel(const Params prm) {
     if (fr < row_end) x = q[((size_t)(q0 + fr / G) * Hq + h * G + fr % G) * D + d];
     q_s[i] = x;
   }
-  int qpos[kRows];
+  int qpos[kRows];   // a padded row (past row_end) sees no key in position mode
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) qpos[i] = kv_len - qlen + (row0 + i) / G;
+  for (int i = 0; i < kRows; ++i)
+    qpos[i] = !has_pos ? kv_len - qlen + (row0 + i) / G
+            : row0 + i < row_end ? prm.q_pos[q0 + (row0 + i) / G] : -1;
   const int bpp = (ps + KB - 1) / KB;     // blocks per page
 
   RowState<kRows, D> run;   // this thread's share of the tile's merged state
@@ -315,7 +334,8 @@ ragged_paged_attention_kernel(const Params prm) {
     // block b of the split: slot s_lo + b / bpp, keys [kb, kb + nk) of its page
     auto page_of = [&](int b) {
       const int pid = prm.page_table[s * prm.table_width + s_lo + b / bpp];
-      return (pid <= 0 || pid >= prm.num_pages) ? -1 : pid;   // null slot: skipped
+      // null slot (page 0 of a slot-derived table, or out of the pool): skipped
+      return (pid < (has_pos ? 0 : 1) || pid >= prm.num_pages) ? -1 : pid;
     };
     auto issue = [&](int b) {
       if (b < n_blocks) {
@@ -347,6 +367,12 @@ ragged_paged_attention_kernel(const Params prm) {
         const int kb = (b % bpp) * KB;
         const int kpos0 = (s_lo + b / bpp) * ps + kb;
         const int nk = min(KB, ps - kb);
+        int kpos[KPL];   // this lane's keys' positions; -1: past the page, or empty
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const int key = j * KG + kq;
+          kpos[j] = key >= nk ? -1 : has_pos ? prm.kv_pos[(size_t)pid * ps + kb + key] : kpos0 + key;
+        }
         // scores: lane partials over its columns, then summed over the 8 lanes of a key group
         float sc[kRows][KPL];
 #pragma unroll
@@ -383,12 +409,10 @@ ragged_paged_attention_kernel(const Params prm) {
           float mx = kNegInf;
 #pragma unroll
           for (int j = 0; j < KPL; ++j) {
-            const int key = j * KG + kq;
             float x = sc[i][j] * prm.scale;
             if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
-            const int kpos = kpos0 + key;
-            bool valid = key < nk && kpos <= qpos[i];
-            if (prm.has_window) valid = valid && kpos > qpos[i] - prm.window;
+            bool valid = kpos[j] >= 0 && kpos[j] <= qpos[i];
+            if (prm.has_window) valid = valid && kpos[j] > qpos[i] - prm.window;
             if (valid) ok |= 1u << j;
             sc[i][j] = valid ? x : kNegInf;
             mx = fmaxf(mx, sc[i][j]);
@@ -589,8 +613,11 @@ ragged_paged_attention_mma_kernel(const Params prm) {
   const int first_qpos = kv_len - qlen + row0 / G;
   const int last_qpos = kv_len - qlen + (row_end - 1) / G;
   const int n_pages = (kv_len + ps - 1) / ps;
-  const int hi = min(min(n_pages, last_qpos / ps + 1), prm.table_width);
-  const int lo = prm.has_window ? max(first_qpos - prm.window + 1, 0) / ps : 0;
+  const bool has_pos = prm.q_pos != nullptr;
+  // explicit positions: every slot below n_pages (kernel.py:108, :127)
+  const int hi = has_pos ? min(n_pages, prm.table_width)
+                         : min(min(n_pages, last_qpos / ps + 1), prm.table_width);
+  const int lo = prm.has_window && !has_pos ? max(first_qpos - prm.window + 1, 0) / ps : 0;
   const int slots = split_slots(n_pages), group_slots = slots * kWarps;
   int g_begin, g_end;   // the groups this CTA folds
   if (prm.spread) {
@@ -637,7 +664,7 @@ ragged_paged_attention_mma_kernel(const Params prm) {
     int my_pid = spec_pid;
     if (!(prm.spread && slots == 1) && lane < s_hi - s_lo)
       my_pid = prm.page_table[s * prm.table_width + s_lo + lane];
-    if (my_pid <= 0 || my_pid >= prm.num_pages) my_pid = -1;
+    if (my_pid < (has_pos ? 0 : 1) || my_pid >= prm.num_pages) my_pid = -1;
     auto page_of = [&](int b) { return __shfl_sync(0xffffffffu, my_pid, b / bpp); };
     auto issue = [&](int b) {
       const int pid = page_of(b < n_blocks ? b : 0);
@@ -673,7 +700,11 @@ ragged_paged_attention_mma_kernel(const Params prm) {
           ldmatrix_x4(qa[ks], q_s + ((lane / 8 % 2) * 8 + lane % 8) * QS + ks * 16 + (lane / 16) * 8);
       }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) qpos[hh] = kv_len - qlen + (row0 + g8 + 8 * hh) / G;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int fr = row0 + g8 + 8 * hh;   // a padded row sees no key in position mode
+        qpos[hh] = !has_pos ? kv_len - qlen + fr / G
+                 : fr < row_end ? prm.q_pos[q0 + fr / G] : -1;
+      }
     }
     for (int b = 0; b < n_blocks; ++b) {
       issue(b + 1);
@@ -685,6 +716,15 @@ ragged_paged_attention_mma_kernel(const Params prm) {
         const int kb = (b % bpp) * KB;
         const int kpos0 = (s_lo + b / bpp) * ps + kb;
         const int nk = min(KB, ps - kb);
+        int kpos[2][2];   // this lane's keys 8n + 2 t4 + c; -1: past the page, or empty
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = 8 * n + 2 * t4 + c;
+            kpos[n][c] = key >= nk ? -1
+                       : has_pos ? prm.kv_pos[(size_t)pid * ps + kb + key] : kpos0 + key;
+          }
         // S = Q Kᵀ: n-tile n holds keys 8n..8n+7; sc[n][e]: row g8 + 8 (e / 2), key 8n + 2 t4 + e % 2
         float sc[2][4];
 #pragma unroll
@@ -713,11 +753,11 @@ ragged_paged_attention_mma_kernel(const Params prm) {
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int hh = e / 2, key = 8 * n + 2 * t4 + e % 2, kpos = kpos0 + key;
+            const int hh = e / 2, kp = kpos[n][e % 2];
             float x = sc[n][e] * prm.scale;
             if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
-            bool valid = key < nk && kpos <= qpos[hh];
-            if (prm.has_window) valid = valid && kpos > qpos[hh] - prm.window;
+            bool valid = kp >= 0 && kp <= qpos[hh];
+            if (prm.has_window) valid = valid && kp > qpos[hh] - prm.window;
             if (valid) ok |= 1u << (4 * n + e);
             sc[n][e] = valid ? x : kNegInf;
             mx[hh] = fmaxf(mx[hh], sc[n][e]);
@@ -1190,19 +1230,23 @@ extern "C" long long ragged_paged_attention_scratch_floats(
 }
 
 // dtype: 0 = float32, 1 = bfloat16. has_cap / has_window switch the softcap
-// and the sliding window on. scratch: ragged_paged_attention_scratch_floats
+// and the sliding window on. q_pos / kv_pos: both null (slot-derived
+// positions) or both given (explicit positions; not at the bf16 latent head). scratch: ragged_paged_attention_scratch_floats
 // floats (null when that is 0). Returns the launch's cudaError_t (0 =
 // success).
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* kv_pages, const void* page_table,
     const void* cu_q_lens, const void* kv_lens, void* out,
+    const void* q_pos, const void* kv_pos,
     int num_tokens, int num_seqs, int table_width, int num_pages, int page_size,
     int num_q_heads, int num_kv_heads, int head_dim, int max_q_len,
     float scale, int has_cap, float cap, int has_window, int window,
     int dtype, void* scratch, void* stream) {
   if (page_size <= 0 || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0
-      || table_width <= 0)
+      || table_width <= 0 || (q_pos == nullptr) != (kv_pos == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the latent-head kernel derives positions from the slot only
+  if (q_pos != nullptr && dtype == 1 && head_dim == kLatentD) return (int)cudaErrorInvalidValue;
   const int spread = spreads(num_q_heads, num_kv_heads, max_q_len);
   const int n_groups = max_groups(table_width, group_splits(head_dim, dtype));
   if (spread && n_groups > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -1215,6 +1259,8 @@ extern "C" int ragged_paged_attention_launch(
   prm.page_table = static_cast<const int*>(page_table);
   prm.cu_q_lens = static_cast<const int*>(cu_q_lens);
   prm.kv_lens = static_cast<const int*>(kv_lens);
+  prm.q_pos = static_cast<const int*>(q_pos);
+  prm.kv_pos = static_cast<const int*>(kv_pos);
   prm.out = out;
   prm.part_acc = part_acc;
   prm.part_ml = part_ml;

@@ -12,6 +12,12 @@ its own and fold the groups' fp32 partials in a second launch; longer ones
 fold every group in one CTA. Both fold in the same order, so a row's bits
 do not depend on the mode. The library decides the mode and says how much
 fp32 scratch it needs; the wrapper allocates that (``torch.empty``).
+
+With ``q_pos``/``kv_pos_pages`` the kernel reads key positions from the
+given plane and query positions from ``q_pos`` (the explicit-position
+mode a ring cache reads through); it then visits every table slot up to
+``kv_lens``, page 0 included, and masks by position alone. The latent
+(MLA) kernel has no position mode yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ def _library():
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P,            # q kv table cu kv_lens out
+                       P, P,                        # q_pos kv_pos (null: slot-derived)
                        I, I, I, I, I, I, I, I, I,   # T S W P ps Hq Hkv D max_q_len
                        F, I, F, I, I,               # scale has_cap cap has_win win
                        I, P, P]                     # dtype scratch stream
@@ -42,6 +49,29 @@ def _library():
         lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 7
         lib.ragged_paged_attention_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _check_positions(q, kv_pages, q_pos, kv_pos_pages):
+    """Both or neither, on every device; the shapes, dtypes, device and
+    layout the kernel reads them in."""
+    if (q_pos is None) != (kv_pos_pages is None):
+        raise ValueError("q_pos and kv_pos_pages must be given together")
+    if q_pos is None:
+        return
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 576:
+        raise NotImplementedError("explicit positions in the latent-head "
+                                  "(MLA, bf16 D 576) kernel are not ported "
+                                  "yet (ROADMAP A.6)")
+    for name, t, shape in (("q_pos", q_pos, (q.shape[0],)),
+                           ("kv_pos_pages", kv_pos_pages, tuple(kv_pages.shape[:2]))):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
@@ -87,18 +117,24 @@ def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
 def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
                            scale: float, cap: Optional[float] = None,
                            window: Optional[int] = None,
-                           max_q_len: Optional[int] = None):
+                           max_q_len: Optional[int] = None,
+                           q_pos=None, kv_pos_pages=None):
     """Attend T concatenated query rows against paged KV storage.
 
     q: (T, Hq, D); kv_pages: (P, ps, 2*Hkv, D) fused head-interleaved;
     page_table: (S, W) int32; cu_q_lens: (S+1,) int32 with
     cu_q_lens[-1] == T; kv_lens: (S,) int32. ``max_q_len`` bounds every
     per-sequence query length (defaults to T, which is always safe: tiles
-    past a sequence's end exit at once). Returns (T, Hq, D) in q's dtype."""
+    past a sequence's end exit at once). ``q_pos`` (T,) and
+    ``kv_pos_pages`` (P, ps), int32, both or neither, switch on explicit
+    positions (-1 in ``kv_pos_pages``: an empty row). Returns (T, Hq, D)
+    in q's dtype."""
+    _check_positions(q, kv_pages, q_pos, kv_pos_pages)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens,
                                           kv_lens, scale=scale, cap=cap,
-                                          window=window)
+                                          window=window, q_pos=q_pos,
+                                          kv_pos_pages=kv_pos_pages)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_paged_attention for device {q.device}")
     _check(q, kv_pages, page_table, cu_q_lens, kv_lens)
@@ -117,6 +153,8 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
         rc = lib.ragged_paged_attention_launch(
             q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
             cu_q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(),
+            None if kv_pos_pages is None else kv_pos_pages.data_ptr(),
             T, S, W, P, ps, Hq, H2 // 2, D, max_q_len,
             float(scale), cap is not None, float(cap or 0.0),
             window is not None, int(window or 0),

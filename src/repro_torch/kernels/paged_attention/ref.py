@@ -20,6 +20,12 @@ The attention core scans the table one page at a time with an online
 softmax whose accumulator is *exactly* invariant to trailing padding
 pages (a fully-masked page contributes p == 0 and a rescale factor of 1),
 so outputs are bit-identical across page-table widths.
+
+An optional ``kv_pos_pages`` (n_pages, page_size) int32 plane overrides
+the slot-derived positions (-1 = empty row), with explicit query
+positions beside it; page 0 is then a page like any other. This is how a
+ring cache reads through the same kernel (``repro_torch.kernels.
+decode_attention``).
 """
 from __future__ import annotations
 
@@ -81,16 +87,20 @@ def write_tokens_to_pages(kv_pages, kv_new, positions, page_table,
 
 def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
                          cap: Optional[float] = None,
-                         window: Optional[int] = None):
-    """Row-flattened paged attention with slot-derived key positions.
+                         window: Optional[int] = None,
+                         kv_pos_pages=None):
+    """Row-flattened paged attention.
 
     q: (R, Hq, D) query rows; kv_pages: (P, ps, 2*Hkv, D); page_table:
     (R, W) int32 per-row tables; q_pos: (R,) absolute query positions.
-    Returns (R, Hq, D) in the pool dtype.
+    Key positions derive from the table slot, or with ``kv_pos_pages``
+    (P, ps) come from that plane (-1: an empty row). Returns (R, Hq, D) in
+    the pool dtype.
 
     The page loop keeps a per-row online softmax in fp32; masked pages
-    (padding, future positions, outside the window, null page 0)
-    contribute exactly zero and leave the accumulator bit-identical."""
+    (padding, future positions, outside the window, null page 0 of a
+    slot-derived table, empty rows) contribute exactly zero and leave the
+    accumulator bit-identical."""
     R, Hq, D = q.shape
     ps, H2 = kv_pages.shape[1], kv_pages.shape[2]
     Hkv = H2 // 2
@@ -110,16 +120,20 @@ def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
         kv = kv_pages[pid]                               # (R, ps, 2Hkv, D)
         k = kv[:, :, 0::2, :].float()                    # (R, ps, Hkv, D)
         v = kv[:, :, 1::2, :].float()
-        kpos = (j * ps + offs)[None].expand(R, ps)
+        if kv_pos_pages is not None:
+            kpos = kv_pos_pages[pid].to(torch.int64)     # (R, ps)
+        else:
+            kpos = (j * ps + offs)[None].expand(R, ps)
         s = torch.einsum("rhgd,rphd->rhgp", qf, k) * scale
         if cap is not None:
             s = torch.tanh(s / cap) * cap
         valid = (kpos >= 0) & (kpos <= qpos[:, None])
         if window is not None:
             valid &= kpos > (qpos[:, None] - window)
-        # page 0 is the null page: a null slot *inside* the causal range
-        # (sparse tables) holds no keys and must mask
-        valid &= (pid != 0)[:, None]
+        if kv_pos_pages is None:
+            # page 0 is the null page: a null slot *inside* the causal
+            # range (sparse tables) holds no keys and must mask
+            valid &= (pid != 0)[:, None]
         vmask = valid[:, None, None, :]                  # (R, 1, 1, ps)
         s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -143,22 +157,26 @@ def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
 
 def ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens, kv_lens,
                                *, scale: float, cap: Optional[float] = None,
-                               window: Optional[int] = None):
+                               window: Optional[int] = None,
+                               q_pos=None, kv_pos_pages=None):
     """Plain version of the ragged kernel.
 
     q: (T, Hq, D) queries of all sequences concatenated; cu_q_lens:
     (S+1,) int32 cumulative query lengths (T == cu_q_lens[-1]);
     ``page_table`` is (S, W), ``kv_lens`` (S,). Query i of sequence s sits
-    at absolute position ``kv_lens[s] - q_len_s + i``. Decode is every
-    q_len == 1."""
+    at absolute position ``kv_lens[s] - q_len_s + i`` unless an explicit
+    ``q_pos`` (T,) is given, with the key positions ``kv_pos_pages`` (P,
+    ps) beside it. Decode is every q_len == 1."""
     T = q.shape[0]
     dev = q.device
     cu = cu_q_lens.to(torch.int64)
     kv_lens = kv_lens.to(torch.int64)
     t = torch.arange(T, dtype=torch.int64, device=dev)
     seg = torch.searchsorted(cu[1:], t, right=True)      # (T,) sequence ids
-    q_lens = cu[1:] - cu[:-1]
-    q_pos = kv_lens[seg] - q_lens[seg] + t - cu[seg]
+    if q_pos is None:
+        q_lens = cu[1:] - cu[:-1]
+        q_pos = kv_lens[seg] - q_lens[seg] + t - cu[seg]
     tbl = page_table[seg]                                # (T, W)
     return paged_attention_rows(q, kv_pages, tbl, q_pos, scale=scale,
-                                cap=cap, window=window)
+                                cap=cap, window=window,
+                                kv_pos_pages=kv_pos_pages)

@@ -6,18 +6,25 @@ report as ``repro.launch.serve``, plus ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 8 --max-new 16 --shared-prefix-tokens 32
 
-``--arch`` takes the architectures the port registers: ``qwen3-8b`` and
-``gemma-2b`` (dense attention on KV pages), ``mamba2-2.7b`` (SSM on
+``--arch`` takes the architectures the port registers: ``qwen3-8b``,
+``gemma-2b``, ``deepseek-7b``, ``gemma2-27b`` (4096/global windows
+alternating, softcaps 50/30, post-norms) and ``llama2-70b`` (dense
+attention on KV pages), ``mamba2-2.7b`` (SSM on
 point-state pages), ``hymba-1.5b`` (hybrid: attention and SSM heads in
 every layer, KV and state pages under one table, 128 meta tokens),
 ``deepseek-v2-lite-16b`` (MLA on latent pages, MoE routing),
 ``mixtral-8x22b`` (MoE of 8 experts top-2, a 4096 window in every layer),
 ``musicgen-large`` (4 codebooks: a token is a 4-tuple) and
 ``internvl2-76b`` (256 patch embeddings in front of every prompt).
+``--paged-kernel off`` serves on per-slot ring caches instead (the
+stacks whose layers are all attention: dense, MoE and the two frontends),
+reading each ring through the paged kernel's explicit-position mode at
+``--page-tokens``-slot pages.
 What the port does not serve yet raises ``NotImplementedError`` naming its
 ROADMAP item: ``--replicas > 1`` (the cluster, A.7), ``--paged-kernel
-off`` (the ring path, A.6), ``--inject-rber`` (faults, A.8) and the TPU
-autotuner's ``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
+off`` for MLA, SSM and hybrid stacks (A.6), ``--inject-rber`` (faults,
+A.8) and the TPU autotuner's
+``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
 """
 from __future__ import annotations
 
@@ -27,7 +34,10 @@ import json
 import numpy as np
 
 
-def build_engine(args, cfg, full, params, device=None):
+def build_engine(args, cfg, full, params, device=None, max_cache_len=128):
+    """The engine ``main`` serves with: the tiers, the memory system and the
+    engine flags from ``args``; ``max_cache_len`` (the JAX launcher's 128)
+    bounds a request's positions, and on the ring path sizes the rings."""
     from repro_torch.core.memclass import get_technology
     from repro_torch.core.simulator import MemorySystem
     from repro_torch.serving import EngineConfig, ServeEngine
@@ -42,7 +52,7 @@ def build_engine(args, cfg, full, params, device=None):
                        service_refresh=not args.no_refresh)
     return ServeEngine(
         cfg, params, mem,
-        EngineConfig(max_slots=args.slots, max_cache_len=128,
+        EngineConfig(max_slots=args.slots, max_cache_len=max_cache_len,
                      weight_tier=args.weight_tier, kv_tier=args.kv_tier,
                      page_tokens=args.page_tokens,
                      expected_session_s=args.session_s,
@@ -68,10 +78,10 @@ def build_engine(args, cfg, full, params, device=None):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
-                    help="architecture: qwen3-8b, gemma-2b, mamba2-2.7b, "
-                         "hymba-1.5b, deepseek-v2-lite-16b, mixtral-8x22b, "
-                         "musicgen-large or internvl2-76b (the ones the port "
-                         "registers)")
+                    help="architecture: qwen3-8b, gemma-2b, deepseek-7b, "
+                         "gemma2-27b, llama2-70b, mamba2-2.7b, hymba-1.5b, "
+                         "deepseek-v2-lite-16b, mixtral-8x22b, musicgen-large "
+                         "or internvl2-76b")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model computes on ('cuda' raises "
                          "without a card; 'cpu' runs the kernels' plain "
@@ -103,7 +113,8 @@ def parser() -> argparse.ArgumentParser:
                     help="disable the radix prefix tree (cold baseline)")
     ap.add_argument("--paged-kernel", choices=("on", "off"), default="on",
                     help="run extend+decode in place on the paged compute "
-                         "plane (DESIGN.md §10); 'off' is not ported")
+                         "plane (DESIGN.md §10); 'off' runs per-slot ring "
+                         "caches (attention-only stacks)")
     ap.add_argument("--kernel-block-q", type=int, default=None,
                     help="TPU kernel tuning override (not ported)")
     ap.add_argument("--kernel-block-kv", type=int, default=None,

@@ -1,21 +1,29 @@
-"""Self-attention: the paged compute plane (DESIGN.md §10) and the
-training path.
+"""Self-attention: the paged compute plane (DESIGN.md §10), the ring-cache
+path and the training path.
 
 The port of ``repro.models.attention`` carries the parameter definitions,
-``chunked_attention`` with its flash backward, and two modes of
-``attention_sublayer``: QKV projection, qk-norm, RoPE, then either
+``chunked_attention`` with its flash backward, the ring-cache functions,
+and every mode of ``attention_sublayer``: QKV projection, qk-norm, RoPE,
+then
 
 - ``train``: ``chunked_attention`` over the whole unpadded sequence — on
   CUDA one ``FlashAttention`` call (the Hopper forward kernel, and the
   dK/dV and dQ kernels in the backward), on the CPU the plain versions
-  chunked as the JAX package chunks; or
+  chunked as the JAX package chunks;
 - ``extend``/``decode`` on KV pages: the in-place KV write into the page
   pool and ragged paged attention (where the JAX package attends through
   the rows form ``paged_attention_rows``, the port calls the ragged form,
   which launches the Hopper kernel on CUDA tensors);
+- on a ring cache ``{"kv": (B, C, 2*Hkv, D), "pos": (B, C)}`` (K and V
+  fused as in a page, where the JAX package keeps ``k`` and ``v`` apart):
+  ``prefill`` attends the first chunk through ``chunked_attention`` (the
+  flash forward) and fills the fresh ring; ``extend`` and ``decode`` write
+  the new rows at slot ``pos % C`` and attend the whole ring through the
+  paged kernel's explicit-position mode (``kernels/decode_attention``),
+  where the JAX package attends with jnp einsums;
 
-and the output projection. The ring-cache modes (``prefill`` and the ring
-``extend``/``decode``) are not ported yet (ROADMAP A.6).
+and the output projection. The ring functions write the cache IN PLACE
+and return it (JAX returns a new one).
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  extend_attention)
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import (interleave_kv,
                                                  ragged_paged_attention,
@@ -81,6 +91,72 @@ def chunked_attention(q, k, v, *, window: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
+# Ring caches (decode and extend attention over them: kernels/decode_attention)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+               device=None) -> dict:
+    """An empty ring: ``{"kv": (B, C, 2*Hkv, D)`` (K and V fused and
+    head-interleaved, the page layout, where the JAX package keeps ``k`` and
+    ``v`` apart), ``"pos": (B, C)`` int32, -1 marking an empty slot``}``."""
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"kv": torch.zeros((batch, cache_len, 2 * hk, hd), dtype=dtype,
+                              device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def fill_cache_from_prefill(cache: dict, k, v) -> dict:
+    """Write a maximal first chunk's keys/values (B, S, Hkv, D) — token i at
+    position i — into a (possibly smaller, windowed) ring at slot
+    ``pos % C``, keeping the last C tokens. In place; returns ``cache``."""
+    S, C = k.shape[1], cache["kv"].shape[1]
+    take = min(S, C)
+    pos = torch.arange(S - take, S, device=k.device)
+    slots = pos % C
+    cache["kv"][:, slots] = interleave_kv(k[:, S - take:], v[:, S - take:]).to(
+        cache["kv"].dtype)
+    cache["pos"][:, slots] = pos.to(torch.int32)[None]
+    return cache
+
+
+def write_chunk_to_cache(cache: dict, k, v, positions) -> dict:
+    """Write a chunk's keys/values (B, S, Hkv, D) at absolute positions
+    ``positions`` (S,) into the ring (slot = pos % C; a chunk longer than
+    the ring would collide with itself). In place; returns ``cache``."""
+    C = cache["kv"].shape[1]
+    positions = torch.as_tensor(positions, device=k.device).to(torch.int64)
+    slots = positions % C
+    cache["kv"][:, slots] = interleave_kv(k, v).to(cache["kv"].dtype)
+    cache["pos"][:, slots] = positions.to(torch.int32)[None]
+    return cache
+
+
+def append_to_cache(cache: dict, k1, v1, pos, active=None) -> dict:
+    """Append one token (B, 1, Hkv, D) at absolute position(s) ``pos`` (a
+    scalar or (B,)): row b's slot ``pos[b] % C``. ``active`` ((B,) bool)
+    keeps the rows where it is False as they were — a masked write (the
+    old row read back where inactive), so no host sync. In place; returns
+    ``cache``."""
+    C = cache["kv"].shape[1]
+    B = cache["pos"].shape[0]
+    dev = cache["kv"].device
+    pos = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1).expand(B)
+    slot = pos % C
+    rows = torch.arange(B, device=dev)
+    kv_new = interleave_kv(k1, v1)[:, 0].to(cache["kv"].dtype)
+    p_new = pos.to(torch.int32)
+    if active is not None:
+        act = active.to(device=dev, dtype=torch.bool)
+        kv_new = torch.where(act[:, None, None], kv_new, cache["kv"][rows, slot])
+        p_new = torch.where(act, p_new, cache["pos"][rows, slot])
+    cache["kv"][rows, slot] = kv_new
+    cache["pos"][rows, slot] = p_new
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # Full attention sublayer (projections + rope + attention + out-proj)
 # ---------------------------------------------------------------------------
 
@@ -100,7 +176,7 @@ def paged_rows(mode: str, B: int, S: int, positions, cur_pos, decode_active,
         return (pos.reshape(1, S).expand(B, S), None,
                 torch.arange(0, (B + 1) * S, S, dtype=torch.int32, device=device),
                 (pos[-1:] + 1).expand(B).contiguous())
-    raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
+    raise ValueError(f"no paged mode {mode!r}")
 
 
 def attention_sublayer(
@@ -111,24 +187,27 @@ def attention_sublayer(
     positions,
     window: Optional[int],
     cache: Optional[dict] = None,
-    mode: str = "extend",  # train | extend | decode
+    mode: str = "extend",  # train | prefill | extend | decode
     cur_pos=None,
     decode_active=None,   # (B,) bool: rows whose pages the decode may write
     page_table=None,      # (B, W) int32: paged compute plane (DESIGN.md §10)
+    page_tokens: Optional[int] = None,   # ring modes: the ring's page size
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (attn_out (B, S, d), {"kv_pages": pool} or None).
+    """x: (B, S, d) -> (attn_out (B, S, d), the cache or None).
 
     Train: causal attention over the whole sequence at ``positions``
-    0..S-1, no cache. ``cache["kv_pages"]`` (P, ps, 2*Hkv, D) is written IN PLACE (JAX
-    returns a new pool; here the returned dict holds the same tensor).
-    Extend: every row of the batch is one sequence whose S queries sit at
-    ``positions`` (offset .. offset+S-1). Decode: B sequences of one query
-    at ``cur_pos`` (B,); inactive rows carry all-null tables, attend to
-    nothing (output 0, discarded by the caller) and write nothing."""
-    if mode != "train" and (cache is None or "kv_pages" not in cache
-                            or page_table is None):
-        raise NotImplementedError("the ring-cache attention path is not "
-                                  "ported yet (ROADMAP A.6)")
+    0..S-1, no cache. On pages, ``cache["kv_pages"]`` (P, ps, 2*Hkv, D) is
+    written IN PLACE (JAX returns a new pool; here the returned dict holds
+    the same tensor). Extend: every row of the batch is one sequence whose
+    S queries sit at ``positions`` (offset .. offset+S-1). Decode: B
+    sequences of one query at ``cur_pos`` (B,); inactive rows carry
+    all-null tables, attend to nothing (output 0, discarded by the caller)
+    and write nothing. On a ring cache (no ``page_table``) the same modes
+    plus ``prefill`` (the first chunk, positions 0..S-1, into a fresh
+    ring); the ring is written IN PLACE, inactive decode rows keep theirs,
+    and the kernel reads it as pages of ``page_tokens`` slots."""
+    if mode != "train" and cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache")
     B, S, d = x.shape
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -139,12 +218,41 @@ def attention_sublayer(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     Hq, hd = q.shape[2], q.shape[3]
-    if mode == "train":
-        out = chunked_attention(q, k, v, window=window, cap=cfg.attn_softcap,
-                                scale=_q_scale(cfg), q_chunk=cfg.q_chunk,
-                                kv_chunk=cfg.kv_chunk)
+    scale, cap = _q_scale(cfg), cfg.attn_softcap
+    if mode in ("train", "prefill"):
+        # train and a ring's first chunk share the full-sequence flash path
+        # (inputs are never padded, so causal masking is exact); serving
+        # records no graph
+        with torch.set_grad_enabled(mode == "train" and torch.is_grad_enabled()):
+            out = chunked_attention(q, k, v, window=window, cap=cap, scale=scale,
+                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        if mode == "prefill":
+            fill_cache_from_prefill(cache, k, v)
         out = out.reshape(B * S, Hq * v.shape[3]) @ p["wo"].reshape(-1, d)
-        return out.reshape(B, S, d), None
+        return out.reshape(B, S, d), cache
+    if "kv_pages" not in cache:
+        if page_table is not None:
+            raise ValueError("a ring cache takes no page table")
+        if mode == "decode":
+            append_to_cache(cache, k, v, cur_pos, active=decode_active)
+            out = decode_attention(q, cache["kv"], cache["pos"], cur_pos,
+                                   window=window, cap=cap, scale=scale,
+                                   page_size=page_tokens)
+        elif mode == "extend":
+            # as in the JAX package, the chunk is written before it attends:
+            # on a windowed ring of ``window`` slots a chunk that wraps it
+            # overwrites keys its own early queries' windows still cover
+            # (ROADMAP §C.7)
+            write_chunk_to_cache(cache, k, v, positions)
+            out = extend_attention(q, cache["kv"], cache["pos"], positions,
+                                   window=window, cap=cap, scale=scale,
+                                   page_size=page_tokens)
+        else:
+            raise ValueError(f"no ring mode {mode!r}")
+        out = out.to(q.dtype).reshape(B * S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
+        return out.reshape(B, S, d), cache
+    if page_table is None:
+        raise ValueError("a page pool needs a page table")
 
     kv_pages = cache["kv_pages"]
     pos2d, act, cu, kv_lens = paged_rows(mode, B, S, positions, cur_pos,
@@ -153,7 +261,6 @@ def attention_sublayer(
                           active=act)
     out = ragged_paged_attention(
         q.reshape(B * S, Hq, hd), kv_pages, page_table.to(torch.int32).contiguous(),
-        cu, kv_lens, scale=_q_scale(cfg), cap=cfg.attn_softcap, window=window,
-        max_q_len=S)
+        cu, kv_lens, scale=scale, cap=cap, window=window, max_q_len=S)
     out = out.to(q.dtype).reshape(B * S, Hq * hd) @ p["wo"].reshape(Hq * hd, d)
     return out.reshape(B, S, d), {"kv_pages": kv_pages}

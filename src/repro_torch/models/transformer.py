@@ -1,7 +1,7 @@
 """Model assembly for dense attention, MLA, SSM and hybrid stacks, with
 dense or MoE MLPs: embeddings (and meta tokens, image embeds) -> layer
 groups -> head (one per codebook for multi-codebook audio),
-on the paged compute plane and for training.
+on the paged compute plane, on ring caches and for training.
 
 The parameter tree keeps ``repro.models.transformer``'s paths and stacked
 layout — ``groups[gi][u]`` holds one unit's leaves stacked over the
@@ -20,7 +20,12 @@ Entry points:
 - ``paged_prefill`` — the first chunk of a prompt, meta tokens and image
   embeds first, at positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
-- ``paged_decode``  — one batched decode step at per-row positions.
+- ``paged_decode``  — one batched decode step at per-row positions;
+- ``prefill``/``extend``/``decode`` — the same three steps on per-slot ring
+  caches (``init_caches``: ``{"kv": (R, B, C, 2*Hkv, D), "pos": (R, B,
+  C)}`` per attention unit, a windowed layer's ring ``cache_len_for(window,
+  max_len)`` long), for stacks whose layers are all attention; an MLA, SSM
+  or hybrid unit raises (ROADMAP A.6).
 Attention layers compute on KV pages, SSM layers on point-state pages
 (conv left-context + SSD state at page boundaries), hybrid layers on both
 under one page table. A point stack's extend chunk must lie within one
@@ -30,7 +35,8 @@ layer's aux loss is dropped on the serving path (the paged entry points
 return logits and pools only). The frontends are stubs: multi-codebook
 tokens (summed embeddings, one head per codebook) and image embeds in
 front of the text. Frontend, MLA, MoE, SSM and hybrid training and the
-ring-cache path raise ``NotImplementedError`` naming their ROADMAP item.
+MLA, SSM and hybrid ring caches raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import jax_random
 from repro_torch.models import param as prm
-from repro_torch.models.attention import attention_sublayer, attn_defs
+from repro_torch.models.attention import (attention_sublayer, attn_defs,
+                                          cache_len_for, init_cache)
 from repro_torch.models.hybrid import hybrid_defs, hybrid_sublayer
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
 from repro_torch.models.mla import mla_defs, mla_sublayer
@@ -133,7 +140,8 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
                                           window=spec.window, cache=cache,
                                           mode=mode, cur_pos=cur_pos,
                                           decode_active=decode_active,
-                                          page_table=page_table)
+                                          page_table=page_table,
+                                          page_tokens=page_tokens)
     if cfg.post_norms:
         h = rmsnorm(h, p["post_norm1"], cfg.norm_eps)
     x = x + h
@@ -171,6 +179,32 @@ def _paged_unit_cache(cfg: ModelConfig, spec: LayerSpec, n_pages: int,
     if spec.kind == "hybrid":
         return {"attn": kv, "ssm": ssm_paged_init(cfg, n_pages, dtype, device)}
     return kv
+
+
+def _unit_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+                dtype, device) -> dict:
+    """One attention unit's ring cache, unstacked; a windowed layer keeps
+    ``cache_len_for(window, max_len)`` slots."""
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: ring caches of {spec.kind} "
+                                  "layers are not ported yet (ROADMAP A.6)")
+    return init_cache(cfg, batch, cache_len_for(spec.window, max_len), dtype,
+                      device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None):
+    """Per-group tuple of per-unit ring caches, each leaf stacked over the
+    group's repeats as in the JAX package: ``{"kv": (R, B, C, 2*Hkv, D),
+    "pos": (R, B, C) int32}``, K and V fused as in a page (the JAX package
+    keeps ``k`` and ``v`` apart), -1 marking an empty slot."""
+    dev = resolve_device(device)
+    return tuple(
+        tuple(prm.tree_map(
+            lambda a, r=g.repeats: a[None].repeat((r,) + (1,) * a.dim()),
+            _unit_cache(cfg, spec, batch, max_len, dtype, dev))
+              for spec in g.unit)
+        for g in cfg.scan_groups())
 
 
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
@@ -431,4 +465,53 @@ def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
                              caches=caches, mode="decode", cur_pos=cp,
                              decode_active=active, page_table=page_table,
                              page_tokens=page_tokens)
+    return _head(cfg, params, x[:, 0]), caches
+
+
+# ---------------------------------------------------------------------------
+# Ring-cache serving steps: per-slot rings, the JAX package's default path
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params, batch: dict, max_cache_len=None):
+    """The maximal first chunk of a prompt (the meta prefix, the image
+    embeds and the tokens at positions 0..S-1) into fresh ring caches of
+    ``max_cache_len`` slots (default S), each layer attending through the
+    flash forward. Returns (last-position logits (B, V[, K]), caches)."""
+    x, _ = _embed_inputs(cfg, params, batch)
+    B, S_tot = x.shape[0], x.shape[1]
+    positions = torch.arange(S_tot, dtype=torch.int32, device=x.device)
+    caches = init_caches(cfg, B, max_cache_len or S_tot,
+                         prm.torch_dtype(cfg.dtype), x.device)
+    x, caches = apply_groups(cfg, params, x, positions=positions,
+                             caches=caches, mode="prefill")
+    return _head(cfg, params, x[:, -1]), caches
+
+
+def extend(cfg: ModelConfig, params, caches, tokens, offset, *,
+           page_tokens: int):
+    """A later chunk of a prompt: ``tokens`` (B, S[, K]) at absolute
+    positions ``offset + [0, S)`` against the rings, which already hold
+    every earlier chunk (written in place), read as pages of
+    ``page_tokens`` slots. Returns (last-position logits, caches)."""
+    x = embed(cfg, params["embed"], tokens)
+    S = x.shape[1]
+    positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
+    x, caches = apply_groups(cfg, params, x, positions=positions,
+                             caches=caches, mode="extend",
+                             page_tokens=page_tokens)
+    return _head(cfg, params, x[:, -1]), caches
+
+
+def decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
+           active=None, *, page_tokens: int):
+    """One batched decode step on the rings, read as pages of
+    ``page_tokens`` slots. cur_pos: (B,) absolute positions; rows where
+    ``active`` is False leave their rings as they were. Returns (logits
+    (B, V[, K]), caches)."""
+    x = embed(cfg, params["embed"], last_tokens)
+    cp = cur_pos.to(torch.int32)
+    x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
+                             caches=caches, mode="decode", cur_pos=cp,
+                             decode_active=active, page_tokens=page_tokens)
     return _head(cfg, params, x[:, 0]), caches

@@ -1,6 +1,7 @@
 """Serving engine: continuous batching over fixed decode slots, with every
 byte routed through the MRM memory control plane — the port of
-``repro.serving.engine`` on the paged compute plane (DESIGN.md §10).
+``repro.serving.engine`` on the paged compute plane (DESIGN.md §10) and on
+per-slot ring caches.
 
 The engine is an orchestrator over two subsystems that talk through an
 explicit :class:`StepPlan` / :class:`StepReport` interface:
@@ -11,7 +12,14 @@ explicit :class:`StepPlan` / :class:`StepReport` interface:
   per-slot positions. Attention reads the pool through the Hopper ragged
   paged-attention kernel on CUDA; SSM layers keep point-state pages (conv
   left-context + SSD state at page boundaries) and run every prefill and
-  extend chunk through the Hopper SSD chunk-scan kernel.
+  extend chunk through the Hopper SSD chunk-scan kernel. With
+  ``paged_kernel=False`` (the ring path, the JAX package's default) it
+  owns per-slot ring caches instead: a first chunk attends through the
+  flash forward and fills a fresh ring, a later chunk or a decode round
+  writes its rows at ``pos % C`` and reads the whole ring through the
+  paged kernel's explicit-position mode; a prefix hit seeds the slot from
+  a donor's metered ring snapshot (``seed_copy_bytes``), which the paged
+  plane's page splice replaces.
 - :class:`MemoryPlane`  — the MRM control plane: weights live in a region
   of the chosen tier; KV pages go through :class:`PagedKVManager` (DCM
   retention = expected session lifetime, capacity pressure resolved by an
@@ -23,9 +31,10 @@ into the borrower's page table (zero copy bytes); extend resumes from the
 boundary. Prompts always run unpadded (DESIGN.md §5).
 
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the ring-cache path (``paged_kernel=False``, A.6), fault
-injection (``inject_rber``, A.8) and the TPU autotuner's launch overrides
-(``kernel_block_q/kv``, ``kernel_buffers``, A.9). Hybrid stacks (hymba)
+ROADMAP item: ring caches of MLA, SSM and hybrid stacks (A.6), ring-path
+prefix migration (A.7), fault injection (``inject_rber``, A.8) and the TPU
+autotuner's launch overrides (``kernel_block_q/kv``, ``kernel_buffers``,
+A.9). Hybrid stacks (hymba)
 serve on one page table that holds KV pages and state pages together.
 Multi-codebook stacks (musicgen) carry a token as a K-tuple: prompts are
 (L, K), ``last_tokens`` (B, 1, K), greedy sampling is per codebook, the
@@ -89,9 +98,10 @@ class EngineConfig:
     # regression guard: verify after every decode round that no compute
     # page of a session the round did not decode was written
     audit_decode_masking: bool = False
-    # paged compute plane (DESIGN.md §10). The port computes on it only:
-    # False (the ring path) raises until ROADMAP A.6 lands. The default
-    # stays False, as in the JAX package.
+    # paged compute plane (DESIGN.md §10): run extend and decode in place on
+    # the pages PagedKVManager owns. False is the ring path (per-slot ring
+    # caches), the default as in the JAX package; the port serves it for
+    # stacks whose layers are all attention (MLA, SSM, hybrid: ROADMAP A.6)
     paged_kernel: bool = False
     # TPU autotuner launch overrides (kernels/paged_attention/tune.py in
     # the JAX package): not ported, any value raises
@@ -146,6 +156,29 @@ class StepReport:
 
 
 @dataclass
+class SnapshotHandle:
+    """A donor slot's ring-cache snapshot with its metered backing region
+    in the KV tier, released when its radix node leaves the tree (the
+    manager calls ``release()``). It covers every page-aligned boundary up
+    to ``tokens`` positions: stale entries past a borrower's boundary stay
+    position-masked."""
+    caches: object
+    nbytes: float
+    mem: MemorySystem
+    region_id: Optional[int]
+    tokens: int = 0
+
+    def release(self) -> None:
+        if self.region_id is not None:
+            self.mem.release_region(self.region_id)
+            self.region_id = None
+
+    @property
+    def live(self) -> bool:
+        return self.region_id is not None
+
+
+@dataclass
 class _SlotPrefill:
     """Continuation state of a (possibly radix-shortened) chunked prefill:
     how far into the prompt the slot's pages already reach — a prefix hit
@@ -182,11 +215,12 @@ class _SlotPrefill:
 
 
 class ComputeBackend:
-    """Real-model compute over fixed decode slots on the paged plane:
-    chunked prefill and batched decode, computing in place on one pooled
+    """Real-model compute over fixed decode slots: chunked prefill and
+    batched decode. On the paged plane it computes in place on one pooled
     page array per cache family (owned here, indexed by PagedKVManager
-    pages via Page.compute_page). Page 0 is the reserved null page. Knows
-    nothing about tiers or retention."""
+    pages via Page.compute_page; page 0 is the reserved null page); on the
+    ring path it owns per-slot ring caches. Knows nothing about tiers or
+    retention."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  device: torch.device):
@@ -194,17 +228,23 @@ class ComputeBackend:
         self.ecfg = ecfg
         self.params = params
         self.device = device
+        self.paged = bool(ecfg.paged_kernel)
         B = ecfg.max_slots
         self.positions = np.full((B,), -1, np.int64)  # last written position
         self.last_tokens = np.zeros((B, 1) if cfg.n_codebooks == 1
                                     else (B, 1, cfg.n_codebooks), np.int32)
-        self.seed_copy_bytes = 0.0  # a paged hit splices pages: no seed copy
+        self.seed_copy_bytes = 0.0  # ring-path donor seeding copy traffic
         self.model_calls = 0        # prefill chunks + decode rounds run
         self.page_tokens = ecfg.page_tokens
-        n0 = max(16, 1 + B * -(-ecfg.max_cache_len // ecfg.page_tokens))
-        self.paged_caches = tfm.init_paged_caches(
-            cfg, n0, ecfg.page_tokens, torch_dtype(cfg.dtype), device)
-        self._free = list(range(n0 - 1, 0, -1))  # pop() -> lowest id
+        self.caches = self.paged_caches = None
+        if self.paged:
+            n0 = max(16, 1 + B * -(-ecfg.max_cache_len // ecfg.page_tokens))
+            self.paged_caches = tfm.init_paged_caches(
+                cfg, n0, ecfg.page_tokens, torch_dtype(cfg.dtype), device)
+            self._free = list(range(n0 - 1, 0, -1))  # pop() -> lowest id
+        else:
+            self.caches = tfm.init_caches(cfg, B, ecfg.max_cache_len,
+                                          torch_dtype(cfg.dtype), device)
 
     # -- paged compute-page pool (DESIGN.md §10) -----------------------
     @staticmethod
@@ -265,6 +305,33 @@ class ComputeBackend:
             and d.dtype == a.dtype
             for d, a in zip(tree_leaves(data), tree_leaves(self.paged_caches)))
 
+    # -- ring slot plumbing ----------------------------------------------
+    def _insert_slot(self, slot: int, new_caches) -> None:
+        """Copy a B=1 ring-cache tree into decode slot ``slot``."""
+        for dst, src in zip(tree_leaves(self.caches), tree_leaves(new_caches)):
+            dst[:, slot] = src[:, 0]
+
+    def _extract_slot(self, slot: int):
+        """Decode slot ``slot`` as a B=1 ring-cache tree of views: a chunk
+        extended on it writes the slot in place."""
+        return tree_map(lambda a: a[:, slot:slot + 1], self.caches)
+
+    def snapshot_slot(self, slot: int):
+        """A B=1 copy of a slot's rings: a donor handle that later writes
+        to the slot leave as it is."""
+        return tree_map(lambda a: a[:, slot:slot + 1].clone(), self.caches)
+
+    def seed_slot(self, slot: int, snapshot) -> None:
+        """Seed a slot's rings from a donor snapshot (prefix hit). Donor
+        entries past the matched prefix are harmless: masking is by
+        position, so they stay masked until this request overwrites them.
+        This is the ring path's per-hit copy, a whole per-slot cache tree
+        (``seed_copy_bytes``), which the paged plane's page splice
+        replaces."""
+        self.seed_copy_bytes += float(sum(a.numel() * a.element_size()
+                                          for a in tree_leaves(snapshot)))
+        self._insert_slot(slot, snapshot)
+
     def prefix_len(self) -> int:
         return self.cfg.n_meta_tokens + (self.cfg.n_frontend_tokens
                                          if self.cfg.frontend == "vision" else 0)
@@ -280,26 +347,37 @@ class ComputeBackend:
     # -- StepPlan execution --------------------------------------------
     def run_prefill_chunk(self, ck: PrefillChunk,
                           page_table: np.ndarray) -> Optional[np.ndarray]:
-        """Execute one prefill chunk in place on the pool pages listed in
-        ``page_table`` (the request's session pages). Returns the sampled
+        """Execute one prefill chunk: on the paged plane in place on the
+        pool pages listed in ``page_table`` (the request's session pages);
+        on the ring path a first chunk into a fresh ring copied into the
+        slot, a later one in place on the slot's rings. Returns the sampled
         next token when the chunk completes the prompt, else None."""
         toks = self._tensor(np.asarray(ck.tokens, np.int32))[None]
-        tbl = self._tensor(page_table)[None]
-        if ck.first:
-            batch = {"tokens": toks}
-            if self.cfg.frontend == "vision":
-                # the vision frontend is a stub: zero patch embeddings, as the
-                # reference engine feeds them
-                batch["image_embeds"] = torch.zeros(
-                    (1, self.cfg.n_frontend_tokens, self.cfg.d_model),
-                    dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        batch = {"tokens": toks}
+        if ck.first and self.cfg.frontend == "vision":
+            # the vision frontend is a stub: zero patch embeddings, as the
+            # reference engine feeds them
+            batch["image_embeds"] = torch.zeros(
+                (1, self.cfg.n_frontend_tokens, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        if not self.paged:
+            if ck.first:
+                logits, caches1 = tfm.prefill(
+                    self.cfg, self.params, batch,
+                    max_cache_len=self.ecfg.max_cache_len)
+                self._insert_slot(ck.slot, caches1)
+            else:
+                logits, _ = tfm.extend(self.cfg, self.params,
+                                       self._extract_slot(ck.slot), toks,
+                                       ck.offset, page_tokens=self.page_tokens)
+        elif ck.first:
             logits, self.paged_caches = tfm.paged_prefill(
-                self.cfg, self.params, batch, self.paged_caches, tbl,
-                page_tokens=self.page_tokens)
+                self.cfg, self.params, batch, self.paged_caches,
+                self._tensor(page_table)[None], page_tokens=self.page_tokens)
         else:
             logits, self.paged_caches = tfm.paged_extend(
-                self.cfg, self.params, self.paged_caches, toks, ck.offset, tbl,
-                page_tokens=self.page_tokens)
+                self.cfg, self.params, self.paged_caches, toks, ck.offset,
+                self._tensor(page_table)[None], page_tokens=self.page_tokens)
         self.model_calls += 1
         if not ck.last:
             return None
@@ -308,39 +386,50 @@ class ComputeBackend:
         self.positions[ck.slot] = ck.offset + len(ck.tokens) - 1
         return tok
 
-    def run_decode(self, slots: List[int], page_tables: np.ndarray,
+    def run_decode(self, slots: List[int],
+                   page_tables: Optional[np.ndarray] = None,
                    audit_pages: Optional[List[int]] = None) -> np.ndarray:
-        """One batched decode round over `slots`: ``page_tables`` is the
-        (B, W) compute-page table (inactive rows all-null, and masked out
-        of the KV write) and ``audit_pages`` lists compute pages the round
-        must not write (other sessions' pages). Returns the sampled tokens
-        for all B rows ((B,), or (B, K) for K codebooks)."""
+        """One batched decode round over `slots`: on the paged plane
+        ``page_tables`` is the (B, W) compute-page table (inactive rows
+        all-null, and masked out of the KV write) and ``audit_pages`` lists
+        compute pages the round must not write (other sessions' pages); on
+        the ring path the other slots' rings are masked out of the write,
+        and are the ones audited. Returns the sampled tokens for all B rows
+        ((B,), or (B, K) for K codebooks)."""
         B = self.ecfg.max_slots
         act = np.zeros((B,), bool)
         act[slots] = True
+        caches = self.paged_caches if self.paged else self.caches
+        watched = audit_pages if self.paged else [s for s in range(B) if not act[s]]
         before = None
-        if self.ecfg.audit_decode_masking and audit_pages:
-            idx = torch.as_tensor(audit_pages, dtype=torch.long,
-                                  device=self.device)
-            # the decode below writes the pool in place: take the copy now
-            before = [leaf[:, idx].clone()
-                      for leaf in tree_leaves(self.paged_caches)]
+        if self.ecfg.audit_decode_masking and watched:
+            idx = torch.as_tensor(watched, dtype=torch.long, device=self.device)
+            # the decode below writes the caches in place: take the copy now
+            before = [leaf[:, idx].clone() for leaf in tree_leaves(caches)]
         pos = self._tensor(np.maximum(self.positions + 1, 0))
-        logits, self.paged_caches = tfm.paged_decode(
-            self.cfg, self.params, self.paged_caches,
-            self._tensor(self.last_tokens), pos, self._tensor(page_tables),
-            active=self._tensor(act, torch.bool), page_tokens=self.page_tokens)
+        tokens, active = self._tensor(self.last_tokens), self._tensor(act, torch.bool)
+        if self.paged:
+            logits, _ = tfm.paged_decode(
+                self.cfg, self.params, caches, tokens, pos,
+                self._tensor(page_tables), active=active,
+                page_tokens=self.page_tokens)
+        else:
+            logits, _ = tfm.decode(self.cfg, self.params, caches, tokens, pos,
+                                   active=active, page_tokens=self.page_tokens)
         self.model_calls += 1
         if before is not None:
-            # paged clobbering guard: a decode round writes exactly one row
-            # of each active session's open page — shared (sealed) pages
-            # and other sessions' pages must come back bit-identical
-            for b, leaf in zip(before, tree_leaves(self.paged_caches)):
+            # clobbering guard: a paged round writes exactly one row of each
+            # active session's open page, a ring round one ring slot of each
+            # active slot — shared (sealed) pages, other sessions' pages and
+            # the other slots' rings must come back bit-identical
+            for b, leaf in zip(before, tree_leaves(caches)):
                 if not torch.equal(b.view(torch.uint8),
                                    leaf[:, idx].view(torch.uint8)):
                     raise AssertionError(
                         "decode wrote another session's compute page "
-                        "(paged masking regression)")
+                        "(paged masking regression)" if self.paged else
+                        "decode wrote an inactive slot's cache (active-slot "
+                        "masking regression)")
         next_np = self.sample(logits).cpu().numpy()
         for slot in slots:
             self.positions[slot] += 1
@@ -402,8 +491,9 @@ class MemoryPlane:
             raise ValueError(f"radix_hot_tier {hot_tier!r} is not a tier "
                              f"({sorted(mem.devices)})")
         self.hot_tier = hot_tier
-        # point-state pages ride on KV pages on the paged plane
-        state_bp = float(acct_cfg.state_bytes_per_page())
+        # point-state pages ride on KV pages on the paged plane only
+        state_bp = (float(acct_cfg.state_bytes_per_page())
+                    if ecfg.paged_kernel else 0.0)
         self.kv = PagedKVManager(acct_cfg, mem, ecfg.kv_tier,
                                  ecfg.page_tokens, ecfg.expected_session_s,
                                  spill_tier=ecfg.kv_spill_tier,
@@ -468,9 +558,11 @@ class ServeEngine:
     - **Hit/cold equivalence** — a prefix hit (pages spliced into the
       borrower's table + extend from the boundary) decodes the same tokens
       as a cold start; at least one prompt token always computes.
-    - **Zero copy** — a page-aligned hit copies nothing
+    - **Zero copy** — on the paged plane a page-aligned hit copies nothing
       (``seed_copy_bytes == 0``, no snapshots); only a sub-page tail copies
-      page rows.
+      page rows. On the ring path a hit seeds the slot from a donor's
+      metered ring snapshot (``SnapshotHandle``), released when its radix
+      node leaves the tree.
     """
 
     def __init__(self, cfg: ModelConfig, params, mem: MemorySystem,
@@ -482,10 +574,18 @@ class ServeEngine:
         config's weight/KV byte streams. ``device`` defaults to ``cuda``
         (raises without a card); ``params`` must live on it."""
         self.device = resolve_device(device)
-        if not ecfg.paged_kernel:
-            raise NotImplementedError("the ring-cache compute path "
-                                      "(paged_kernel=False) is not ported yet "
-                                      "(ROADMAP A.6)")
+        self.paged = bool(ecfg.paged_kernel)
+        if not self.paged:
+            kinds = sorted({s.kind for s in cfg.layer_specs()} - {"attn"})
+            if kinds:
+                raise NotImplementedError(
+                    f"{cfg.name}: the ring-cache path (paged_kernel=False) of "
+                    f"{'/'.join(kinds)} layers is not ported yet (ROADMAP A.6)")
+            from repro_torch.kernels.decode_attention import ring_page_size
+            from repro_torch.models.attention import cache_len_for
+            for spec in cfg.layer_specs():   # every ring is whole pages
+                ring_page_size(cache_len_for(spec.window, ecfg.max_cache_len),
+                               ecfg.page_tokens)
         if ecfg.kernel_block_q or ecfg.kernel_block_kv or ecfg.kernel_buffers:
             raise NotImplementedError("kernel launch overrides tune the TPU "
                                       "kernel's grid (tune.py), which is not "
@@ -508,12 +608,13 @@ class ServeEngine:
                                               ecfg.max_prefills_per_step)
         self.backend = ComputeBackend(cfg, params, ecfg, self.device)
         self.memplane = MemoryPlane(self.acct_cfg, mem, ecfg)
-        self.kernel_read_bytes = 0.0   # metered kernel page gathers
-        # every memory-plane page owns one compute page for its life — a
-        # radix hit shares the Page object, hence the compute page: zero
-        # copy bytes
-        self.memplane.kv.on_page_alloc = self._on_page_alloc
-        self.memplane.kv.on_page_release = self._on_page_release
+        self.kernel_read_bytes = 0.0   # paged: metered kernel page gathers
+        if self.paged:
+            # every memory-plane page owns one compute page for its life —
+            # a radix hit shares the Page object, hence the compute page:
+            # zero copy bytes
+            self.memplane.kv.on_page_alloc = self._on_page_alloc
+            self.memplane.kv.on_page_release = self._on_page_release
         # per-layer (kv_bytes_per_token, window, state_bytes) at the
         # accounting scale: the analytic model of the kernel's per-page
         # read stream — positional layers gather token rows, point layers
@@ -543,6 +644,7 @@ class ServeEngine:
         self.prefill_tokens_computed = 0   # tokens that ran through the model
         self.prefill_tokens_skipped = 0    # tokens a radix hit skipped
         self.prefix_compute_hits = 0       # admissions seeded from a prefix
+        self.snapshots_published = 0       # ring: metered donor snapshots
 
     # -- legacy surface (kept stable for callers/tests) ----------------
     @property
@@ -650,41 +752,72 @@ class ServeEngine:
         return 0 if key is None else self.kv.match_len(key)
 
     def _compute_reuse(self, match: PrefixMatch, toks: np.ndarray) -> tuple:
-        """(tokens of the prompt the compute plane may skip, sub-page tail
-        tokens used). The matched pages ARE the compute state: the hit is a
-        page-table splice; only a sub-page tail copies (page rows,
-        DESIGN.md §9). At least one token always runs — the last
-        position's logits seed the first sampled token. Point stacks have
-        no mid-page state, so tails stay off and resumption is clamped down
-        to the last page boundary (the state page there holds the exact
-        boundary state)."""
+        """(tokens of the prompt the compute plane may skip, the ring
+        snapshot to seed from, sub-page tail tokens used). At least one
+        token always runs — the last position's logits seed the first
+        sampled token.
+
+        Paged plane: the matched pages ARE the compute state; the hit is a
+        page-table splice, and only a sub-page tail copies (page rows,
+        DESIGN.md §9). Point stacks have no mid-page state, so tails stay
+        off and resumption is clamped down to the last page boundary (the
+        state page there holds the exact boundary state).
+
+        Ring path (positional stacks): seed from a donor snapshot whose
+        token history covers the resumption point — with a sub-page tail a
+        payload in the tail child's subtree (every prompt below it shares
+        the tail run), else the nearest payload at or below the match;
+        stale entries past the boundary stay masked."""
         plen = self.backend.prefix_len()
         L = toks.shape[0]
         if match.tokens == 0:
-            return 0, 0
-        tail = (self.kv.tail_available(match)
-                if self.ecfg.tail_copy and self.snapshot_kind == "positional"
-                else 0)
+            return 0, None, 0
+        if self.paged:
+            tail = (self.kv.tail_available(match)
+                    if self.ecfg.tail_copy and self.snapshot_kind == "positional"
+                    else 0)
+            reuse = max(0, min(match.tokens + tail - plen, L - 1))
+            tail = max(0, min(tail, reuse - (match.tokens - plen)))
+            if self.snapshot_kind == "point":
+                pt = self.ecfg.page_tokens
+                reuse = max(0, ((plen + reuse) // pt) * pt - plen)
+            return (reuse, None, tail) if reuse else (0, None, 0)
+        payload, tail = None, 0
+        avail = self.kv.tail_available(match)
+        if self.ecfg.tail_copy and avail:
+            p = self.kv.radix.subtree_payload(match.tail_node)
+            if (isinstance(p, SnapshotHandle) and p.live
+                    and p.tokens >= match.tokens + avail):
+                payload, tail = p, avail
+        if payload is None:
+            payload = match.payload
+        if payload is None:
+            return 0, None, 0
         reuse = max(0, min(match.tokens + tail - plen, L - 1))
+        # the one-token-always-computes clamp may land the resumption point
+        # back inside the tail; only the tokens actually skipped past the
+        # page boundary are worth copying in the memory plane
         tail = max(0, min(tail, reuse - (match.tokens - plen)))
-        if self.snapshot_kind == "point":
-            pt = self.ecfg.page_tokens
-            reuse = max(0, ((plen + reuse) // pt) * pt - plen)
-        return (reuse, tail) if reuse else (0, 0)
+        return (reuse, payload, tail) if reuse else (0, None, 0)
 
     def _admit(self, slot: int, req: Request) -> _SlotPrefill:
         ecfg = self.ecfg
         toks, chunk, key = self._prep(req)
         self._prep_cache.pop(req.request_id, None)
         match = None
-        reuse, tail = 0, 0
+        reuse, snap, tail = 0, None, 0
         if ecfg.prefix_caching:
             match = self.kv.match_prefix(key)
-            reuse, tail = self._compute_reuse(match, toks)
+            reuse, snap, tail = self._compute_reuse(match, toks)
         grid = ecfg.page_tokens if self.snapshot_kind == "point" else None
         st = _SlotPrefill(req=req, tokens=toks, chunk=chunk,
                           key=key, match=match, done=reuse, grid=grid)
         if reuse:
+            # the hit is real in the compute plane: the ring path seeds the
+            # slot from the donor snapshot (a whole cache-tree copy); the
+            # paged plane splices the matched pages into the table below
+            if snap is not None:
+                self.backend.seed_slot(slot, snap.caches)
             self.prefix_compute_hits += 1
             self.prefill_tokens_skipped += reuse
             req.prompt_pos = min(reuse, req.prompt_len)
@@ -692,7 +825,7 @@ class ServeEngine:
         # nodes cannot be evicted between planning and execution; the
         # compute-vetted tail is copied into the session's own page there
         self.kv.open_session(req.request_id, match=match, tail_tokens=tail)
-        if tail:
+        if self.paged and tail:
             # the memory plane just copied the tail into the session's own
             # open page; mirror it on the compute plane — the ONLY copy a
             # paged hit performs, and only for mid-page resumption
@@ -735,12 +868,52 @@ class ServeEngine:
         _, _, key = self._prep(req)
         return self.kv.match_len(key)
 
+    # -- ring snapshots (the ring path's compute-plane reuse) ------------
+    def _publish_snapshot(self, caches, tokens: int) -> Optional[SnapshotHandle]:
+        """Carve a donor ring snapshot out of the KV tier budget (a metered
+        write of its actual bytes). Without headroom nothing is published:
+        the prefix still shares pages, it just cannot donate compute."""
+        nbytes = float(sum(a.numel() * a.element_size()
+                           for a in tree_leaves(caches)))
+        rid = self.mem.write_region(self.ecfg.kv_tier, "kv:snapshot", nbytes,
+                                    expected_lifetime_s=self.ecfg.expected_session_s)
+        if rid is None:
+            return None
+        self.snapshots_published += 1
+        return SnapshotHandle(caches, nbytes, self.mem, rid, tokens=tokens)
+
+    def _donation_fn(self, st: _SlotPrefill, slot: int):
+        """The payload factory a finished prompt registers with its prefix
+        (the manager resolves it only if the deepest node's payload slot is
+        free, so a snapshot region is never written for nothing). The ring
+        path donates the slot's final rings, valid for any shorter
+        page-aligned borrower by position masking — unless the prompt
+        wrapped the smallest ring (the early positions a shorter borrower
+        needs are gone; pages still publish for memory-plane reuse). The
+        paged plane donates nothing: its pages are the state."""
+        plen = self.backend.prefix_len()
+        if self.paged or plen + len(st.tokens) > self._min_ring_len():
+            return None
+        return lambda: self._publish_snapshot(self.backend.snapshot_slot(slot),
+                                              tokens=plen + len(st.tokens))
+
+    def live_snapshot_bytes(self) -> float:
+        """Bytes of metered donor snapshots resident in the KV tier."""
+        return sum(n.payload.nbytes for n in self.kv.radix.nodes()
+                   if isinstance(n.payload, SnapshotHandle) and n.payload.live)
+
     # -- cross-replica migration ----------------------------------------
+    def _check_migration(self) -> None:
+        if not self.paged:
+            raise NotImplementedError("ring-path prefix migration is not "
+                                      "ported yet (ROADMAP A.7)")
+
     def export_prefix(self, key_tokens) -> Optional[dict]:
         """Donor half of a cross-replica prefix migration: match the
         longest published prefix of ``key_tokens`` (position-space), read
         its pages out of this replica's tiers (metered reads) and ship the
         matched compute pages."""
+        self._check_migration()
         if not self.ecfg.prefix_caching:
             return None
         # non-bumping walk: a migration probe is not local reuse
@@ -775,6 +948,7 @@ class ServeEngine:
         this replica's page geometry or cache families is rejected before
         adoption. ``caches``/``snap_*`` belong to the ring path and are
         ignored here."""
+        self._check_migration()
         if (page_data is None or page_tokens != self.kv.page_tokens
                 or not self.backend.pages_compatible(page_data)):
             return {"new_tokens": 0, "total_tokens": 0,
@@ -878,17 +1052,22 @@ class ServeEngine:
         # --- prefill phase (whole prompts or chunks) ------------------
         for ck in plan.prefill:
             st = self._inflight[ck.slot]
-            # pages must exist BEFORE compute: the kernel writes this
-            # chunk's KV into the session's own pages in place
-            self._account_chunk_kv(ck)
-            tok = self.backend.run_prefill_chunk(
-                ck, page_table=self._session_table(ck.request_id))
-            self.memplane.weight_pass()
-            # meter the kernel's actual page-gather stream: queries at
-            # [q0, q1) — the first chunk's oldest query is position 0
-            q0 = 0 if ck.first else ck.offset
-            self._meter_paged_reads(ck.request_id, q0,
-                                    ck.offset + len(ck.tokens))
+            if self.paged:
+                # pages must exist BEFORE compute: the kernel writes this
+                # chunk's KV into the session's own pages in place
+                self._account_chunk_kv(ck)
+                tok = self.backend.run_prefill_chunk(
+                    ck, page_table=self._session_table(ck.request_id))
+                self.memplane.weight_pass()
+                # meter the kernel's actual page-gather stream: queries at
+                # [q0, q1) — the first chunk's oldest query is position 0
+                q0 = 0 if ck.first else ck.offset
+                self._meter_paged_reads(ck.request_id, q0,
+                                        ck.offset + len(ck.tokens))
+            else:
+                tok = self.backend.run_prefill_chunk(ck, page_table=None)
+                self.memplane.weight_pass()
+                self._account_chunk_kv(ck)
             self.prefill_chunks_run += 1
             self.sched.stats.prefill_chunks += 1
             st.done += len(ck.tokens)
@@ -903,22 +1082,23 @@ class ServeEngine:
                 req.generated += 1
                 self.tokens_generated += 1
                 if st.key is not None:
-                    # the registered pages are compute-ready as-is: no
-                    # donor snapshot payload (snapshot_bytes stays 0)
                     self.kv.register_prefix(req.request_id, st.key,
-                                            payload=None)
+                                            payload=self._donation_fn(st, ck.slot))
                 self.sched.mark_decoding(ck.slot)
                 del self._inflight[ck.slot]
 
         # --- decode round ---------------------------------------------
         if plan.decode:
-            # the new token's page must exist before the kernel writes
-            # its KV row in place
-            for slot in plan.decode:
-                self.kv.append_tokens(self.sched.active[slot].request_id, 1)
-            tables, audit = self._decode_tables(plan.decode)
-            next_np = self.backend.run_decode(plan.decode, page_tables=tables,
-                                              audit_pages=audit)
+            if self.paged:
+                # the new token's page must exist before the kernel writes
+                # its KV row in place
+                for slot in plan.decode:
+                    self.kv.append_tokens(self.sched.active[slot].request_id, 1)
+                tables, audit = self._decode_tables(plan.decode)
+                next_np = self.backend.run_decode(plan.decode, page_tables=tables,
+                                                  audit_pages=audit)
+            else:
+                next_np = self.backend.run_decode(plan.decode)
             self.memplane.weight_pass()
             finished: List[int] = []
             for slot in plan.decode:
@@ -929,10 +1109,14 @@ class ServeEngine:
                 self.tokens_generated += 1
                 rpt.decode_tokens += 1
                 self.sched.stats.decode_tokens += 1
-                # one query at the just-written position: the kernel
-                # gathered the session's pages
-                p = int(self.backend.positions[slot])
-                self._meter_paged_reads(req.request_id, p, p + 1)
+                if self.paged:
+                    # one query at the just-written position: the kernel
+                    # gathered the session's pages
+                    p = int(self.backend.positions[slot])
+                    self._meter_paged_reads(req.request_id, p, p + 1)
+                else:
+                    self.kv.read_all(req.request_id)
+                    self.kv.append_tokens(req.request_id, 1)
                 done = (req.generated >= req.max_new_tokens or
                         (self.cfg.n_codebooks == 1 and
                          int(np.asarray(tok).flat[0]) == self.ecfg.eos_token))
@@ -989,14 +1173,14 @@ class ServeEngine:
         reads = sum(d.stats.read_bytes for d in self.mem.devices.values())
         writes = sum(d.stats.write_bytes for d in self.mem.devices.values())
         steady_writes = max(writes - self.weight_bytes, 1e-9)
+        snapshot_bytes = self.live_snapshot_bytes()
         prefix = self.kv.prefix_report()
         prefix["compute_hits"] = self.prefix_compute_hits
         prefix["tokens_skipped_compute"] = self.prefill_tokens_skipped
         prefix["snapshot_kind"] = self.snapshot_kind
         prefix["hot_tier"] = self.memplane.hot_tier
-        # the paged plane publishes no donor snapshots: pages are the state
-        prefix["snapshots_published"] = 0
-        prefix["snapshot_bytes"] = 0.0
+        prefix["snapshots_published"] = self.snapshots_published
+        prefix["snapshot_bytes"] = snapshot_bytes
         return {
             "steps": self.steps,
             "kernel_read_bytes": self.kernel_read_bytes,
@@ -1012,7 +1196,7 @@ class ServeEngine:
             "steady_rw_ratio": reads / steady_writes,
             "memory": rep,
             "kv_live_pages": self.kv.live_pages(),
-            "snapshot_bytes": 0.0,
+            "snapshot_bytes": snapshot_bytes,
             "dropped_allocs": self.kv.dropped_allocs,
             "pressure": self.kv.pressure_report(),
             "prefill_chunks": self.prefill_chunks_run,

@@ -22,6 +22,7 @@ from repro_torch.core.memclass import HBM3E, MRM_RRAM
 from repro_torch.core.simulator import MemorySystem
 from repro_torch.models.param import params_from_numpy
 from repro_torch.serving import EngineConfig, ServeEngine
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ECFG = dict(max_slots=2, max_cache_len=96, weight_tier="hbm", kv_tier="mrm",
             eos_token=-1, chunk_tokens=16, page_tokens=16,
@@ -134,7 +135,10 @@ def test_engine_refuses_missing_device_and_unported_paths(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(cfg, params, mem, EngineConfig(**ECFG), account_cfg=full)
+    # the ring path serves attention stacks; an SSM stack's rings are A.6
     with pytest.raises(NotImplementedError, match="A.6"):
-        _engine(setup, paged_kernel=False)
+        ServeEngine(reduced(get_config("mamba2-2.7b")), params, mem,
+                    EngineConfig(**{**ECFG, "paged_kernel": False}),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
         _engine(setup, inject_rber=1e-6)

@@ -31,6 +31,7 @@ from repro_torch.core.memclass import HBM3E, MRM_RRAM
 from repro_torch.core.simulator import MemorySystem
 from repro_torch.models.param import params_from_numpy
 from repro_torch.serving import EngineConfig, ServeEngine
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("mixtral-8x22b", "musicgen-large", "internvl2-76b")
 # the reference's paged-engine flags (tests/test_paged_attention.py)

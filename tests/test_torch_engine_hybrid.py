@@ -26,6 +26,7 @@ from repro_torch.core.memclass import HBM3E, MRM_RRAM
 from repro_torch.core.simulator import MemorySystem
 from repro_torch.models.param import params_from_numpy, tree_leaves
 from repro_torch.serving import EngineConfig, ServeEngine
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 # chunk_tokens None: one maximal chunk per prompt, cut on the page grid
 ECFG = dict(max_slots=2, max_cache_len=96, weight_tier="hbm", kv_tier="mrm",

@@ -24,6 +24,7 @@ from repro_torch.core.memclass import HBM3E, MRM_RRAM
 from repro_torch.core.simulator import MemorySystem
 from repro_torch.models.param import params_from_numpy, tree_leaves
 from repro_torch.serving import ServeEngine, EngineConfig
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v2-lite-16b"
 # the reference's paged-engine flags (tests/test_paged_attention.py)

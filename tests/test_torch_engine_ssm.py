@@ -21,6 +21,7 @@ from repro_torch.core.memclass import HBM3E, MRM_RRAM
 from repro_torch.core.simulator import MemorySystem
 from repro_torch.models.param import params_from_numpy, tree_map
 from repro_torch.serving import EngineConfig, ServeEngine
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ECFG = dict(max_slots=2, max_cache_len=96, weight_tier="hbm", kv_tier="mrm",
             eos_token=-1, chunk_tokens=24, page_tokens=16,

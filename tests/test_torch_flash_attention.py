@@ -18,6 +18,7 @@ from repro.models.attention import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import (FlashAttention, attention_ref,
                                                  flash_fwd_ref, ops)
 from repro_torch.models.attention import chunked_attention
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(seed, B, S, H, Hkv, D, n=3):

@@ -32,6 +32,7 @@ from repro_torch.models import frontends as tfe
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import params_from_numpy, tree_leaves
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("musicgen-large", "internvl2-76b", "mixtral-8x22b")
 PT = 8     # page tokens of the stack test

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import hybrid as thyb
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import params_from_numpy, tree_leaves
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 PT = 8    # page tokens of the layer tests: the 8 meta tokens fill page 0
 

@@ -16,6 +16,7 @@ from repro.configs import reduced as jax_reduced
 from repro.models import layers as jl
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import layers as tl
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 TOLS = {"float32": 1e-6, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -34,6 +34,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_rows,
 from repro_torch.models import mla as tmla
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import params_from_numpy, tree_leaves
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v2-lite-16b"
 PT = 8     # page tokens of the layer tests

@@ -16,6 +16,7 @@ from repro.models import transformer as jtfm
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import _fan_in_std, params_from_numpy, tree_leaves
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _walk(tree, path):

@@ -23,6 +23,7 @@ from repro.models import param as jprm
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import moe as tmoe
 from repro_torch.models.param import params_from_numpy
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v2-lite-16b"
 

@@ -17,6 +17,7 @@ from repro_torch.kernels.paged_attention import (interleave_kv,
                                                  ragged_paged_attention_ref,
                                                  split_kv,
                                                  write_tokens_to_pages)
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=3e-6, rtol=3e-6)   # the JAX package's own kernel tolerance
 

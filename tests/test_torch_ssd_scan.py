@@ -17,6 +17,7 @@ from repro.kernels.ssd_scan import ssd_scan_ref as jax_ssd_scan_seq
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref, ssd_scan_sequential
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

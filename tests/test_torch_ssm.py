@@ -25,6 +25,7 @@ from repro_torch.models import param as tprm
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import params_from_numpy, tree_leaves
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 PT = 8    # page tokens
 

@@ -41,6 +41,7 @@ from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.optim import compress as tcompress
 from repro_torch.train import make_train_step
 from repro_torch.train.step import value_and_grad
+from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "gemma-2b"
 SMALL = dict(dtype="float32", param_dtype="float32", q_chunk=16, kv_chunk=32)
