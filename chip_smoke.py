@@ -5,9 +5,10 @@ Hopper card: the serving paths, dense attention (qwen3-8b), SSM
 layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
 (mixtral-8x22b), multi-codebook audio (musicgen-large), a vision prefix
 (internvl2-76b) and the ring-cache path beside the paged one
-(gemma2-27b: alternating 4096/global windows), the training path
-(gemma-2b), and their five kernels, ragged paged attention in both its
-position modes.
+(gemma2-27b: alternating 4096/global windows; mamba2-2.7b, hymba-1.5b and
+deepseek-v2-lite-16b), the training path (gemma-2b), and their five
+kernels, ragged paged attention in both its position modes (the latent
+head's too, reading one plane or two).
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -59,6 +60,18 @@ Phases, each printing one JSON line:
                  the slot-derived mode on the same pages; times the kernel,
                  the ring path's whole call on the fused ring, its plain
                  version and SDPA with the stored positions' mask;
+3c. latent ring kernel — the same mode at deepseek-v2-lite-16b's latent
+                 head (16/1 at D 576: the bf16 latent kernel, the fp32
+                 kernel) and its reduced D 80, on 128-slot rings (empty
+                 slots, wrapped, decodes of 4, 48-row extends), reading one
+                 plane (V from K: the MLA ring) and two ([c, kr] / [c, 0]),
+                 lanes [0, r) bit-equal between them, slot-derived
+                 positions bit-equal to the slot mode in both layouts; and
+                 at hymba-1.5b's 25/5 at D 64 on 256-slot rings under
+                 windows 2048 and 64; fp32 and bf16, repeat launches
+                 bit-equal; times the latent decode and extend (one plane
+                 and two) and hymba's decode against their bounds, plain
+                 versions and SDPA with the positions' mask;
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
@@ -79,7 +92,9 @@ Phases, each printing one JSON line:
                  ragged S 1000, at D 64
                  and D 32, at S 17 (below a tile) and with G = 3, fp32 and
                  bf16 (bf16 through the tensor-core forward, dK/dV and dQ
-                 kernels); checks that repeat launches are bit-equal; times the
+                 kernels), and at hymba-1.5b's ring first chunk (S 160,
+                 25/5 at D 64, window 2048); checks that repeat launches
+                 are bit-equal; times the
                  three kernels (achieved TFLOP/s, share of the bound; dK/dV
                  also without its row split), their plain versions and
                  ``scaled_dot_product_attention`` (forward, forward +
@@ -103,7 +118,12 @@ Phases, each printing one JSON line:
                  the CPU's bit for bit; the ring path on a reduced fp32
                  gemma2-27b (prefill / extend that wraps the local rings /
                  decode, CUDA vs CPU), and a reduced qwen3-8b's ring and
-                 paged engines decoding the same tokens on CUDA;
+                 paged engines decoding the same tokens on CUDA; the ring
+                 path of reduced mamba2-2.7b, hymba-1.5b and
+                 deepseek-v2-lite-16b (prefill / extend / decode, CUDA vs
+                 CPU, logits and every ring leaf), and reduced hymba (page
+                 4) and deepseek ring and paged engines decoding the same
+                 tokens on CUDA;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
@@ -125,7 +145,11 @@ Phases, each printing one JSON line:
                  of 64, state 128, vocab 50280, bf16), after the qwen3-8b
                  engine is freed; every layer of every prefill chunk
                  launched the SSD kernel, and a prefix hit resumed from a
-                 state page with zero copy bytes;
+                 state page with zero copy bytes; then, the paged engine
+                 freed, the ring engine on the same weights and prompts:
+                 the SSD kernel in every layer of every prefill chunk from
+                 the slot's state, no attention, hits seeded from point
+                 snapshots (phases 11 and 12 likewise);
 11. hybrid serve — the same for hymba-1.5b (32 layers, d 1600, 25/5 heads
                  of 64, sliding window 2048 except layers 0/15/31, 50 SSD
                  heads of 64, state 16, 128 meta tokens, vocab 32001, bf16),
@@ -133,13 +157,19 @@ Phases, each printing one JSON line:
                  model call launched the attention kernel and every layer
                  of every prefill chunk the SSD kernel; the shared head ends
                  at position 160, a page boundary, so hits resume from a
-                 state page;
+                 state page; on the ring engine (rings of 256) the flash
+                 forward in every layer of every first chunk, the position
+                 mode in every layer of every later model call, the SSD
+                 kernel in every layer of every prefill chunk;
 12. mla serve  — the same for deepseek-v2-lite-16b (27 layers, d 2048, MLA
                  with 16 heads on a latent head of 512 + 64, MoE of 64
                  routed experts top-6 and 2 shared behind one dense layer,
                  vocab 102400, bf16, 15.7B parameters), after the hymba
                  engine is freed: every layer of every model call launched
-                 the attention kernel at the latent head;
+                 the attention kernel at the latent head; on the ring
+                 engine (rings of 128) the latent kernel in position mode
+                 over one plane in every layer of every model call, no
+                 flash forward;
 13. moe serve  — mixtral-8x22b at full width (d 6144, GQA 48/8 at 128, MoE
                  of 8 experts top-2 of d_ff 16384 and no shared experts in
                  every layer, window 4096 everywhere, vocab 32768, bf16) cut
@@ -313,6 +343,7 @@ def sdpa_backend(torch, call):
     256; a boolean mask rules flash out): (its name, ``call`` under it)."""
     import warnings
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    refusals = {}
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         def fn(backend=backend):
@@ -323,10 +354,12 @@ def sdpa_backend(torch, call):
                 warnings.simplefilter("ignore")
                 fn()
             torch.cuda.synchronize()
-        except RuntimeError:
+        except RuntimeError as e:
+            refusals[backend.name] = str(e).splitlines()[0][:200]
             continue
         return backend.name, fn
-    raise AssertionError("no scaled_dot_product_attention backend takes the inputs")
+    raise AssertionError(f"no scaled_dot_product_attention backend takes the inputs: "
+                         f"{refusals}")
 
 
 def time_ms(torch, fn, flush, iters=50, warmup=5):
@@ -792,6 +825,186 @@ def ring_kernel_phase(torch, ops, ref, ring_view, smi):
     return max_err, timing
 
 
+LATENT_R = {MLA: 512, MLA_REDUCED: 64}   # the latent rank r of [c, kr]
+LATENT_RING = 128                        # deepseek's serve ring: 4 pages of 32
+HYMBA_RING = 256                         # hymba's: 128 meta + 32 + 48 + 16 fit
+
+
+def latent_planes(torch, pages, r):
+    """A ring's latent rows as the two layouts the kernel reads: one plane
+    [c, kr] (P, ps, 1, D), and the paged pool's two, [c, kr] and [c, 0]."""
+    one = pages[:, :, :1].contiguous()
+    two = torch.cat([one, one], dim=2)
+    two[:, :, 1, r:] = 0
+    return one, two
+
+
+def latent_sdpa(torch, case, q_pos, kv_pos, scale, window):
+    """One ``scaled_dot_product_attention`` call on a latent ring (one
+    plane: K = V = [c, kr]; two: K = [c, kr], V = [c, 0]) with the stored
+    positions' mask, under the first backend that takes D 576 (or 80).
+    Inputs laid out outside the timed call; never used by the port.
+    Returns (backend name, call)."""
+    q, pages, table, cu, _ = case
+    _, hq, d = q.shape
+    B, S = table.shape[0], int(cu[1] - cu[0])
+    kv = pages[table.long()].reshape(B, -1, pages.shape[2], d)
+    k, v = (kv[:, :, i:i + 1].transpose(1, 2).contiguous() for i in (0, kv.shape[2] - 1))
+    qq = q.reshape(B, S, hq, d).transpose(1, 2).contiguous()
+    mask = torch.stack(ring_masks(torch, case, q_pos, kv_pos, window))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return sdpa_backend(torch, lambda: sdpa(qq, k, v, attn_mask=mask, scale=scale,
+                                            enable_gqa=True))
+
+
+def latent_ring_kernel_phase(torch, ops, ref, smi):
+    """The explicit-position mode on rings of the two geometries this slice
+    adds, fp32 and bf16, against the plain version:
+
+    - deepseek-v2-lite-16b's latent head (16 query heads on one KV head of
+      D 576; the bf16 latent kernel, the fp32 kernel) and its reduced D 80,
+      on 128-slot rings read as 4 pages of 32: decodes of 4 over rings with
+      empty slots, over wrapped rings, and a 48-row extend; each in one
+      plane (V from K, ``v_from_k``: the ring) and in two ([c, kr] / [c,
+      0]: the paged pool's layout), whose lanes [0, r) must be bit-equal;
+      and, on pages of the paged layout, the slot-derived positions written
+      out bit-equal to the slot-derived mode, in both layouts;
+    - hymba-1.5b's attention (25/5 heads at D 64) on 256-slot rings under
+      its window of 2048 (and a binding 64): decode of 4 and a 32-row chunk.
+
+    Every output is bit-stable across two launches. Times the bf16 latent
+    decode (the serve ring's lengths) and extend, one plane and two, the
+    hymba decode: kernel (events and device time), plain version, SDPA with
+    the stored positions' mask, bound."""
+    rpa, rpa_ref = ops.ragged_paged_attention, ref.ragged_paged_attention_ref
+    C = LATENT_RING
+    cases = {   # name: (geo, spans, q_lens, ring slots, empty, window)
+        "decode_empty": ([(0, n) for n in (41, 66, 80, 95)], [1] * 4, C, 0.05, None),
+        "decode_wrapped": ([(0, n) for n in (150, 200, 260, 129)], [1] * 4, C, 0.0, None),
+        "extend48": ([(0, 96)], [48], C, 0.0, None),
+        "extend48_wrapped": ([(40, 200)], [48], C, 0.0, None),
+    }
+    all_cases = [(f"{tag}_{name}", geo, *rest) for tag, geo in (("mla", MLA),
+                                                                ("mla_reduced", MLA_REDUCED))
+                 for name, rest in cases.items()]
+    all_cases += [("hymba_decode_window2048", HYMBA, [(0, n) for n in (161, 183, 207, 230)],
+                   [1] * 4, HYMBA_RING, 0.02, 2048),
+                  ("hymba_decode_window64", HYMBA, [(0, n) for n in (161, 183, 207, 230)],
+                   [1] * 4, HYMBA_RING, 0.0, 64),
+                  ("hymba_extend32_window2048", HYMBA, [(0, 224)], [32], HYMBA_RING, 0.0,
+                   2048)]
+    errs, atols, max_err = {}, {}, {"float32": 0.0, "bfloat16": 0.0}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for name, geo, spans, ql, ring, empty, window in all_cases:
+            case, q_pos, kv_pos = ring_case(torch, spans, ql, ring, dtype, geo=geo,
+                                            empty=empty)
+            kw = dict(scale=scale_of(geo), window=window, q_pos=q_pos,
+                      kv_pos_pages=kv_pos)
+            layouts = {"": (case[1], False)}
+            if geo in LATENT_R:
+                one, two = latent_planes(torch, case[1], LATENT_R[geo])
+                layouts = {"/one_plane": (one, True), "/two_planes": (two, False)}
+            outs = {}
+            for lname, (pages, v_from_k) in layouts.items():
+                args = [case[0], pages, *case[2:]]
+                out = rpa(*args, max_q_len=max(ql), v_from_k=v_from_k, **kw)
+                again = rpa(*args, max_q_len=max(ql), v_from_k=v_from_k, **kw)
+                want = rpa_ref(*args, v_from_k=v_from_k, **kw)
+                torch.cuda.synchronize()
+                key = f"{dname}/{name}{lname}"
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{key}: two launches differ")
+                err = (out.float() - want.float()).abs().max().item()
+                errs[key] = err
+                max_err[dname] = max(max_err[dname], err)
+                tol = TOL[dname]
+                atol = tol if dname == "float32" else tol * min(1.0, want.float().abs().max().item())
+                atols[key] = atol
+                if not torch.allclose(out.float(), want.float(), atol=atol, rtol=tol):
+                    raise AssertionError(f"{key}: position mode vs plain max abs err "
+                                         f"{err} over tolerance {atol} + {tol} |want|")
+                outs[lname] = out
+            if geo in LATENT_R:
+                r = LATENT_R[geo]
+                if not torch.equal(outs["/one_plane"][..., :r], outs["/two_planes"][..., :r]):
+                    raise AssertionError(f"{dname}/{name}: one plane and two differ in "
+                                         "lanes [0, r)")
+        # slot-derived positions written out, in both latent layouts
+        for tag, geo in (("mla", MLA), ("mla_reduced", MLA_REDUCED)):
+            for name, (ql, kl, window) in {"decode": ([1] * 4, [41, 66, 80, 95], None),
+                                           "extend32": ([32], [96], None),
+                                           "mixed_window": ([5, 1, 32, 1],
+                                                            [37, 64, 96, 128], 40)}.items():
+                case = make_case(torch, ql, kl, dtype, geo=geo, seed=6, extra_null=3)
+                _, pages, table, cu, kvl = case
+                kv_pos = torch.full(pages.shape[:2], -1, dtype=torch.int32, device="cuda")
+                for b, n in enumerate(kvl.tolist()):
+                    for j in range(-(-n // PAGE)):
+                        kv_pos[table[b, j].long()] = j * PAGE + torch.arange(
+                            PAGE, dtype=torch.int32, device="cuda")
+                q_pos = torch.cat([torch.arange(n - q, n, dtype=torch.int32, device="cuda")
+                                   for q, n in zip(ql, kvl.tolist())])
+                one, two = latent_planes(torch, pages, LATENT_R[geo])
+                for lname, pp, v_from_k in (("one_plane", one, True),
+                                            ("two_planes", two, False)):
+                    args = [case[0], pp, table, cu, kvl]
+                    kw = dict(scale=scale_of(geo), window=window, max_q_len=max(ql),
+                              v_from_k=v_from_k)
+                    if not torch.equal(rpa(*args, **kw),
+                                       rpa(*args, q_pos=q_pos, kv_pos_pages=kv_pos, **kw)):
+                        raise AssertionError(f"{dname}/{tag}_{name}/{lname}: slot-derived "
+                                             "positions differ from the slot-derived mode")
+    emit("kernel_check", kernel="ragged_paged_attention",
+         mode="explicit positions: latent head (one and two planes), hymba",
+         geometry={"mla": list(MLA), "mla_reduced": list(MLA_REDUCED),
+                   "hymba": list(HYMBA)}, max_abs_err=errs,
+         tolerance={"rtol": TOL, "atol": atols}, one_plane_equals_two_in_latent_lanes=True,
+         slot_positions_bit_equal=True, repeat_launches_bit_equal=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    for name, geo, spans, ql, ring, window in (
+            ("mla_decode", MLA, [(0, n) for n in (72, 80, 88, 96)], [1] * 4, C, None),
+            ("mla_extend48", MLA, [(0, 96)], [48], C, None),
+            ("hymba_decode", HYMBA, [(0, n) for n in (170, 190, 210, 230)], [1] * 4,
+             HYMBA_RING, 2048)):
+        case, q_pos, kv_pos = ring_case(torch, spans, ql, ring, torch.bfloat16, geo=geo,
+                                        seed=5)
+        scale = scale_of(geo)
+        kw = dict(scale=scale, window=window, q_pos=q_pos, kv_pos_pages=kv_pos)
+        layouts = {"": (case[1], False)}
+        if geo == MLA:
+            one, two = latent_planes(torch, case[1], LATENT_R[geo])
+            layouts = {"": (one, True), "two_planes": (two, False)}
+        for lname, (pages, v_from_k) in layouts.items():
+            lcase = [case[0], pages, *case[2:]]
+            n_bytes, flops, bound_ms, bound_by = ring_work(torch, lcase, q_pos, kv_pos,
+                                                           window, "bfloat16")
+            kernel = lambda: rpa(*lcase, max_q_len=max(ql), v_from_k=v_from_k,  # noqa: E731
+                                 **kw)
+            if geo == MLA:
+                backend, lib = latent_sdpa(torch, lcase, q_pos, kv_pos, scale, window)
+            else:
+                backend, lib = None, ring_sdpa(torch, lcase, q_pos, kv_pos, scale, window)
+            timing[name + (f"_{lname}" if lname else "")] = {
+                "geometry": list(geo), "ring_slots": ring, "q_lens": ql, "window": window,
+                "planes": 1 if v_from_k else pages.shape[2], "bytes": n_bytes,
+                "flops": flops, "library_backend": backend,
+                "ms": time_ms(torch, kernel, flush),
+                "plain_ms": time_ms(torch, lambda: rpa_ref(*lcase, v_from_k=v_from_k, **kw),
+                                    flush, iters=5, warmup=1),
+                "library_ms": time_ms(torch, lib, flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "device_ms": device_ms(torch, kernel, flush,
+                                       lambda key: "ragged_paged_attention" in key),
+                "library_device_ms": device_ms(torch, lib, flush),
+            }
+    emit("kernel_time", kernel="ragged_paged_attention",
+         mode="explicit positions: latent head, hymba", dtype="bfloat16", nvidia_smi=smi,
+         shapes=timing)
+    return max_err, timing
+
+
 # ---------------------------------------------------------------------------
 # SSD chunk scan at the mamba2-2.7b path's geometry
 # ---------------------------------------------------------------------------
@@ -934,6 +1147,8 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
     ("d128_G3_S200", 2, 200, 6, 2, 128, None, None),   # G does not divide 64
     # gemma2-27b's ring prefill: 32/16 heads, softcap 50, its 4096 window binding
     ("gemma2_27b_S4400_window4096", 1, 4400, 32, 16, 128, 50.0, 4096),
+    # hymba-1.5b's ring first chunk: 128 meta tokens + 32, 25/5 heads at D 64
+    ("hymba_ring_first_chunk", 1, 160, 25, 5, 64, None, 2048),
 ]
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
 # (HMMA) in paged attention and the SSD scan
@@ -1109,7 +1324,24 @@ def flash_kernel_phase(torch, fops, fref, smi):
                               flush)}
     gemma2["bound_ms"], gemma2["bound_by"] = _bound(flops2, bytes2, "bfloat16")
     timing["flash_attention_fwd"]["gemma2_27b_prefill"] = gemma2
-    for t in (*timing.values(), gemma2):
+    # hymba-1.5b's ring first chunk: 128 meta tokens + 32 rows, 25/5 heads at
+    # D 64 under its window of 2048 (which 160 rows never reach)
+    B3, S3, H3, Hkv3, D3 = 1, HYMBA_META + PAGE, *HYMBA
+    q3, k3, v3, _ = flash_case(torch, B3, S3, H3, Hkv3, D3, torch.bfloat16, seed=9)
+    kw3 = dict(scale=D3 ** -0.5, window=2048)
+    flops3, bytes3 = flash_work(B3, S3, H3, Hkv3, D3, 2)["flash_attention_fwd"]
+    qs3, ks3, vs3 = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3))
+    hymba = {
+        "shape": [B3, S3, H3, Hkv3, D3], "window": 2048, "flops": flops3, "bytes": bytes3,
+        "ms": time_ms(torch, lambda: fops.flash_attention_fwd(q3, k3, v3, **kw3), flush),
+        "plain_ms": time_ms(torch, lambda: fref.flash_fwd_ref(q3, k3, v3, **kw3), flush,
+                            iters=5, warmup=1),
+        "library_ms": time_ms(torch, lambda: sdpa(qs3, ks3, vs3, is_causal=True,
+                                                  scale=kw3["scale"], enable_gqa=True),
+                              flush)}
+    hymba["bound_ms"], hymba["bound_by"] = _bound(flops3, bytes3, "bfloat16")
+    timing["flash_attention_fwd"]["hymba_ring_first_chunk"] = hymba
+    for t in (*timing.values(), gemma2, hymba):
         t["tflops"] = t["flops"] / t["ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["ms"]
     sdpa_fwd_ms = timing["flash_attention_fwd"]["library_ms"]
@@ -1361,6 +1593,78 @@ def reduced_ring_phase(torch, cfg_mod, tfm, param, serve):
     _require("reduced ring", checks)
 
 
+def reduced_ring_multiarch_phase(torch, cfg_mod, tfm, param, serve):
+    """The ring path of the stacks this slice adds, reduced fp32: mamba2-2.7b
+    (the SSD scan from the carried state), hymba-1.5b (8 meta tokens; the
+    flash forward, the position mode at D 32 under the window of 64, which
+    the extend wraps, and the scan) and deepseek-v2-lite-16b (the latent
+    position mode at D 80, one plane): a 40-token prefill of two rows into
+    rings of 96 read as pages of 16, a 30-token extend and one decode round
+    with row 1 inactive, CUDA (the kernels) against the CPU (the plain
+    versions), same weights, logits and every ring leaf; then on CUDA the
+    ring and paged engines of reduced hymba at page 4 (first chunks across
+    pages: ROADMAP §C.5) and of reduced deepseek at page and chunk 16
+    decode the same tokens, the ring hits seeding from snapshots."""
+    errs = {}
+    for arch in ("mamba2-2.7b", "hymba-1.5b", "deepseek-v2-lite-16b"):
+        cfg = cfg_mod.reduced(cfg_mod.get_config(arch), dtype="float32",
+                              param_dtype="float32")
+        params = tfm.init_params(cfg, 0, device="cuda")
+        plen = cfg.n_meta_tokens
+        outs, rings = {}, {}
+        for dev in ("cuda", "cpu"):
+            p = param.tree_map(lambda a: a.to(dev), params)
+            g = torch.Generator().manual_seed(2)
+            toks = torch.randint(2, cfg.vocab_size, (2, 40), generator=g).to(dev)
+            ext = torch.randint(2, cfg.vocab_size, (2, 30), generator=g).to(dev)
+            last = torch.randint(2, cfg.vocab_size, (2, 1), generator=g).to(dev)
+            res = []
+            lg, caches = tfm.prefill(cfg, p, {"tokens": toks}, max_cache_len=96,
+                                     page_tokens=16)
+            res.append(lg)
+            lg, caches = tfm.extend(cfg, p, caches, ext, plen + 40, page_tokens=16)
+            res.append(lg)
+            cur = torch.tensor([plen + 70] * 2, device=dev)
+            lg, caches = tfm.decode(cfg, p, caches, last, cur, page_tokens=16,
+                                    active=torch.tensor([True, False], device=dev))
+            res.append(lg[:1])
+            outs[dev] = [r.float().cpu() for r in res]
+            rings[dev] = [a.float().cpu() for a in param.tree_leaves(caches)]
+        errs[arch] = []
+        for a, b in zip(outs["cuda"] + rings["cuda"], outs["cpu"] + rings["cpu"]):
+            rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+            errs[arch].append(rel)
+            if not (rel < 1e-4 and torch.isfinite(a).all()):
+                raise AssertionError(f"reduced {arch} ring steps on CUDA vs CPU: "
+                                     f"relative error {rel}")
+    checks = {}
+    for arch, flags in (("hymba-1.5b", ["--page-tokens", "4"]),
+                        ("deepseek-v2-lite-16b", ["--page-tokens", "16",
+                                                  "--chunk-tokens", "16"])):
+        c = cfg_mod.reduced(cfg_mod.get_config(arch), dtype="float32",
+                            param_dtype="float32")
+        w = tfm.init_params(c, 0, device="cuda")
+        runs = {}
+        for mode in ("off", "on"):
+            args = serve.parser().parse_args(["--arch", arch, *flags, "--paged-kernel", mode])
+            eng = serve.build_engine(args, c, c, w, device="cuda")
+            eng.ecfg.eos_token = -1
+            prompts = serve.make_prompts(c, 4, 32, args.seed)
+            eng.submit(prompts[0], max_new_tokens=6)
+            eng.run_until_idle()
+            for pr in prompts[1:]:
+                eng.submit(pr, max_new_tokens=6)
+            rep = eng.run_until_idle()
+            runs[mode] = ({k: list(v) for k, v in eng.outputs.items()}, rep)
+        checks[f"{arch}_ring_equals_paged"] = runs["off"][0] == runs["on"][0]
+        checks[f"{arch}_ring_hit_seeds"] = (runs["off"][1]["prefix"]["compute_hits"] >= 1
+                                            and runs["off"][1]["seed_copy_bytes"] > 0)
+    emit("reduced_ring_check", archs=sorted(errs), relative_err=errs, tolerance=1e-4,
+         engines="hymba-1.5b (page 4) and deepseek-v2-lite-16b ring vs paged",
+         checks=checks)
+    _require("reduced ring (MLA, SSM, hybrid)", checks)
+
+
 def reduced_hybrid_phase(torch, cfg_mod, tfm, param, serve):
     """Reduced fp32 hymba-1.5b (8 meta tokens) at page 16: paged prefill
     (meta + 8 prompt tokens, page 0), extend (page 1) and a batched decode
@@ -1557,7 +1861,8 @@ def reduced_frontend_phase(torch, cfg_mod, tfm, param, serve, frontends, arch):
 # ---------------------------------------------------------------------------
 
 
-def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None):
+def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None,
+              ring_slots=None):
     """Drive one serving path once at full width: ``arch`` with nothing
     reduced but, where ``layers`` is given, its depth (the first ``layers``
     layers; the memory plane still meters the published config, as the
@@ -1565,8 +1870,14 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None):
     from ``launch/serve.py``'s seed and defaults, 8 requests x 16 new
     tokens behind a shared 32-token head (the first alone, publishing the
     head; then the rest). Every kernel wrapper in ``kernels`` has its launch
-    count set to 0 just before the run and read just after. Returns (cfg,
-    report, launches, stats), ``cfg`` the config that computed."""
+    count set to 0 just before the run and read just after. With
+    ``ring_slots`` the paged engine is then freed and the ring engine
+    (``--paged-kernel off``, rings of ``ring_slots``) serves the same
+    prompts on the same weights (``drive_ring_serve``); its stats, with the
+    share of its tokens equal to the paged engine's, land in
+    ``stats["ring"]`` and its launches in ``stats["ring_launches"]``.
+    Returns (cfg, report, launches, stats), ``cfg`` the config that
+    computed."""
     import dataclasses
     full = cfg_mod.get_config(arch)          # nothing reduced
     cfg = dataclasses.replace(full, num_layers=layers) if layers else full
@@ -1646,7 +1957,28 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None):
         kernel_read_bytes=rep["kernel_read_bytes"],
         seed_copy_bytes=rep["seed_copy_bytes"],
         finite_logits=bool(finite) and all(finite))
+    if ring_slots:
+        paged_tokens = {k: [int(t) for t in v] for k, v in eng.outputs.items()}
+        eng.backend.paged_caches = None     # the wrappers above keep the backend
+        del eng
+        ring, ring_tokens, ring_launches = drive_ring_serve(
+            torch, serve, param, args, cfg, params, kernels, paged=False, prompts=prompts,
+            max_new=args.max_new, max_cache_len=ring_slots, full=full)
+        same = sum(a == b for r in ring_tokens
+                   for a, b in zip(ring_tokens[r], paged_tokens[r]))
+        ring["tokens_equal_paged_share"] = same / sum(map(len, ring_tokens.values()))
+        stats.update(ring=ring, ring_launches=ring_launches)
     return cfg, rep, launches, stats
+
+
+def ring_checks(ring: dict) -> dict:
+    """The ring run's own checks in a serve phase: every request finished
+    with its tokens, finite logits, and a hit seeded from a ring snapshot."""
+    return {"ring_finished": ring["finished"] == 8,
+            "ring_tokens_generated": ring["tokens_generated"] == 8 * 16,
+            "ring_finite_logits": ring["finite_logits"],
+            "ring_hit_seeds": ring["compute_hits"] >= 1 and ring["seed_copy_bytes"] > 0
+            and ring["snapshots_published"] >= 1 and ring["kernel_read_bytes"] == 0}
 
 
 def _require(phase: str, checks: dict) -> None:
@@ -1681,9 +2013,10 @@ def ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
     kernel (decode runs the plain recurrence); prefix hits resumed from
     state pages with zero copy bytes."""
     cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
-                                       "mamba2-2.7b", kernels)
+                                       "mamba2-2.7b", kernels, ring_slots=LATENT_RING)
     n = launches["ssd_scan"]
     chunks = rep["prefill_chunks"]
+    ring, rl = st["ring"], st["ring_launches"]
     checks = {
         "finished": rep["finished"] == 8,
         "tokens_generated": rep["tokens_generated"] == 8 * 16,
@@ -1695,11 +2028,20 @@ def ssm_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
         "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
         "snapshot_kind": rep["prefix"]["snapshot_kind"] == "point",
         "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+        **ring_checks(ring),
+        # the ring path: every layer of every prefill chunk scanned from the
+        # slot's carried state; no attention
+        "ring_ssd_launches": rl["ssd_scan"] == cfg.num_layers * ring["prefill_chunks"]
+        and ring["prefill_chunks"] > 0,
+        "ring_no_attention": rl["ragged_paged_attention"] == 0
+        and rl["flash_attention_fwd"] == 0,
+        "ring_point_snapshots": ring["snapshot_kind"] == "point"
+        and ring["live_snapshot_kinds"] == ["point"],
     }
     emit("ssm_serve", nvidia_smi=smi, **st,
          state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
     _require("mamba2-2.7b serve", checks)
-    return n
+    return launches, rl
 
 
 def hybrid_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
@@ -1708,9 +2050,11 @@ def hybrid_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
     shared head ends at 128 + 32 = 160, a page boundary, so hits resume
     from a state page with zero copy bytes."""
     cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
-                                       "hymba-1.5b", kernels)
+                                       "hymba-1.5b", kernels, ring_slots=HYMBA_RING)
     n_rpa, n_ssd = launches["ragged_paged_attention"], launches["ssd_scan"]
     calls, chunks = st["model_calls"], rep["prefill_chunks"]
+    ring, rl = st["ring"], st["ring_launches"]
+    L, firsts = cfg.num_layers, ring["first_chunks"]
     checks = {
         "finished": rep["finished"] == 8,
         "tokens_generated": rep["tokens_generated"] == 8 * 16,
@@ -1724,11 +2068,21 @@ def hybrid_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
         "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
         "snapshot_kind": rep["prefix"]["snapshot_kind"] == "point",
         "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+        **ring_checks(ring),
+        # the ring path: the flash forward at every layer of every first
+        # chunk, the position mode at every layer of every later model call,
+        # the SSD scan at every layer of every prefill chunk
+        "ring_flash_launches": rl["flash_attention_fwd"] == L * firsts and firsts > 0,
+        "ring_position_mode_launches": rl["ragged_paged_attention"]
+        == L * (ring["model_calls"] - firsts) and ring["model_calls"] > firsts,
+        "ring_ssd_launches": rl["ssd_scan"] == L * ring["prefill_chunks"],
+        "ring_point_snapshots": ring["snapshot_kind"] == "point"
+        and ring["live_snapshot_kinds"] == ["point"],
     }
     emit("hybrid_serve", nvidia_smi=smi, **st,
          state_page_bytes=cfg.ssm_state_bytes_layer(), checks=checks)
     _require("hymba-1.5b serve", checks)
-    return launches
+    return launches, rl
 
 
 def mla_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
@@ -1736,10 +2090,12 @@ def mla_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
     the attention kernel at the latent head (D 576, 16 query heads on one
     KV head); prefix hits spliced pages with zero copy bytes."""
     cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
-                                       "deepseek-v2-lite-16b", kernels)
+                                       "deepseek-v2-lite-16b", kernels,
+                                       ring_slots=LATENT_RING)
     n = launches["ragged_paged_attention"]
     calls = st["model_calls"]
     specs = cfg.layer_specs()
+    ring, rl = st["ring"], st["ring_launches"]
     checks = {
         "finished": rep["finished"] == 8,
         "tokens_generated": rep["tokens_generated"] == 8 * 16,
@@ -1754,12 +2110,20 @@ def mla_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
         "seed_copy_bytes": rep["seed_copy_bytes"] == 0,
         "kernel_read_bytes": rep["kernel_read_bytes"] > 0,
         "compute_hits": rep["prefix"]["compute_hits"] >= 1,
+        **ring_checks(ring),
+        # the ring path: the latent kernel in position mode at every layer
+        # of every model call, first chunks included; no flash forward
+        "ring_latent_launches": rl["ragged_paged_attention"]
+        == cfg.num_layers * ring["model_calls"] and ring["model_calls"] > 0,
+        "ring_no_flash": rl["flash_attention_fwd"] == 0,
+        "ring_positional_snapshots": ring["snapshot_kind"] == "positional"
+        and ring["live_snapshot_kinds"] == ["positional"],
     }
     emit("mla_serve", nvidia_smi=smi, **st,
          latent_bytes_token_layer=(cfg.kv_lora_rank + cfg.qk_rope_dim) * 2,
          checks=checks)
     _require("deepseek-v2-lite-16b serve", checks)
-    return n
+    return n, rl
 
 
 def frontend_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi,
@@ -1841,18 +2205,20 @@ def ring_prompts(cfg, seed):
             rng.integers(2, cfg.vocab_size, 4700).tolist()]
 
 
-def drive_ring_serve(torch, serve, param, args, cfg, params, kernels, paged):
-    """One engine over ``ring_prompts``: the donor alone, then the rest,
-    under ``torch.profiler`` (CUDA activity only) for the device-busy
-    share of the run's wall time; every time is taken under it (on an
-    H100 it added about 7% to the ring run's wall time). Every wrapper's
-    count is zeroed just before and read just after. Returns (stats,
-    tokens, launches)."""
+def drive_ring_serve(torch, serve, param, args, cfg, params, kernels, paged,
+                     prompts=None, max_new=RING_MAX_NEW, max_cache_len=RING_CACHE_LEN,
+                     full=None):
+    """One engine over ``prompts`` (default ``ring_prompts``), ``max_new``
+    new tokens each: the donor alone, then the rest, under
+    ``torch.profiler`` (CUDA activity only) for the device-busy share of
+    the run's wall time; every time is taken under it (on an H100 it added
+    about 7% to the ring run's wall time). Every wrapper's count is zeroed
+    just before and read just after. Returns (stats, tokens, launches)."""
     args.paged_kernel = "on" if paged else "off"
-    eng = serve.build_engine(args, cfg, cfg, params, device="cuda",
-                             max_cache_len=RING_CACHE_LEN)
+    eng = serve.build_engine(args, cfg, full or cfg, params, device="cuda",
+                             max_cache_len=max_cache_len)
     eng.ecfg.eos_token = -1     # random weights may emit the default eos
-    prompts = ring_prompts(cfg, args.seed)
+    prompts = prompts or ring_prompts(cfg, args.seed)
     finite, firsts, decode_s = [], [0], [0.0]
     sample, run_decode, run_chunk = (eng.backend.sample, eng.backend.run_decode,
                                      eng.backend.run_prefill_chunk)
@@ -1881,10 +2247,10 @@ def drive_ring_serve(torch, serve, param, args, cfg, params, kernels, paged):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.submit(prompts[0], max_new_tokens=RING_MAX_NEW)
+        eng.submit(prompts[0], max_new_tokens=max_new)
         eng.run_until_idle()
         for pr in prompts[1:]:
-            eng.submit(pr, max_new_tokens=RING_MAX_NEW)
+            eng.submit(pr, max_new_tokens=max_new)
         rep = eng.run_until_idle()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
@@ -1903,14 +2269,18 @@ def drive_ring_serve(torch, serve, param, args, cfg, params, kernels, paged):
         compute_hits=rep["prefix"]["compute_hits"],
         prefill_tokens_skipped=rep["prefill_tokens_skipped"],
         seed_copy_bytes=rep["seed_copy_bytes"], snapshot_bytes=rep["snapshot_bytes"],
+        snapshots_published=rep["prefix"]["snapshots_published"],
+        snapshot_kind=rep["prefix"]["snapshot_kind"],
+        live_snapshot_kinds=sorted({n.payload.kind for n in eng.kv.radix.nodes()
+                                    if getattr(n.payload, "live", False)}),
         kernel_read_bytes=rep["kernel_read_bytes"],
         finite_logits=bool(finite) and all(finite),
-        max_position=max(len(p) for p in prompts) + RING_MAX_NEW - 1)
-    if not paged:   # a local ring wrapped: it holds positions past its 4096 slots
+        max_position=max(len(p) for p in prompts) + max_new - 1)
+    if not paged:   # a local ring wrapped: it holds positions past its slots
         stats["local_ring_max_position"] = max(
-            int(caches[gi][u]["pos"].max())
-            for gi, g in enumerate(cfg.scan_groups()) for u, spec in enumerate(g.unit)
-            if spec.window is not None)
+            (int(caches[gi][u]["pos"].max())
+             for gi, g in enumerate(cfg.scan_groups()) for u, spec in enumerate(g.unit)
+             if spec.window is not None and spec.kind == "attn"), default=None)
     busy = device_busy_s(torch, prof)
     stats.update(device_busy_s=busy, device_idle_share=1 - busy / wall_s)
     tokens = {k: [int(t) for t in v] for k, v in eng.outputs.items()}
@@ -2254,7 +2624,7 @@ def main() -> int:
     _require("tensor-core build", {
         name: counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] is None
         or counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] > 0
-        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 20})
+        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 27})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
@@ -2270,6 +2640,8 @@ def main() -> int:
     max_err, timing = timed("kernel", kernel_phase, torch, ops, ref, smi)
     ring_err, ring_timing = timed("ring kernel", ring_kernel_phase, torch, ops, ref,
                                   ring_view, smi)
+    latent_err, latent_timing = timed("latent ring kernel", latent_ring_kernel_phase,
+                                      torch, ops, ref, smi)
     ssd_err, ssd_timing = timed("ssd kernel", ssd_kernel_phase, torch, sops, sref, smi)
     fa_err, fa_timing = timed("flash", flash_kernel_phase, torch, fops, fref, smi)
     timed("reduced qwen3", reduced_model_phase, torch, cfg_mod, tfm, param)
@@ -2280,6 +2652,8 @@ def main() -> int:
         timed(f"reduced {arch}", reduced_frontend_phase, torch, cfg_mod, tfm, param,
               serve, frontends, arch)
     timed("reduced ring", reduced_ring_phase, torch, cfg_mod, tfm, param, serve)
+    timed("reduced ring multiarch", reduced_ring_multiarch_phase, torch, cfg_mod, tfm,
+          param, serve)
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
@@ -2289,16 +2663,16 @@ def main() -> int:
                          kernels, smi)
     gc.collect()                     # the qwen3-8b engine and weights
     torch.cuda.empty_cache()
-    ssd_launches = timed("ssm serve", ssm_serve_phase, torch, cfg_mod, tfm, serve,
-                         param, kernels, smi)
+    ssd_launches, ssm_ring = timed("ssm serve", ssm_serve_phase, torch, cfg_mod, tfm,
+                                   serve, param, kernels, smi)
     gc.collect()                     # the mamba2-2.7b engine and weights
     torch.cuda.empty_cache()
-    hybrid_launches = timed("hybrid serve", hybrid_serve_phase, torch, cfg_mod, tfm,
-                            serve, param, kernels, smi)
+    hybrid_launches, hybrid_ring = timed("hybrid serve", hybrid_serve_phase, torch,
+                                         cfg_mod, tfm, serve, param, kernels, smi)
     gc.collect()                     # the hymba-1.5b engine and weights
     torch.cuda.empty_cache()
-    mla_launches = timed("mla serve", mla_serve_phase, torch, cfg_mod, tfm, serve,
-                         param, kernels, smi)
+    mla_launches, mla_ring = timed("mla serve", mla_serve_phase, torch, cfg_mod, tfm,
+                                   serve, param, kernels, smi)
     gc.collect()                     # the deepseek-v2-lite-16b engine and weights
     torch.cuda.empty_cache()
     frontend_launches = {}
@@ -2332,11 +2706,17 @@ def main() -> int:
             **{f"{arch} serve": n for arch, n in frontend_launches.items()},
             "gemma2-27b paged serve": ring_paged_launches["ragged_paged_attention"]},
         "ragged_paged_attention_positions": {
-            "gemma2-27b ring serve": ring_launches["ragged_paged_attention"]},
+            "gemma2-27b ring serve": ring_launches["ragged_paged_attention"],
+            "hymba-1.5b ring serve": hybrid_ring["ragged_paged_attention"]},
+        "ragged_paged_attention_latent_positions": {
+            "deepseek-v2-lite-16b ring serve": mla_ring["ragged_paged_attention"]},
         "flash_attention_fwd": {"gemma-2b train": fa_launches["flash_attention_fwd"],
-                                "gemma2-27b ring serve": ring_launches["flash_attention_fwd"]},
-        "ssd_scan": {"mamba2-2.7b serve": ssd_launches,
-                     "hymba-1.5b serve": hybrid_launches["ssd_scan"]}}
+                                "gemma2-27b ring serve": ring_launches["flash_attention_fwd"],
+                                "hymba-1.5b ring serve": hybrid_ring["flash_attention_fwd"]},
+        "ssd_scan": {"mamba2-2.7b serve": ssd_launches["ssd_scan"],
+                     "hymba-1.5b serve": hybrid_launches["ssd_scan"],
+                     "mamba2-2.7b ring serve": ssm_ring["ssd_scan"],
+                     "hymba-1.5b ring serve": hybrid_ring["ssd_scan"]}}
 
     def times(t):
         return {k: t[k] for k in ("ms", "view_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2371,7 +2751,21 @@ def main() -> int:
         **times(ring_timing["wrapped_window_decode"]),
         "empty_slots_decode": times(ring_timing["empty_slots_decode"]),
         "wrapped_window_extend504": times(ring_timing["wrapped_window_extend504"]),
-        "global_extend504": times(ring_timing["global_extend504"])}, {
+        "global_extend504": times(ring_timing["global_extend504"]),
+        "hymba_decode": times(latent_timing["hymba_decode"])}, {
+        # the latent-head kernel in position mode over one plane (V from K):
+        # the MLA ring
+        "name": "ragged_paged_attention_latent_positions", "route": "cuda",
+        "mode": "explicit positions, one plane (v_from_k), latent head D 576",
+        "source": str(ops.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:225",
+        "launches": sum(by_path["ragged_paged_attention_latent_positions"].values()),
+        "launches_by_path": by_path["ragged_paged_attention_latent_positions"],
+        "max_abs_err": latent_err["bfloat16"],
+        **times(latent_timing["mla_decode"]),
+        "two_planes": times(latent_timing["mla_decode_two_planes"]),
+        "mla_extend48": times(latent_timing["mla_extend48"]),
+        "mla_extend48_two_planes": times(latent_timing["mla_extend48_two_planes"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",
@@ -2388,8 +2782,8 @@ def main() -> int:
     for fn in flash:
         name, t = fn.__name__, fa_timing[fn.__name__]
         by = by_path.get(name, {"gemma-2b train": fa_launches[name]})
-        extra = ({"gemma2_27b_prefill": times(t["gemma2_27b_prefill"])}
-                 if "gemma2_27b_prefill" in t else {})
+        extra = {k: times(t[k]) for k in ("gemma2_27b_prefill", "hymba_ring_first_chunk")
+                 if k in t}
         entries.append({
             **extra,
             "name": name, "route": "cuda", "source": str(fops.SOURCE.relative_to(ROOT)),

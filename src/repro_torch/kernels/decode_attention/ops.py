@@ -11,6 +11,11 @@ and make one call of ``ragged_paged_attention`` in its explicit-position
 mode: on CUDA the Hopper kernel, on the CPU its plain version. There is no
 other ring read path in the port.
 
+An MLA ring stores its latent row [c, kr] once, (B, C, 1, r + dr): a ring
+of one row a token (a fused K/V ring has an even number) is read with
+``v_from_k``, one plane whose value is its key (the kernel's single-plane
+latent read); the context is the output's first r lanes.
+
 The JAX package keeps K and V apart, (B, C, Hkv, D) each, stacks them per
 call and pages a ring at ``min(512, C)`` tokens, or as one page when 512
 does not divide C. The port takes the caller's page size (the engine's
@@ -35,9 +40,10 @@ def ring_page_size(C: int, page_size: int) -> int:
 
 
 def ring_pages(kv_cache, cache_pos, page_size: int):
-    """(kv_pages (B*C/ps, ps, 2*Hkv, D), kv_pos (B*C/ps, ps) int32, page
+    """(kv_pages (B*C/ps, ps, H2, D), kv_pos (B*C/ps, ps) int32, page
     table (B, C/ps) int32): sequence b owns pages [b*C/ps, (b+1)*C/ps) in
-    ring order. Views of a contiguous ring."""
+    ring order. Views of a contiguous ring (H2 = 2*Hkv, or 1 for a latent
+    ring)."""
     B, C, H2, D = kv_cache.shape
     n_per = C // ring_page_size(C, page_size)
     kv_pages = kv_cache.reshape(B * n_per, page_size, H2, D)
@@ -58,15 +64,16 @@ def _attend(q, kv_cache, cache_pos, q_pos, *, scale, cap, window, page_size):
     out = ragged_paged_attention(
         q.reshape(B * S, H, D).contiguous(), kv_pages, table, cu, kv_lens,
         scale=scale, cap=cap, window=window, max_q_len=S, q_pos=q_pos,
-        kv_pos_pages=kv_pos)
+        kv_pos_pages=kv_pos, v_from_k=kv_cache.shape[2] == 1)
     return out.reshape(B, S, H, D)
 
 
 def decode_attention(q, kv_cache, cache_pos, cur_pos, *, scale: float,
                      page_size: int, cap: Optional[float] = None,
                      window: Optional[int] = None):
-    """q: (B, 1, H, D); kv_cache: (B, C, 2*Hkv, D); cache_pos: (B, C)
-    int32; cur_pos: an int, a 0-d tensor or (B,). -> (B, 1, H, D)."""
+    """q: (B, 1, H, D); kv_cache: (B, C, 2*Hkv, D), or a latent ring (B, C,
+    1, D) read as key and value; cache_pos: (B, C) int32; cur_pos: an int,
+    a 0-d tensor or (B,). -> (B, 1, H, D)."""
     B = q.shape[0]
     cur = torch.as_tensor(cur_pos, device=q.device).to(torch.int32).reshape(-1)
     q_pos = cur.expand(B).contiguous()
@@ -78,8 +85,9 @@ def extend_attention(q, kv_cache, cache_pos, qpos, *, scale: float,
                      page_size: int, cap: Optional[float] = None,
                      window: Optional[int] = None):
     """q: (B, S, H, D) queries at absolute positions qpos (S,) of every
-    sequence; kv_cache: (B, C, 2*Hkv, D) already holding the chunk's own
-    keys; cache_pos: (B, C) int32. -> (B, S, H, D)."""
+    sequence; kv_cache: (B, C, 2*Hkv, D) (or a latent ring, (B, C, 1, D))
+    already holding the chunk's own keys; cache_pos: (B, C) int32. -> (B,
+    S, H, D)."""
     B, S = q.shape[:2]
     pos = torch.as_tensor(qpos, device=q.device).to(torch.int32).reshape(1, S)
     q_pos = pos.expand(B, S).reshape(B * S).contiguous()

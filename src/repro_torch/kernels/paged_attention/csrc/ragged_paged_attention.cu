@@ -69,6 +69,13 @@
 // - Latent head (bf16, D 576: MLA's fused [c, kr] row shared by all query
 //   heads): ragged_paged_attention_latent_kernel, below — the 4 warps of a
 //   CTA share one split instead of walking one each.
+// - Planes. A pool row holds K and V (two planes, (P, ps, 2*Hkv, D)), or,
+//   with v_from_k, one plane (P, ps, 1, D) whose value is its key: the MLA
+//   ring's stored [c, kr], one KV head. Every kernel takes the plane count
+//   as a template argument: in the per-warp kernels only the copy's length
+//   and V's offset in the stage change, the latent kernel also halves its
+//   stage rows. An output column sums over its own V column alone, so
+//   lanes [0, r) equal the two-plane [c, 0] read bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,6 +188,8 @@ struct Params {
   float* part_ml;           // (n_groups, T, Hq, 2): m, l
   int num_tokens, num_pages, page_size, table_width, num_q_heads, num_kv_heads;
   int n_groups, spread;
+  int planes;               // 2: K and V rows; 1: V is K (one KV head, v_from_k);
+                            // the launch picks the kernel instantiation by it
   float scale;
   int has_cap;
   float cap;
@@ -242,7 +251,7 @@ __device__ __forceinline__ void write_rows(const Params& prm, const RowState<R, 
   }
 }
 
-template <int D>
+template <int D, int kPlanes>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const Params prm) {
   using GE = Geo<D>;
@@ -262,7 +271,8 @@ ragged_paged_attention_kernel(const Params prm) {
   const int ps = prm.page_size;
   const int Hq = prm.num_q_heads;
   const int G = Hq / prm.num_kv_heads;
-  const int H2 = 2 * prm.num_kv_heads;
+  const int H2 = kPlanes * prm.num_kv_heads;      // pool rows a token
+  constexpr int voff = kPlanes == 2 ? D : 0;      // V's columns in a stage row
 
   const int q0 = prm.cu_q_lens[s];
   const int qlen = prm.cu_q_lens[s + 1] - q0;
@@ -344,12 +354,13 @@ ragged_paged_attention_kernel(const Params prm) {
           const int kb = (b % bpp) * KB;
           const int nk = min(KB, ps - kb);
           T* dst = my_stage + (b & 1) * GE::stage_elems;
-          constexpr int CH = ROW * (int)sizeof(T) / 16;   // 16-byte chunks a key
+          constexpr int CH = kPlanes * D * (int)sizeof(T) / 16;   // 16-byte chunks a key
           for (int c = lane; c < KB * CH; c += 32) {
             const int key = c / CH, e = (c % CH) * (16 / (int)sizeof(T));
             const bool ok = key < nk;
             cp_async16(dst + key * ROW + e,
-                       ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + 2 * h) * D + e : kv, ok);
+                       ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + kPlanes * h) * D + e
+                          : kv, ok);
           }
         }
       }
@@ -443,7 +454,7 @@ ragged_paged_attention_kernel(const Params prm) {
           for (int c = 0; c < NCH; ++c) {
             if (!live(c)) continue;
             float vf[VW];
-            load_vec<VW>(st + (j * KG + kq) * ROW + D + (c * LPK + dq) * VW, vf);
+            load_vec<VW>(st + (j * KG + kq) * ROW + voff + (c * LPK + dq) * VW, vf);
 #pragma unroll
             for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -576,7 +587,7 @@ struct MmaGeo {
                 <= (size_t)kWarps * 2 * stage_elems * 2, "merge buffer fits the stages");
 };
 
-template <int D>
+template <int D, int kPlanes>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_mma_kernel(const Params prm) {
   using GE = MmaGeo<D>;
@@ -593,7 +604,8 @@ ragged_paged_attention_mma_kernel(const Params prm) {
   const int ps = prm.page_size;
   const int Hq = prm.num_q_heads;
   const int G = Hq / prm.num_kv_heads;
-  const int H2 = 2 * prm.num_kv_heads;
+  const int H2 = kPlanes * prm.num_kv_heads;      // pool rows a token
+  constexpr int voff = kPlanes == 2 ? D : 0;      // V's columns in a stage row
 
   // spread, one slot a split (every sequence under 128 pages): a warp's
   // slot is known before its sequence's lengths, so its page id loads
@@ -672,12 +684,13 @@ ragged_paged_attention_mma_kernel(const Params prm) {
         const int kb = (b % bpp) * KB;
         const int nk = min(KB, ps - kb);
         T* dst = my_stage + (b & 1) * GE::stage_elems;
-        constexpr int CH = 2 * D / 8;   // 16-byte chunks a key
+        constexpr int CH = kPlanes * D / 8;   // 16-byte chunks a key
         for (int c = lane; c < KB * CH; c += 32) {
           const int key = c / CH, e = (c % CH) * 8;
           const bool ok = key < nk;
           cp_async16(dst + key * RS + e,
-                     ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + 2 * h) * D + e : kv, ok);
+                     ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + kPlanes * h) * D + e
+                        : kv, ok);
         }
       }
       cp_async_commit();
@@ -795,7 +808,7 @@ ragged_paged_attention_mma_kernel(const Params prm) {
         for (int dn = 0; dn < D / 16; ++dn) {
           uint32_t vf[4];   // keys 0-7 | d 0-7, keys 8-15 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 8-15
           const int mi = lane / 8;
-          ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + D + dn * 16 + (mi / 2) * 8);
+          ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + voff + dn * 16 + (mi / 2) * 8);
           mma_bf16(o[2 * dn], pa, vf[0], vf[1]);
           mma_bf16(o[2 * dn + 1], pa, vf[2], vf[3]);
         }
@@ -847,24 +860,31 @@ ragged_paged_attention_mma_kernel(const Params prm) {
 //   for bit, and run the same online softmax (m, l);
 // - O += P V': warp w accumulates output columns [144 w, 144 w + 144) (72
 //   fp32 registers a thread), V' by ldmatrix.trans as above;
-// - a 16-key K|V stage is 37,120 B, two stages, one block in flight while
-//   the other is computed; two barriers a block.
+// - a 16-key K|V stage is 37,120 B (one plane: 18,688 B), two stages, one
+//   block in flight while the other is computed; two barriers a block.
+// Positions: slot-derived, or explicit (q_pos, kv_pos: the ring cache), as
+// in the kernels above — every slot below ceil(kv_len / ps) visited, page 0
+// included, a key counted only if 0 <= kv_pos <= q_pos (and inside the
+// window), a fully masked block the identity.
 // Splits, groups and folds keep the rules above: slots cut at fixed
 // boundaries (split_slots), empty groups identities, spread decode folded
 // by the merge launch (kPartial: the CTA writes its group's partial),
 // otherwise the CTA folds its groups in order in registers with the same
 // fold — so a row's bits do not depend on the launch. The two
 // instantiations share every line of a group's arithmetic; the partial one
-// keeps no running state, which leaves its registers to O. K' and V' are
-// read as the pool stores them, c twice.
+// keeps no running state, which leaves its registers to O. Two planes
+// (the paged pool: K' = [c, kr], V' = [c, 0]) read c twice; one plane (the
+// ring: [c, kr] stored once, kPlanes = 1) takes V' from K's columns, so
+// lanes [r, r + dr) carry P·kr, which every caller drops.
 
 constexpr int kLatentD = 576;
 constexpr int kLatentCols = kLatentD / kWarps;   // a warp's share of the contraction and of O
 
+template <int kPlanes>
 struct LatentGeo {
   static constexpr int D = kLatentD;
   static constexpr int QS = D + 8;               // padded Q row: 1,168 B, an odd number of 16 B
-  static constexpr int RS = 2 * D + 8;           // padded K'|V' row: 2,320 B, likewise
+  static constexpr int RS = kPlanes * D + 8;     // padded K'|V' row: 2,320 B (one plane: 1,168 B), likewise
   static constexpr int stage_elems = kMmaKeys * RS;
   static constexpr size_t q_bytes = 2 * kMmaRows * QS;
   static constexpr size_t stage_bytes = 2 * stage_elems;
@@ -873,10 +893,10 @@ struct LatentGeo {
   static_assert(kLatentCols % 16 == 0, "a warp's columns are whole k-steps");
 };
 
-template <bool kPartial>
+template <bool kPartial, int kPlanes>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_latent_kernel(const Params prm) {
-  using GE = LatentGeo;
+  using GE = LatentGeo<kPlanes>;
   using T = __nv_bfloat16;
   constexpr int D = GE::D, R = kMmaRows, KB = kMmaKeys, RS = GE::RS, QS = GE::QS;
   constexpr int WC = kLatentCols, NT = WC / 8;
@@ -892,7 +912,7 @@ ragged_paged_attention_latent_kernel(const Params prm) {
   const int ps = prm.page_size;
   const int Hq = prm.num_q_heads;
   const int G = Hq / prm.num_kv_heads;
-  const int H2 = 2 * prm.num_kv_heads;
+  const int H2 = kPlanes * prm.num_kv_heads;        // pool rows a token
 
   const int q0 = prm.cu_q_lens[s];
   const int qlen = prm.cu_q_lens[s + 1] - q0;
@@ -904,8 +924,11 @@ ragged_paged_attention_latent_kernel(const Params prm) {
   const int first_qpos = kv_len - qlen + row0 / G;
   const int last_qpos = kv_len - qlen + (row_end - 1) / G;
   const int n_pages = (kv_len + ps - 1) / ps;
-  const int hi = min(min(n_pages, last_qpos / ps + 1), prm.table_width);
-  const int lo = prm.has_window ? max(first_qpos - prm.window + 1, 0) / ps : 0;
+  const bool has_pos = prm.q_pos != nullptr;
+  // explicit positions: every slot below n_pages (kernel.py:108, :127)
+  const int hi = has_pos ? min(n_pages, prm.table_width)
+                         : min(min(n_pages, last_qpos / ps + 1), prm.table_width);
+  const int lo = prm.has_window && !has_pos ? max(first_qpos - prm.window + 1, 0) / ps : 0;
   const int slots = split_slots(n_pages);           // a group is one split
   int g_begin, g_end;   // the groups this CTA folds
   if (prm.spread) {
@@ -931,9 +954,13 @@ ragged_paged_attention_latent_kernel(const Params prm) {
       x = *reinterpret_cast<const uint4*>(q + ((size_t)(q0 + fr / G) * Hq + h * G + fr % G) * D + d);
     *reinterpret_cast<uint4*>(q_s + r * QS + d) = x;
   }
-  int qpos[2];
+  int qpos[2];   // a padded row (past row_end) sees no key in position mode
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) qpos[hh] = kv_len - qlen + (row0 + g8 + 8 * hh) / G;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int fr = row0 + g8 + 8 * hh;
+    qpos[hh] = !has_pos ? kv_len - qlen + fr / G
+             : fr < row_end ? prm.q_pos[q0 + fr / G] : -1;
+  }
   const int bpp = (ps + KB - 1) / KB;
   static_assert(kMaxSlots <= 32, "a lane per slot of a split");
 
@@ -961,7 +988,8 @@ ragged_paged_attention_latent_kernel(const Params prm) {
     // every warp reads the same ids, so a block's skip is CTA-uniform
     int my_pid = -1;
     if (lane < s_hi - s_lo) my_pid = prm.page_table[s * prm.table_width + s_lo + lane];
-    if (my_pid <= 0 || my_pid >= prm.num_pages) my_pid = -1;
+    // null slot (page 0 of a slot-derived table, or out of the pool): skipped
+    if (my_pid < (has_pos ? 0 : 1) || my_pid >= prm.num_pages) my_pid = -1;
     auto page_of = [&](int b) { return __shfl_sync(0xffffffffu, my_pid, b / bpp); };
     auto issue = [&](int b) {   // every thread copies its share of block b
       const int pid = page_of(b < n_blocks ? b : 0);
@@ -969,12 +997,13 @@ ragged_paged_attention_latent_kernel(const Params prm) {
         const int kb = (b % bpp) * KB;
         const int nk = min(KB, ps - kb);
         T* dst = stages + (b & 1) * GE::stage_elems;
-        constexpr int CH = 2 * D / 8;   // 16-byte chunks a key
+        constexpr int CH = kPlanes * D / 8;   // 16-byte chunks a key
         for (int c = threadIdx.x; c < KB * CH; c += kThreads) {
           const int key = c / CH, e = (c % CH) * 8;
           const bool ok = key < nk;
           cp_async16(dst + key * RS + e,
-                     ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + 2 * h) * D + e : kv, ok);
+                     ok ? kv + ((size_t)(pid * ps + kb + key) * H2 + kPlanes * h) * D + e
+                        : kv, ok);
         }
       }
       cp_async_commit();
@@ -994,6 +1023,15 @@ ragged_paged_attention_latent_kernel(const Params prm) {
       const int kb = (b % bpp) * KB;
       const int kpos0 = (s_lo + b / bpp) * ps + kb;
       const int nk = min(KB, ps - kb);
+      int kpos[2][2];   // this lane's keys 8n + 2 t4 + c; -1: past the page, or empty
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = 8 * n + 2 * t4 + c;
+          kpos[n][c] = key >= nk ? -1
+                     : has_pos ? prm.kv_pos[(size_t)pid * ps + kb + key] : kpos0 + key;
+        }
       // this warp's partial S over its columns; sc[n][e]: row g8 + 8 (e / 2), key 8n + 2 t4 + e % 2
       float sc[2][4];
 #pragma unroll
@@ -1033,11 +1071,11 @@ ragged_paged_attention_latent_kernel(const Params prm) {
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int hh = e / 2, key = 8 * n + 2 * t4 + e % 2, kpos = kpos0 + key;
+          const int hh = e / 2, kp = kpos[n][e % 2];
           float x = sc[n][e] * prm.scale;
           if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
-          bool valid = key < nk && kpos <= qpos[hh];
-          if (prm.has_window) valid = valid && kpos > qpos[hh] - prm.window;
+          bool valid = kp >= 0 && kp <= qpos[hh];
+          if (prm.has_window) valid = valid && kp > qpos[hh] - prm.window;
           if (valid) ok |= 1u << (4 * n + e);
           sc[n][e] = valid ? x : kNegInf;
           mx[hh] = fmaxf(mx[hh], sc[n][e]);
@@ -1072,7 +1110,9 @@ ragged_paged_attention_latent_kernel(const Params prm) {
 #pragma unroll
       for (int dn = 0; dn < WC / 16; ++dn) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + D + warp * WC + dn * 16 + (mi / 2) * 8);
+        // V' at column D of a two-plane row, K's own columns in one plane
+        ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + (kPlanes == 2 ? D : 0)
+                                  + warp * WC + dn * 16 + (mi / 2) * 8);
         mma_bf16(o[2 * dn], pa, vf[0], vf[1]);
         mma_bf16(o[2 * dn + 1], pa, vf[2], vf[3]);
       }
@@ -1152,20 +1192,33 @@ cudaError_t launch_tiles(K kernel, size_t smem, int rows, const Params& prm, int
   return cudaGetLastError();
 }
 
+template <int kPlanes>
+cudaError_t launch_latent(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
+  constexpr size_t bytes = LatentGeo<kPlanes>::bytes;
+  return prm.spread && prm.n_groups > 1
+      ? launch_tiles(ragged_paged_attention_latent_kernel<true, kPlanes>, bytes, kMmaRows,
+                     prm, num_seqs, max_q_len, stream)
+      : launch_tiles(ragged_paged_attention_latent_kernel<false, kPlanes>, bytes, kMmaRows,
+                     prm, num_seqs, max_q_len, stream);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D == kLatentD)
-    return prm.spread && prm.n_groups > 1
-        ? launch_tiles(ragged_paged_attention_latent_kernel<true>, LatentGeo::bytes, kMmaRows,
-                       prm, num_seqs, max_q_len, stream)
-        : launch_tiles(ragged_paged_attention_latent_kernel<false>, LatentGeo::bytes, kMmaRows,
-                       prm, num_seqs, max_q_len, stream);
+    return prm.planes == 1 ? launch_latent<1>(prm, num_seqs, max_q_len, stream)
+                           : launch_latent<2>(prm, num_seqs, max_q_len, stream);
   else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_tiles(ragged_paged_attention_mma_kernel<D>, MmaGeo<D>::bytes, kMmaRows, prm,
-                        num_seqs, max_q_len, stream);
+    return prm.planes == 1
+        ? launch_tiles(ragged_paged_attention_mma_kernel<D, 1>, MmaGeo<D>::bytes, kMmaRows, prm,
+                       num_seqs, max_q_len, stream)
+        : launch_tiles(ragged_paged_attention_mma_kernel<D, 2>, MmaGeo<D>::bytes, kMmaRows, prm,
+                       num_seqs, max_q_len, stream);
   else
-    return launch_tiles(ragged_paged_attention_kernel<D>, Geo<D>::bytes, kRows, prm,
-                        num_seqs, max_q_len, stream);
+    return prm.planes == 1
+        ? launch_tiles(ragged_paged_attention_kernel<D, 1>, Geo<D>::bytes, kRows, prm,
+                       num_seqs, max_q_len, stream)
+        : launch_tiles(ragged_paged_attention_kernel<D, 2>, Geo<D>::bytes, kRows, prm,
+                       num_seqs, max_q_len, stream);
 }
 
 template <typename T, int D>
@@ -1231,22 +1284,23 @@ extern "C" long long ragged_paged_attention_scratch_floats(
 
 // dtype: 0 = float32, 1 = bfloat16. has_cap / has_window switch the softcap
 // and the sliding window on. q_pos / kv_pos: both null (slot-derived
-// positions) or both given (explicit positions; not at the bf16 latent head). scratch: ragged_paged_attention_scratch_floats
-// floats (null when that is 0). Returns the launch's cudaError_t (0 =
-// success).
+// positions) or both given (explicit positions). v_from_k: the pool is one
+// plane (P, ps, num_kv_heads = 1, D) whose value is its key. scratch:
+// ragged_paged_attention_scratch_floats floats (null when that is 0).
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* kv_pages, const void* page_table,
     const void* cu_q_lens, const void* kv_lens, void* out,
     const void* q_pos, const void* kv_pos,
     int num_tokens, int num_seqs, int table_width, int num_pages, int page_size,
-    int num_q_heads, int num_kv_heads, int head_dim, int max_q_len,
+    int num_q_heads, int num_kv_heads, int head_dim, int max_q_len, int v_from_k,
     float scale, int has_cap, float cap, int has_window, int window,
     int dtype, void* scratch, void* stream) {
   if (page_size <= 0 || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0
       || table_width <= 0 || (q_pos == nullptr) != (kv_pos == nullptr))
     return (int)cudaErrorInvalidValue;
-  // the latent-head kernel derives positions from the slot only
-  if (q_pos != nullptr && dtype == 1 && head_dim == kLatentD) return (int)cudaErrorInvalidValue;
+  // one plane: a latent ring, one KV head
+  if (v_from_k && num_kv_heads != 1) return (int)cudaErrorInvalidValue;
   const int spread = spreads(num_q_heads, num_kv_heads, max_q_len);
   const int n_groups = max_groups(table_width, group_splits(head_dim, dtype));
   if (spread && n_groups > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -1272,6 +1326,7 @@ extern "C" int ragged_paged_attention_launch(
   prm.num_kv_heads = num_kv_heads;
   prm.n_groups = n_groups;
   prm.spread = spread;
+  prm.planes = v_from_k ? 1 : 2;
   prm.scale = scale;
   prm.has_cap = has_cap;
   prm.cap = cap;

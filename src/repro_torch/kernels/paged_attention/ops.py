@@ -16,8 +16,13 @@ fp32 scratch it needs; the wrapper allocates that (``torch.empty``).
 With ``q_pos``/``kv_pos_pages`` the kernel reads key positions from the
 given plane and query positions from ``q_pos`` (the explicit-position
 mode a ring cache reads through); it then visits every table slot up to
-``kv_lens``, page 0 included, and masks by position alone. The latent
-(MLA) kernel has no position mode yet (ROADMAP A.6).
+``kv_lens``, page 0 included, and masks by position alone, in every
+kernel, the latent-head (MLA) one included.
+
+``v_from_k=True`` reads a single-plane pool ``(P, ps, 1, D)``, one KV head
+whose value row is its key row: the MLA ring's stored ``[c, kr]``, read
+by every kernel (at D 576 the bf16 latent kernel with stage rows of one
+plane).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ def _library():
         fn.argtypes = [P, P, P, P, P, P,            # q kv table cu kv_lens out
                        P, P,                        # q_pos kv_pos (null: slot-derived)
                        I, I, I, I, I, I, I, I, I,   # T S W P ps Hq Hkv D max_q_len
+                       I,                           # v_from_k
                        F, I, F, I, I,               # scale has_cap cap has_win win
                        I, P, P]                     # dtype scratch stream
         fn.restype = ctypes.c_int
@@ -58,10 +64,6 @@ def _check_positions(q, kv_pages, q_pos, kv_pos_pages):
         raise ValueError("q_pos and kv_pos_pages must be given together")
     if q_pos is None:
         return
-    if q.dtype == torch.bfloat16 and q.shape[-1] == 576:
-        raise NotImplementedError("explicit positions in the latent-head "
-                                  "(MLA, bf16 D 576) kernel are not ported "
-                                  "yet (ROADMAP A.6)")
     for name, t, shape in (("q_pos", q_pos, (q.shape[0],)),
                            ("kv_pos_pages", kv_pos_pages, tuple(kv_pages.shape[:2]))):
         if t.dtype != torch.int32:
@@ -74,7 +76,14 @@ def _check_positions(q, kv_pages, q_pos, kv_pos_pages):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
+def _check_planes(kv_pages, v_from_k):
+    """A single-plane pool is one KV head."""
+    if v_from_k and (kv_pages.dim() != 4 or kv_pages.shape[2] != 1):
+        raise ValueError("v_from_k reads one plane: kv_pages (P, ps, 1, D), "
+                         f"got {tuple(kv_pages.shape)}")
+
+
+def _check(q, kv_pages, page_table, cu_q_lens, kv_lens, v_from_k=False):
     dev = q.device
     for name, t in (("kv_pages", kv_pages), ("page_table", page_table),
                     ("cu_q_lens", cu_q_lens), ("kv_lens", kv_lens)):
@@ -97,7 +106,8 @@ def _check(q, kv_pages, page_table, cu_q_lens, kv_lens):
     T, Hq, D = q.shape
     P, ps, H2, Dk = kv_pages.shape
     S = page_table.shape[0]
-    if Dk != D or H2 % 2 or Hq % (H2 // 2):
+    Hkv = H2 if v_from_k else H2 // 2
+    if Dk != D or (H2 % 2 and not v_from_k) or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match kv_pages "
                          f"{tuple(kv_pages.shape)}")
     if D not in _HEAD_DIMS:
@@ -118,7 +128,8 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
                            scale: float, cap: Optional[float] = None,
                            window: Optional[int] = None,
                            max_q_len: Optional[int] = None,
-                           q_pos=None, kv_pos_pages=None):
+                           q_pos=None, kv_pos_pages=None,
+                           v_from_k: bool = False):
     """Attend T concatenated query rows against paged KV storage.
 
     q: (T, Hq, D); kv_pages: (P, ps, 2*Hkv, D) fused head-interleaved;
@@ -127,24 +138,28 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     per-sequence query length (defaults to T, which is always safe: tiles
     past a sequence's end exit at once). ``q_pos`` (T,) and
     ``kv_pos_pages`` (P, ps), int32, both or neither, switch on explicit
-    positions (-1 in ``kv_pos_pages``: an empty row). Returns (T, Hq, D)
-    in q's dtype."""
+    positions (-1 in ``kv_pos_pages``: an empty row). ``v_from_k`` reads
+    a single-plane pool (P, ps, 1, D) whose rows are key and value at
+    once. Returns (T, Hq, D) in q's dtype."""
     _check_positions(q, kv_pages, q_pos, kv_pos_pages)
+    _check_planes(kv_pages, v_from_k)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens,
                                           kv_lens, scale=scale, cap=cap,
                                           window=window, q_pos=q_pos,
-                                          kv_pos_pages=kv_pos_pages)
+                                          kv_pos_pages=kv_pos_pages,
+                                          v_from_k=v_from_k)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_paged_attention for device {q.device}")
-    _check(q, kv_pages, page_table, cu_q_lens, kv_lens)
+    _check(q, kv_pages, page_table, cu_q_lens, kv_lens, v_from_k)
     T, Hq, D = q.shape
     P, ps, H2, _ = kv_pages.shape
+    Hkv = H2 if v_from_k else H2 // 2
     S, W = page_table.shape
     max_q_len = T if max_q_len is None else int(max_q_len)
     out = torch.empty_like(q)
     lib = _library()
-    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, H2 // 2, D, W, max_q_len,
+    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, Hkv, D, W, max_q_len,
                                                           _DTYPES[q.dtype])
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
@@ -155,7 +170,7 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
             cu_q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(),
             None if kv_pos_pages is None else kv_pos_pages.data_ptr(),
-            T, S, W, P, ps, Hq, H2 // 2, D, max_q_len,
+            T, S, W, P, ps, Hq, Hkv, D, max_q_len, int(v_from_k),
             float(scale), cap is not None, float(cap or 0.0),
             window is not None, int(window or 0),
             _DTYPES[q.dtype], None if scratch is None else scratch.data_ptr(), stream)

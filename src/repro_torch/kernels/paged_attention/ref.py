@@ -26,6 +26,13 @@ the slot-derived positions (-1 = empty row), with explicit query
 positions beside it; page 0 is then a page like any other. This is how a
 ring cache reads through the same kernel (``repro_torch.kernels.
 decode_attention``).
+
+``v_from_k=True`` reads a single-plane pool ``(n_pages, page_size, 1, D)``
+in which a row's value is its key: one KV head, the MLA ring's stored
+``[c, kr]`` row. Against the two-plane latent pages (K' = [c, kr], V' =
+[c, 0]) the output's first ``D - dr`` lanes are the same bits (each
+output lane sums over its own value column alone); the last ``dr`` carry
+P·kr where the two-plane read gives 0, and every caller drops them.
 """
 from __future__ import annotations
 
@@ -88,10 +95,11 @@ def write_tokens_to_pages(kv_pages, kv_new, positions, page_table,
 def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
                          cap: Optional[float] = None,
                          window: Optional[int] = None,
-                         kv_pos_pages=None):
+                         kv_pos_pages=None, v_from_k: bool = False):
     """Row-flattened paged attention.
 
-    q: (R, Hq, D) query rows; kv_pages: (P, ps, 2*Hkv, D); page_table:
+    q: (R, Hq, D) query rows; kv_pages: (P, ps, 2*Hkv, D), or with
+    ``v_from_k`` (P, ps, 1, D) read as key and value at once; page_table:
     (R, W) int32 per-row tables; q_pos: (R,) absolute query positions.
     Key positions derive from the table slot, or with ``kv_pos_pages``
     (P, ps) come from that plane (-1: an empty row). Returns (R, Hq, D) in
@@ -103,7 +111,7 @@ def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
     accumulator bit-identical."""
     R, Hq, D = q.shape
     ps, H2 = kv_pages.shape[1], kv_pages.shape[2]
-    Hkv = H2 // 2
+    Hkv = H2 if v_from_k else H2 // 2
     G = Hq // Hkv
     W = page_table.shape[1]
     dev = q.device
@@ -119,7 +127,7 @@ def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
         pid = page_table[:, j]                           # (R,)
         kv = kv_pages[pid]                               # (R, ps, 2Hkv, D)
         k = kv[:, :, 0::2, :].float()                    # (R, ps, Hkv, D)
-        v = kv[:, :, 1::2, :].float()
+        v = k if v_from_k else kv[:, :, 1::2, :].float()
         if kv_pos_pages is not None:
             kpos = kv_pos_pages[pid].to(torch.int64)     # (R, ps)
         else:
@@ -158,7 +166,8 @@ def paged_attention_rows(q, kv_pages, page_table, q_pos, *, scale: float,
 def ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens, kv_lens,
                                *, scale: float, cap: Optional[float] = None,
                                window: Optional[int] = None,
-                               q_pos=None, kv_pos_pages=None):
+                               q_pos=None, kv_pos_pages=None,
+                               v_from_k: bool = False):
     """Plain version of the ragged kernel.
 
     q: (T, Hq, D) queries of all sequences concatenated; cu_q_lens:
@@ -166,7 +175,8 @@ def ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens, kv_lens,
     ``page_table`` is (S, W), ``kv_lens`` (S,). Query i of sequence s sits
     at absolute position ``kv_lens[s] - q_len_s + i`` unless an explicit
     ``q_pos`` (T,) is given, with the key positions ``kv_pos_pages`` (P,
-    ps) beside it. Decode is every q_len == 1."""
+    ps) beside it; ``v_from_k`` reads a single-plane pool (one KV head
+    whose value is its key). Decode is every q_len == 1."""
     T = q.shape[0]
     dev = q.device
     cu = cu_q_lens.to(torch.int64)
@@ -179,4 +189,4 @@ def ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens, kv_lens,
     tbl = page_table[seg]                                # (T, W)
     return paged_attention_rows(q, kv_pages, tbl, q_pos, scale=scale,
                                 cap=cap, window=window,
-                                kv_pos_pages=kv_pos_pages)
+                                kv_pos_pages=kv_pos_pages, v_from_k=v_from_k)

@@ -16,14 +16,13 @@ every layer, KV and state pages under one table, 128 meta tokens),
 ``mixtral-8x22b`` (MoE of 8 experts top-2, a 4096 window in every layer),
 ``musicgen-large`` (4 codebooks: a token is a 4-tuple) and
 ``internvl2-76b`` (256 patch embeddings in front of every prompt).
-``--paged-kernel off`` serves on per-slot ring caches instead (the
-stacks whose layers are all attention: dense, MoE and the two frontends),
-reading each ring through the paged kernel's explicit-position mode at
-``--page-tokens``-slot pages.
+``--paged-kernel off`` serves every one of them on per-slot ring caches
+instead, reading each attention or MLA ring through the paged kernel's
+explicit-position mode at ``--page-tokens``-slot pages and carrying SSM
+state per slot, with point snapshots for SSM and hybrid prefixes.
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: ``--replicas > 1`` (the cluster, A.7), ``--paged-kernel
-off`` for MLA, SSM and hybrid stacks (A.6), ``--inject-rber`` (faults,
-A.8) and the TPU autotuner's
+ROADMAP item: ``--replicas > 1`` (the cluster, A.7), ``--inject-rber``
+(faults, A.8) and the TPU autotuner's
 ``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
 """
 from __future__ import annotations

@@ -121,38 +121,52 @@ def fill_cache_from_prefill(cache: dict, k, v) -> dict:
     return cache
 
 
+def write_rows_to_ring(ring, ring_pos, rows, positions) -> None:
+    """Write a chunk's fused rows (B, S, H2, D) at absolute positions
+    ``positions`` (S,) of every sequence into the ring (B, C, H2, D) at slot
+    ``pos % C``, and the positions into ``ring_pos`` (B, C) (a chunk longer
+    than the ring would collide with itself). In place."""
+    C = ring.shape[1]
+    positions = torch.as_tensor(positions, device=rows.device).to(torch.int64)
+    slots = positions % C
+    ring[:, slots] = rows.to(ring.dtype)
+    ring_pos[:, slots] = positions.to(torch.int32)[None]
+
+
+def append_row_to_ring(ring, ring_pos, row, pos, active=None) -> None:
+    """Append one fused row (B, H2, D) at absolute position(s) ``pos`` (a
+    scalar or (B,)): row b's slot ``pos[b] % C``. ``active`` ((B,) bool)
+    keeps the rows where it is False as they were — a masked write (the
+    old row read back where inactive), so no host sync. In place."""
+    C, B = ring.shape[1], ring_pos.shape[0]
+    dev = ring.device
+    pos = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1).expand(B)
+    slot = pos % C
+    idx = torch.arange(B, device=dev)
+    new = row.to(ring.dtype)
+    p_new = pos.to(torch.int32)
+    if active is not None:
+        act = active.to(device=dev, dtype=torch.bool)
+        new = torch.where(act[:, None, None], new, ring[idx, slot])
+        p_new = torch.where(act, p_new, ring_pos[idx, slot])
+    ring[idx, slot] = new
+    ring_pos[idx, slot] = p_new
+
+
 def write_chunk_to_cache(cache: dict, k, v, positions) -> dict:
     """Write a chunk's keys/values (B, S, Hkv, D) at absolute positions
-    ``positions`` (S,) into the ring (slot = pos % C; a chunk longer than
-    the ring would collide with itself). In place; returns ``cache``."""
-    C = cache["kv"].shape[1]
-    positions = torch.as_tensor(positions, device=k.device).to(torch.int64)
-    slots = positions % C
-    cache["kv"][:, slots] = interleave_kv(k, v).to(cache["kv"].dtype)
-    cache["pos"][:, slots] = positions.to(torch.int32)[None]
+    ``positions`` (S,) into the ring (slot = pos % C). In place; returns
+    ``cache``."""
+    write_rows_to_ring(cache["kv"], cache["pos"], interleave_kv(k, v), positions)
     return cache
 
 
 def append_to_cache(cache: dict, k1, v1, pos, active=None) -> dict:
     """Append one token (B, 1, Hkv, D) at absolute position(s) ``pos`` (a
-    scalar or (B,)): row b's slot ``pos[b] % C``. ``active`` ((B,) bool)
-    keeps the rows where it is False as they were — a masked write (the
-    old row read back where inactive), so no host sync. In place; returns
-    ``cache``."""
-    C = cache["kv"].shape[1]
-    B = cache["pos"].shape[0]
-    dev = cache["kv"].device
-    pos = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1).expand(B)
-    slot = pos % C
-    rows = torch.arange(B, device=dev)
-    kv_new = interleave_kv(k1, v1)[:, 0].to(cache["kv"].dtype)
-    p_new = pos.to(torch.int32)
-    if active is not None:
-        act = active.to(device=dev, dtype=torch.bool)
-        kv_new = torch.where(act[:, None, None], kv_new, cache["kv"][rows, slot])
-        p_new = torch.where(act, p_new, cache["pos"][rows, slot])
-    cache["kv"][rows, slot] = kv_new
-    cache["pos"][rows, slot] = p_new
+    scalar or (B,)); rows where ``active`` is False keep theirs
+    (``append_row_to_ring``). In place; returns ``cache``."""
+    append_row_to_ring(cache["kv"], cache["pos"], interleave_kv(k1, v1)[:, 0], pos,
+                       active=active)
     return cache
 
 

@@ -1,5 +1,6 @@
 """Hymba-style hybrid block: parallel attention + SSM heads
-[arXiv:2411.13676], on the paged compute plane (DESIGN.md §10).
+[arXiv:2411.13676], on the paged compute plane (DESIGN.md §10) and on ring
+caches.
 
 The port of ``repro.models.hybrid``. Both halves read the same normed
 input; each half's output is RMS-normed by its own zero-initialised scale
@@ -7,8 +8,12 @@ and the two are averaged. The attention half attends on the layer's KV
 pages (sliding window except at ``cfg.global_layers``) through ragged paged
 attention; the SSM half runs the SSD chunk scan from its state page. One
 page table indexes both pools: ``{"attn": {"kv_pages"}, "ssm":
-{"conv_pages", "state_pages"}}``. The meta tokens are prepended by the
-transformer assembly and sit in both halves' pages like any other token.
+{"conv_pages", "state_pages"}}``. On ring caches, ``{"attn": {"kv",
+"pos"}, "ssm": {"conv", "state"}}``, each half runs its own ring modes: a
+first chunk through the flash forward and the scan from zeros, later
+chunks and decode through the position-mode kernel and the carried state.
+The meta tokens are prepended by the transformer assembly and sit in both
+halves' caches like any other token.
 Training raises until SSM training lands (ROADMAP A.11).
 """
 from __future__ import annotations
@@ -47,16 +52,18 @@ def hybrid_sublayer(
     page_table=None,
     page_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (out, {"attn": {"kv_pages"}, "ssm": {"conv_pages",
-    "state_pages"}}), both pools written IN PLACE. ``decode_active`` masks
-    both halves' page writes for inactive rows."""
+    """x: (B, S, d) -> (out, {"attn": ..., "ssm": ...}), both halves'
+    pools or rings written IN PLACE. ``decode_active`` masks both halves'
+    writes for inactive rows; ``page_tokens`` is the page size of the
+    state-page slots and of the ring view."""
     if mode == "train":
         raise NotImplementedError(f"{cfg.name}: hybrid training needs SSM "
                                   "training (ROADMAP A.11), not ported yet")
     a_out, a_cache = attention_sublayer(
         cfg, p["attn"], x, positions=positions, window=window,
         cache=cache["attn"], mode=mode, cur_pos=cur_pos,
-        decode_active=decode_active, page_table=page_table)
+        decode_active=decode_active, page_table=page_table,
+        page_tokens=page_tokens)
     s_out, s_cache = ssm_sublayer(
         cfg, p["ssm"], x, cache=cache["ssm"], mode=mode,
         decode_active=decode_active, positions=positions, cur_pos=cur_pos,

@@ -1,8 +1,8 @@
 """Multi-head Latent Attention (DeepSeek-V2) on the paged compute plane
-(DESIGN.md §10) — the port of ``repro.models.mla``.
+(DESIGN.md §10) and on ring caches — the port of ``repro.models.mla``.
 
 KV is cached compressed: the latent c (kv_lora_rank) and one shared rope
-key kr (qk_rope_dim) per token. The paged branch is always absorbed. A
+key kr (qk_rope_dim) per token. Every mode the port serves is absorbed. A
 page row stores one fused latent head of width r + dr:
 
     K' = [c, kr]        V' = [c, 0]
@@ -14,9 +14,26 @@ group of n_heads) through ragged paged attention — the Hopper kernel on
 CUDA tensors, at scale (dn + dr)^-1/2. The first r output columns carry
 the latent context, which W_UV expands per head before ``wo``.
 
-``extend`` and ``decode`` are the modes, as ``attention_sublayer`` names
-them. The ring-cache modes raise (ROADMAP A.6); training raises until the
-flash kernels take Dk != Dv (ROADMAP A.4, A.11).
+A ring cache (``mla_cache_init``) stores the same row once, ``{"ckr": (B,
+C, 1, r + dr), "pos": (B, C) int32}`` (-1: an empty slot) — the bytes of
+the JAX package's ``c`` + ``kr`` + ``pos``, so snapshots and seed copies
+meter the same. ``prefill`` (a first chunk, which must fit the ring),
+``extend`` and ``decode`` write the new rows at slot ``pos % C`` and
+attend the whole ring through the kernel's explicit-position mode with
+``v_from_k`` (``kernels/decode_attention``): V' = K' = [c, kr], whose
+first r output lanes are the latent context.
+
+Departure from the JAX package, numerical only: it attends a ring absorbed
+only under ``cfg.mla_absorb`` (else it expands the latents to per-head K
+and V every step) and its ring ``prefill`` through expanded
+``chunked_attention`` (Dk 192 != Dv 128); the port is absorbed in every
+mode, whatever ``cfg.mla_absorb`` says — the same function, summed in
+another order (fp32 agreement ~1e-6), and one attention path, the latent
+kernel, on both engines.
+
+``prefill``, ``extend`` and ``decode`` are the modes, as
+``attention_sublayer`` names them. Training raises until the flash kernels
+take Dk != Dv (ROADMAP A.4, A.11).
 """
 from __future__ import annotations
 
@@ -25,9 +42,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  extend_attention)
 from repro_torch.kernels.paged_attention import (ragged_paged_attention,
                                                  write_tokens_to_pages)
-from repro_torch.models.attention import _project, paged_rows
+from repro_torch.models.attention import (_project, append_row_to_ring,
+                                          paged_rows, write_rows_to_ring)
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef
 
@@ -71,6 +91,39 @@ def _compress_kv(cfg: ModelConfig, p: dict, x, positions):
     return c, kr
 
 
+def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device=None) -> dict:
+    """An empty latent ring: ``{"ckr": (B, C, 1, r + dr)`` ([c, kr] stored
+    once, where the JAX package keeps ``c`` and ``kr`` apart), ``"pos": (B,
+    C)`` int32, -1 marking an empty slot``}``."""
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    return {"ckr": torch.zeros((batch, cache_len, 1, width), dtype=dtype,
+                               device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _ring_attention(mode, q_f, ring, row, *, positions, cur_pos,
+                    decode_active, scale, page_tokens):
+    """Write the new latent rows (B, S, 1, r + dr) into the ring, in place,
+    and attend the whole ring with q' (B, S, H, r + dr) in position mode,
+    value = key: -> (B, S, H, r + dr)."""
+    S, C = q_f.shape[1], ring["ckr"].shape[1]
+    if mode == "decode":
+        append_row_to_ring(ring["ckr"], ring["pos"], row[:, 0], cur_pos,
+                           active=decode_active)
+        return decode_attention(q_f, ring["ckr"], ring["pos"], cur_pos,
+                                scale=scale, page_size=page_tokens)
+    if mode not in ("prefill", "extend"):
+        raise ValueError(f"no ring mode {mode!r}")
+    if S > C:
+        raise ValueError(f"a {mode} chunk of {S} tokens does not fit an MLA "
+                         f"ring of {C} slots")
+    write_rows_to_ring(ring["ckr"], ring["pos"], row, positions)
+    return extend_attention(q_f, ring["ckr"], ring["pos"], positions,
+                            scale=scale, page_size=page_tokens)
+
+
 def mla_sublayer(
     cfg: ModelConfig,
     p: dict,
@@ -80,41 +133,54 @@ def mla_sublayer(
     cache: Optional[dict] = None,
     mode: str = "extend",  # extend | decode
     cur_pos=None,
-    decode_active=None,   # (B,) bool: rows whose pages the decode may write
-    page_table=None,      # (B, W) int32
+    decode_active=None,   # (B,) bool: rows whose cache the decode may write
+    page_table=None,      # (B, W) int32: the paged plane
+    page_tokens: Optional[int] = None,   # ring modes: the ring's page size
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d) -> (out (B, S, d), {"kv_pages": pool}), the pool
-    ``(P, ps, 2, r + dr)`` written IN PLACE. Extend: every row of the batch
-    is one sequence whose S queries sit at ``positions``; decode: B
-    sequences of one query at ``cur_pos`` (B,), inactive rows writing
+    """x: (B, S, d) -> (out (B, S, d), the cache), written IN PLACE: the
+    pool ``{"kv_pages": (P, ps, 2, r + dr)}`` through ``page_table``, or a
+    ring ``{"ckr", "pos"}`` read as pages of ``page_tokens`` slots.
+    Prefill (rings only: the first chunk at positions 0..S-1 into a fresh
+    ring) and extend: every row of the batch is one sequence whose S
+    queries sit at ``positions``; decode: B sequences of one query at
+    ``cur_pos`` (B,), rows where ``decode_active`` is False writing
     nothing."""
     if mode == "train":
         raise NotImplementedError(
             f"{cfg.name}: MLA training needs Dk != Dv in the flash kernels "
             "(ROADMAP A.4, A.11), not ported yet")
-    if cache is None or "kv_pages" not in cache or page_table is None:
-        raise NotImplementedError("the ring-cache MLA path is not ported yet "
-                                  "(ROADMAP A.6)")
+    if cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache")
     B, S, d = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = (dn + dr) ** -0.5
     qn, qr = _project_q(cfg, p, x, positions)
     c, kr = _compress_kv(cfg, p, x, positions)
-
-    kv_pages = cache["kv_pages"]
-    pos2d, act, cu, kv_lens = paged_rows(mode, B, S, positions, cur_pos,
-                                         decode_active, x.device)
     k_f = torch.cat([c, kr], dim=-1)                         # (B, S, r + dr)
-    v_f = torch.cat([c, torch.zeros_like(kr)], dim=-1)
-    write_tokens_to_pages(kv_pages, torch.stack([k_f, v_f], dim=2), pos2d,
-                          page_table, active=act)
     qc = torch.einsum("bshk,rhk->bshr", qn, p["w_uk"])
     q_f = torch.cat([qc, qr], dim=-1)                        # (B, S, H, r + dr)
     H = q_f.shape[2]
-    o = ragged_paged_attention(
-        q_f.reshape(B * S, H, r + dr).contiguous(), kv_pages,
-        page_table.to(torch.int32).contiguous(), cu, kv_lens, scale=scale,
-        max_q_len=S)
+
+    if "kv_pages" not in cache:
+        if page_table is not None:
+            raise ValueError("a ring cache takes no page table")
+        o = _ring_attention(mode, q_f, cache, k_f[:, :, None], positions=positions,
+                            cur_pos=cur_pos, decode_active=decode_active,
+                            scale=scale, page_tokens=page_tokens)
+        o = o.reshape(B * S, H, r + dr)
+    else:
+        if page_table is None:
+            raise ValueError("a page pool needs a page table")
+        kv_pages = cache["kv_pages"]
+        pos2d, act, cu, kv_lens = paged_rows(mode, B, S, positions, cur_pos,
+                                             decode_active, x.device)
+        v_f = torch.cat([c, torch.zeros_like(kr)], dim=-1)
+        write_tokens_to_pages(kv_pages, torch.stack([k_f, v_f], dim=2), pos2d,
+                              page_table, active=act)
+        o = ragged_paged_attention(
+            q_f.reshape(B * S, H, r + dr).contiguous(), kv_pages,
+            page_table.to(torch.int32).contiguous(), cu, kv_lens, scale=scale,
+            max_q_len=S)
     out = torch.einsum("nhr,rhk->nhk", o[..., :r].to(x.dtype), p["w_uv"])
     out = out.reshape(B * S, -1) @ p["wo"].reshape(-1, d)
-    return out.reshape(B, S, d), {"kv_pages": kv_pages}
+    return out.reshape(B, S, d), cache

@@ -1,13 +1,15 @@
 """Mamba2 SSD (state-space duality) block [arXiv:2405.21060] on the paged
-compute plane (DESIGN.md §10).
+compute plane (DESIGN.md §10) and on ring caches.
 
 The port of ``repro.models.ssm`` carries the parameter definitions, the
 depthwise causal conv, the one-token decode recurrence, the state-page
-pools and the paged branches of ``ssm_sublayer``. Prefill and extend chunks
-run the SSD chunk scan (``kernels.ssd_scan``: the Hopper kernel on CUDA
-tensors, its plain version on the CPU), continuing from the state page they
-read; decode runs the O(1) recurrence in plain torch, as the JAX package
-does. The ring-cache modes are not ported yet (ROADMAP A.6).
+pools, the per-slot ring cache (``ssm_cache_init``: the conv left-context
+and the SSD state) and every serving mode of ``ssm_sublayer``. Prefill and
+extend chunks run the SSD chunk scan (``kernels.ssd_scan``: the Hopper
+kernel on CUDA tensors, its plain version on the CPU), continuing from the
+state page they read or from the ring's carried state (a fresh zero ring
+is the empty history); decode runs the O(1) recurrence in plain torch, as
+the JAX package does.
 """
 from __future__ import annotations
 
@@ -76,6 +78,17 @@ def ssd_decode(x1, dt1, a, b1, c1, state):
         "bhn,bhp,bh->bhpn", bh, x1.float(), dt1)
     y = torch.einsum("bhpn,bhn->bhp", state, ch)
     return y.to(x1.dtype), state
+
+
+def ssm_cache_init(cfg: ModelConfig, batch: int, dtype, device=None) -> dict:
+    """A fresh ring cache, the empty-history state: ``{"conv": (B, cw-1,
+    conv_dim)`` in ``dtype``, ``"state": (B, nh, hd, ns)`` fp32``}``."""
+    di, ng, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    nh, hd, cw = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_conv
+    return {"conv": torch.zeros((batch, cw - 1, di + 2 * ng * ns), dtype=dtype,
+                                device=device),
+            "state": torch.zeros((batch, nh, hd, ns), dtype=torch.float32,
+                                 device=device)}
 
 
 def ssm_paged_init(cfg: ModelConfig, n_pages: int, dtype, device) -> dict:
@@ -149,9 +162,16 @@ def ssm_sublayer(
     page_table=None,
     page_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, d_model) -> (out, {"conv_pages", "state_pages"}).
+    """x: (B, S, d_model) -> (out, the cache), written IN PLACE.
 
-    The conv left-context and SSD state live in pooled pages indexed
+    Ring cache ``{"conv", "state"}`` (no ``page_table``): ``prefill`` and
+    ``extend`` are one path, the scan from the carried state, whose final
+    conv and state replace the ring's; ``decode`` steps the recurrence, and
+    rows where ``decode_active`` is False keep theirs (a masked write, no
+    host sync).
+
+    Paged ``{"conv_pages", "state_pages"}``: the conv left-context and SSD
+    state live in pooled pages indexed
     through ``page_table`` and are updated IN PLACE (JAX returns new
     pools; here the returned dict holds the same tensors). The read slot
     is resolved from the first query position (``positions[0]`` for
@@ -164,24 +184,32 @@ def ssm_sublayer(
     are the empty-history init, so a cold start and a chunk resumed at a
     page boundary run the same recurrence. Decode rows where ``decode_active``
     is False write nothing."""
-    if cache is None or "state_pages" not in cache or page_table is None:
-        raise NotImplementedError("the ring-cache SSM path is not ported yet "
-                                  "(ROADMAP A.6)")
-    if page_tokens is None:
-        raise ValueError("paged SSM layers need page_tokens to resolve "
-                         "their state-page slots")
+    if cache is None:
+        raise NotImplementedError(f"mode {mode!r}: SSM training (ROADMAP "
+                                  "A.11) is not ported yet")
+    ring = "state" in cache
+    if mode not in ("decode", "extend") and not (ring and mode == "prefill"):
+        raise ValueError(f"no {'ring' if ring else 'paged'} SSM mode {mode!r}")
     B, S, d = x.shape
     di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
     ng, ns = cfg.ssm_ngroups, cfg.ssm_state
-    if mode == "decode":
-        q0 = q_last = cur_pos
-    elif mode == "extend":
-        q0, q_last = positions[0], positions[-1]
+    if ring:
+        if page_table is not None:
+            raise ValueError("a ring cache takes no page table")
+        conv_in, state = cache["conv"], cache["state"]
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP A.6)")
-    conv_pages, state_pages = cache["conv_pages"], cache["state_pages"]
-    pid_read, pid_write, ok = _paged_state_slots(page_table, q0, page_tokens,
-                                                 q_last)
+        if page_tokens is None:
+            raise ValueError("paged SSM layers need page_tokens to resolve "
+                             "their state-page slots")
+        if mode == "decode":
+            q0 = q_last = cur_pos
+        else:
+            q0, q_last = positions[0], positions[-1]
+        conv_pages, state_pages = cache["conv_pages"], cache["state_pages"]
+        pid_read, pid_write, ok = _paged_state_slots(page_table, q0, page_tokens,
+                                                     q_last)
+        conv_in = conv_pages.index_select(0, pid_read)
+        state = state_pages.index_select(0, pid_read)
 
     zxbcdt = x @ p["in_proj"]
     z, xi, b, c, dt = _split_proj(cfg, zxbcdt)
@@ -189,19 +217,22 @@ def ssm_sublayer(
     a = -torch.exp(p["a_log"])
 
     xbc = torch.cat([xi, b, c], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                 conv_pages.index_select(0, pid_read))
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_in)
     xi, b, c = xbc[..., :di], xbc[..., di:di + ng * ns], xbc[..., di + ng * ns:]
     xh = xi.reshape(B, S, nh, hd)
     bg = b.reshape(B, S, ng, ns)
     cg = c.reshape(B, S, ng, ns)
 
-    state = state_pages.index_select(0, pid_read)
     if mode == "decode":
         y1, new_state = ssd_decode(xh[:, 0], dt[:, 0], a, bg[:, 0], cg[:, 0], state)
         y = y1[:, None]
         if decode_active is not None:
-            ok = ok & decode_active.to(torch.bool)
+            act = decode_active.to(device=x.device, dtype=torch.bool)
+            if ring:
+                new_state = torch.where(act[:, None, None, None], new_state, state)
+                new_conv = torch.where(act[:, None, None], new_conv, conv_in)
+            else:
+                ok = ok & act
     else:
         y, new_state = ssd_scan(xh, dt, a, bg, cg, chunk=cfg.ssm_chunk,
                                 init_state=state)
@@ -209,6 +240,10 @@ def ssm_sublayer(
     y = y.reshape(B, S, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_g"], cfg.norm_eps)
     out = y @ p["out_proj"]
-    _write_state_pages(conv_pages, pid_write, ok, new_conv)
-    _write_state_pages(state_pages, pid_write, ok, new_state)
-    return out, {"conv_pages": conv_pages, "state_pages": state_pages}
+    if ring:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+    else:
+        _write_state_pages(conv_pages, pid_write, ok, new_conv)
+        _write_state_pages(state_pages, pid_write, ok, new_state)
+    return out, cache

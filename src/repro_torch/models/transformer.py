@@ -24,8 +24,8 @@ Entry points:
 - ``prefill``/``extend``/``decode`` — the same three steps on per-slot ring
   caches (``init_caches``: ``{"kv": (R, B, C, 2*Hkv, D), "pos": (R, B,
   C)}`` per attention unit, a windowed layer's ring ``cache_len_for(window,
-  max_len)`` long), for stacks whose layers are all attention; an MLA, SSM
-  or hybrid unit raises (ROADMAP A.6).
+  max_len)`` long; ``{"ckr", "pos"}`` per MLA unit, ``{"conv", "state"}``
+  per SSM unit, both halves' per hybrid unit).
 Attention layers compute on KV pages, SSM layers on point-state pages
 (conv left-context + SSD state at page boundaries), hybrid layers on both
 under one page table. A point stack's extend chunk must lie within one
@@ -34,9 +34,8 @@ page; its first chunk may span pages only as far as the meta prefix forces
 layer's aux loss is dropped on the serving path (the paged entry points
 return logits and pools only). The frontends are stubs: multi-codebook
 tokens (summed embeddings, one head per codebook) and image embeds in
-front of the text. Frontend, MLA, MoE, SSM and hybrid training and the
-MLA, SSM and hybrid ring caches raise ``NotImplementedError`` naming their
-ROADMAP item.
+front of the text. Frontend, MLA, MoE, SSM and hybrid training raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -55,10 +54,11 @@ from repro_torch.models.attention import (attention_sublayer, attn_defs,
                                           cache_len_for, init_cache)
 from repro_torch.models.hybrid import hybrid_defs, hybrid_sublayer
 from repro_torch.models.layers import embed, embed_defs, lm_logits, mlp, mlp_defs, rmsnorm, rmsnorm_def
-from repro_torch.models.mla import mla_defs, mla_sublayer
+from repro_torch.models.mla import mla_cache_init, mla_defs, mla_sublayer
 from repro_torch.models.moe import moe_defs, moe_sublayer
 from repro_torch.models.param import ParamDef
-from repro_torch.models.ssm import ssm_defs, ssm_paged_init, ssm_sublayer
+from repro_torch.models.ssm import (ssm_cache_init, ssm_defs, ssm_paged_init,
+                                    ssm_sublayer)
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +112,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
                 cache, mode, cur_pos=None, decode_active=None, page_table=None,
                 page_tokens=None):
-    """Pre-norm residual block over one layer's parameters and page pool
-    (``page_tokens`` is the page size SSM and hybrid layers need to resolve
-    their state-page slots). Returns (x, cache)."""
+    """Pre-norm residual block over one layer's parameters and page pool or
+    ring (``page_tokens`` is the page size SSM and hybrid layers resolve
+    their state-page slots with, and the page size rings are read as).
+    Returns (x, cache)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "hybrid":
         h, new_cache = hybrid_sublayer(cfg, p["mixer"], h, positions=positions,
@@ -127,7 +128,8 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
         h, new_cache = mla_sublayer(cfg, p["mixer"], h, positions=positions,
                                     cache=cache, mode=mode, cur_pos=cur_pos,
                                     decode_active=decode_active,
-                                    page_table=page_table)
+                                    page_table=page_table,
+                                    page_tokens=page_tokens)
     elif spec.kind == "ssm":
         h, new_cache = ssm_sublayer(cfg, p["mixer"], h, cache=cache, mode=mode,
                                     decode_active=decode_active,
@@ -183,21 +185,29 @@ def _paged_unit_cache(cfg: ModelConfig, spec: LayerSpec, n_pages: int,
 
 def _unit_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                 dtype, device) -> dict:
-    """One attention unit's ring cache, unstacked; a windowed layer keeps
-    ``cache_len_for(window, max_len)`` slots."""
-    if spec.kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: ring caches of {spec.kind} "
-                                  "layers are not ported yet (ROADMAP A.6)")
-    return init_cache(cfg, batch, cache_len_for(spec.window, max_len), dtype,
+    """One unit's ring cache, unstacked: attention KV (a windowed layer
+    keeps ``cache_len_for(window, max_len)`` slots), MLA latents of
+    ``max_len`` slots, SSM conv + state, or a hybrid's both halves."""
+    if spec.kind == "mla":
+        return mla_cache_init(cfg, batch, max_len, dtype, device)
+    if spec.kind == "ssm":
+        return ssm_cache_init(cfg, batch, dtype, device)
+    attn = init_cache(cfg, batch, cache_len_for(spec.window, max_len), dtype,
                       device)
+    if spec.kind == "hybrid":
+        return {"attn": attn, "ssm": ssm_cache_init(cfg, batch, dtype, device)}
+    return attn
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None):
     """Per-group tuple of per-unit ring caches, each leaf stacked over the
-    group's repeats as in the JAX package: ``{"kv": (R, B, C, 2*Hkv, D),
-    "pos": (R, B, C) int32}``, K and V fused as in a page (the JAX package
-    keeps ``k`` and ``v`` apart), -1 marking an empty slot."""
+    group's repeats as in the JAX package: attention ``{"kv": (R, B, C,
+    2*Hkv, D), "pos": (R, B, C) int32}``, K and V fused as in a page (the
+    JAX package keeps ``k`` and ``v`` apart), -1 marking an empty slot;
+    MLA ``{"ckr": (R, B, C, 1, r + dr), "pos"}`` ([c, kr] fused: the JAX
+    package's ``c`` and ``kr``); SSM ``{"conv", "state"}`` as the JAX
+    package lays them out; hybrid ``{"attn", "ssm"}``."""
     dev = resolve_device(device)
     return tuple(
         tuple(prm.tree_map(
@@ -473,18 +483,22 @@ def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
 # ---------------------------------------------------------------------------
 
 
-def prefill(cfg: ModelConfig, params, batch: dict, max_cache_len=None):
+def prefill(cfg: ModelConfig, params, batch: dict, max_cache_len=None,
+            page_tokens=None):
     """The maximal first chunk of a prompt (the meta prefix, the image
     embeds and the tokens at positions 0..S-1) into fresh ring caches of
-    ``max_cache_len`` slots (default S), each layer attending through the
-    flash forward. Returns (last-position logits (B, V[, K]), caches)."""
+    ``max_cache_len`` slots (default S): attention layers attend through
+    the flash forward, MLA layers write the fresh ring and read it as pages
+    of ``page_tokens`` slots (the chunk must fit it), SSM layers scan from
+    the zero state. Returns (last-position logits (B, V[, K]), caches)."""
     x, _ = _embed_inputs(cfg, params, batch)
     B, S_tot = x.shape[0], x.shape[1]
     positions = torch.arange(S_tot, dtype=torch.int32, device=x.device)
     caches = init_caches(cfg, B, max_cache_len or S_tot,
                          prm.torch_dtype(cfg.dtype), x.device)
     x, caches = apply_groups(cfg, params, x, positions=positions,
-                             caches=caches, mode="prefill")
+                             caches=caches, mode="prefill",
+                             page_tokens=page_tokens)
     return _head(cfg, params, x[:, -1]), caches
 
 

@@ -14,12 +14,16 @@ explicit :class:`StepPlan` / :class:`StepReport` interface:
   left-context + SSD state at page boundaries) and run every prefill and
   extend chunk through the Hopper SSD chunk-scan kernel. With
   ``paged_kernel=False`` (the ring path, the JAX package's default) it
-  owns per-slot ring caches instead: a first chunk attends through the
-  flash forward and fills a fresh ring, a later chunk or a decode round
-  writes its rows at ``pos % C`` and reads the whole ring through the
-  paged kernel's explicit-position mode; a prefix hit seeds the slot from
-  a donor's metered ring snapshot (``seed_copy_bytes``), which the paged
-  plane's page splice replaces.
+  owns per-slot ring caches instead, for every stack: an attention first
+  chunk attends through the flash forward and fills a fresh ring, a later
+  chunk or a decode round writes its rows at ``pos % C`` and reads the
+  whole ring through the paged kernel's explicit-position mode; MLA layers
+  read their latent rings through the latent kernel's position mode in
+  every mode; SSM layers scan every chunk from the ring's carried state.
+  A prefix hit seeds the slot from a donor's metered ring snapshot
+  (``seed_copy_bytes``), which the paged plane's page splice replaces:
+  positional for attention and MLA, a point snapshot (the state at one
+  exact page boundary, captured mid-prefill) for SSM and hybrid stacks.
 - :class:`MemoryPlane`  — the MRM control plane: weights live in a region
   of the chosen tier; KV pages go through :class:`PagedKVManager` (DCM
   retention = expected session lifetime, capacity pressure resolved by an
@@ -31,8 +35,8 @@ into the borrower's page table (zero copy bytes); extend resumes from the
 boundary. Prompts always run unpadded (DESIGN.md §5).
 
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: ring caches of MLA, SSM and hybrid stacks (A.6), ring-path
-prefix migration (A.7), fault injection (``inject_rber``, A.8) and the TPU
+ROADMAP item: ring-path prefix migration (A.7), fault injection
+(``inject_rber``, A.8) and the TPU
 autotuner's launch overrides (``kernel_block_q/kv``, ``kernel_buffers``,
 A.9). Hybrid stacks (hymba)
 serve on one page table that holds KV pages and state pages together.
@@ -100,8 +104,7 @@ class EngineConfig:
     audit_decode_masking: bool = False
     # paged compute plane (DESIGN.md §10): run extend and decode in place on
     # the pages PagedKVManager owns. False is the ring path (per-slot ring
-    # caches), the default as in the JAX package; the port serves it for
-    # stacks whose layers are all attention (MLA, SSM, hybrid: ROADMAP A.6)
+    # caches), the default as in the JAX package
     paged_kernel: bool = False
     # TPU autotuner launch overrides (kernels/paged_attention/tune.py in
     # the JAX package): not ported, any value raises
@@ -159,13 +162,17 @@ class StepReport:
 class SnapshotHandle:
     """A donor slot's ring-cache snapshot with its metered backing region
     in the KV tier, released when its radix node leaves the tree (the
-    manager calls ``release()``). It covers every page-aligned boundary up
-    to ``tokens`` positions: stale entries past a borrower's boundary stay
-    position-masked."""
+    manager calls ``release()``). ``kind``/``tokens`` are its validity
+    (DESIGN.md §8): a ``"positional"`` snapshot (attention KV, MLA
+    latents) covers every page-aligned boundary up to ``tokens`` positions,
+    stale entries past a borrower's boundary staying position-masked; a
+    ``"point"`` snapshot (SSM state, the hybrid union) is valid only at
+    exactly ``tokens`` positions (the meta/frontend prefix included)."""
     caches: object
     nbytes: float
     mem: MemorySystem
     region_id: Optional[int]
+    kind: str = "positional"
     tokens: int = 0
 
     def release(self) -> None:
@@ -183,7 +190,14 @@ class _SlotPrefill:
     """Continuation state of a (possibly radix-shortened) chunked prefill:
     how far into the prompt the slot's pages already reach — a prefix hit
     starts `done` at the seeded boundary (which, with sub-page tail reuse,
-    need not be page-aligned) instead of 0."""
+    need not be page-aligned) instead of 0.
+
+    On the ring path a point stack (SSM, hybrid) also carries up to two
+    page-aligned capture points (prompt-index space): ``snap_match_at``,
+    the boundary of this request's own match, whose state is hung on the
+    matched radix node as the prefill crosses it, and ``snap_end_at``, the
+    prompt's last page boundary, whose state (``point_caches``) publishes
+    with the prompt. Chunks end on the page grid, so both are chunk ends."""
     req: Request
     tokens: np.ndarray            # prompt tokens (always unpadded)
     chunk: int
@@ -191,6 +205,9 @@ class _SlotPrefill:
     match: Optional[PrefixMatch]
     done: int = 0   # tokens of `tokens` already in the slot's pages
     grid: Optional[int] = None    # point stacks: page-aligned chunking
+    snap_match_at: Optional[int] = None   # point capture: match boundary
+    snap_end_at: Optional[int] = None     # point capture: last page boundary
+    point_caches: object = None           # the end-boundary capture
 
     def next_chunk(self, slot: int, prefix_len: int) -> PrefillChunk:
         end = min(self.done + self.chunk, len(self.tokens))
@@ -364,7 +381,8 @@ class ComputeBackend:
             if ck.first:
                 logits, caches1 = tfm.prefill(
                     self.cfg, self.params, batch,
-                    max_cache_len=self.ecfg.max_cache_len)
+                    max_cache_len=self.ecfg.max_cache_len,
+                    page_tokens=self.page_tokens)
                 self._insert_slot(ck.slot, caches1)
             else:
                 logits, _ = tfm.extend(self.cfg, self.params,
@@ -394,8 +412,9 @@ class ComputeBackend:
         all-null, and masked out of the KV write) and ``audit_pages`` lists
         compute pages the round must not write (other sessions' pages); on
         the ring path the other slots' rings are masked out of the write,
-        and are the ones audited. Returns the sampled tokens for all B rows
-        ((B,), or (B, K) for K codebooks)."""
+        and are the ones audited, every cache family of them (attention
+        KV, MLA latents, conv and SSD state). Returns the sampled tokens for
+        all B rows ((B,), or (B, K) for K codebooks)."""
         B = self.ecfg.max_slots
         act = np.zeros((B,), bool)
         act[slots] = True
@@ -576,16 +595,12 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.paged = bool(ecfg.paged_kernel)
         if not self.paged:
-            kinds = sorted({s.kind for s in cfg.layer_specs()} - {"attn"})
-            if kinds:
-                raise NotImplementedError(
-                    f"{cfg.name}: the ring-cache path (paged_kernel=False) of "
-                    f"{'/'.join(kinds)} layers is not ported yet (ROADMAP A.6)")
             from repro_torch.kernels.decode_attention import ring_page_size
             from repro_torch.models.attention import cache_len_for
-            for spec in cfg.layer_specs():   # every ring is whole pages
-                ring_page_size(cache_len_for(spec.window, ecfg.max_cache_len),
-                               ecfg.page_tokens)
+            for spec in cfg.layer_specs():   # every positional ring is whole pages
+                if spec.kind != "ssm":
+                    ring_page_size(cache_len_for(spec.window, ecfg.max_cache_len),
+                                   ecfg.page_tokens)
         if ecfg.kernel_block_q or ecfg.kernel_block_kv or ecfg.kernel_buffers:
             raise NotImplementedError("kernel launch overrides tune the TPU "
                                       "kernel's grid (tune.py), which is not "
@@ -751,6 +766,20 @@ class ServeEngine:
         key = self.radix_key_for(prompt_tokens)
         return 0 if key is None else self.kv.match_len(key)
 
+    def _point_snapshot_for(self, node, max_tokens: int
+                            ) -> Optional[SnapshotHandle]:
+        """Deepest live point snapshot usable at a match ending at ``node``
+        with ``max_tokens`` matched positions: one on the node's ancestor
+        path or in its subtree whose boundary is covered both by the
+        borrower's match and by its holder's own root path."""
+        best = None
+        for h, depth in self.kv.radix.payload_candidates(node):
+            if (isinstance(h, SnapshotHandle) and h.live and h.kind == "point"
+                    and h.tokens <= min(max_tokens, depth)
+                    and (best is None or h.tokens > best.tokens)):
+                best = h
+        return best
+
     def _compute_reuse(self, match: PrefixMatch, toks: np.ndarray) -> tuple:
         """(tokens of the prompt the compute plane may skip, the ring
         snapshot to seed from, sub-page tail tokens used). At least one
@@ -763,11 +792,13 @@ class ServeEngine:
         off and resumption is clamped down to the last page boundary (the
         state page there holds the exact boundary state).
 
-        Ring path (positional stacks): seed from a donor snapshot whose
+        Ring path, positional stacks: seed from a donor snapshot whose
         token history covers the resumption point — with a sub-page tail a
         payload in the tail child's subtree (every prompt below it shares
         the tail run), else the nearest payload at or below the match;
-        stale entries past the boundary stay masked."""
+        stale entries past the boundary stay masked. Point stacks seed only
+        from a point snapshot captured at a page boundary the match covers
+        (the deepest), and never use a tail."""
         plen = self.backend.prefix_len()
         L = toks.shape[0]
         if match.tokens == 0:
@@ -782,6 +813,12 @@ class ServeEngine:
                 pt = self.ecfg.page_tokens
                 reuse = max(0, ((plen + reuse) // pt) * pt - plen)
             return (reuse, None, tail) if reuse else (0, None, 0)
+        if self.snapshot_kind == "point":
+            snap = self._point_snapshot_for(match.node,
+                                            min(match.tokens, plen + L - 1))
+            if snap is None or snap.tokens <= plen:
+                return 0, None, 0
+            return snap.tokens - plen, snap, 0
         payload, tail = None, 0
         avail = self.kv.tail_available(match)
         if self.ecfg.tail_copy and avail:
@@ -800,6 +837,43 @@ class ServeEngine:
         tail = max(0, min(tail, reuse - (match.tokens - plen)))
         return (reuse, payload, tail) if reuse else (0, None, 0)
 
+    def _plan_point_captures(self, st: _SlotPrefill, reuse: int) -> None:
+        """Where a point stack on the ring path captures its state
+        (page-aligned absolute boundaries, DESIGN.md §8): at this request's
+        own match boundary — so the next borrower skips what this one had
+        to recompute — and at the prompt's last page boundary. Boundaries
+        the seeded prefix covers, or that an attention ring could not
+        replay from, are skipped."""
+        plen = self.backend.prefix_len()
+        pt = self.ecfg.page_tokens
+        end_b = ((plen + len(st.tokens)) // pt) * pt
+        match_b = st.match.tokens if st.match is not None else 0
+        if (match_b > plen and match_b - plen > reuse
+                and match_b - plen <= len(st.tokens) - 1
+                and self._point_boundary_ok(match_b)):
+            st.snap_match_at = match_b - plen
+        # skipped only when the match capture covers that exact boundary
+        if (end_b > plen and end_b - plen > reuse
+                and (end_b - plen) != st.snap_match_at
+                and self._point_boundary_ok(end_b)):
+            st.snap_end_at = end_b - plen
+
+    def _point_boundary_ok(self, boundary: int) -> bool:
+        """A point capture at absolute position ``boundary`` is replayable
+        iff every attention ring still holds what a resumed borrower
+        attends: a ring of a full window always does; a global or
+        window-truncated ring must hold all of [0, boundary)."""
+        from repro_torch.models.attention import cache_len_for
+        for spec in self.cfg.layer_specs():
+            if spec.kind == "ssm":
+                continue
+            ring = cache_len_for(spec.window, self.ecfg.max_cache_len)
+            if spec.window is not None and spec.window <= ring:
+                continue
+            if boundary > ring:
+                return False
+        return True
+
     def _admit(self, slot: int, req: Request) -> _SlotPrefill:
         ecfg = self.ecfg
         toks, chunk, key = self._prep(req)
@@ -812,6 +886,10 @@ class ServeEngine:
         grid = ecfg.page_tokens if self.snapshot_kind == "point" else None
         st = _SlotPrefill(req=req, tokens=toks, chunk=chunk,
                           key=key, match=match, done=reuse, grid=grid)
+        if key is not None and self.snapshot_kind == "point" and not self.paged:
+            # the paged plane keeps point state in its state pages at every
+            # page boundary; the ring path captures it where planned
+            self._plan_point_captures(st, reuse)
         if reuse:
             # the hit is real in the compute plane: the ring path seeds the
             # slot from the donor snapshot (a whole cache-tree copy); the
@@ -869,7 +947,8 @@ class ServeEngine:
         return self.kv.match_len(key)
 
     # -- ring snapshots (the ring path's compute-plane reuse) ------------
-    def _publish_snapshot(self, caches, tokens: int) -> Optional[SnapshotHandle]:
+    def _publish_snapshot(self, caches, kind: str,
+                          tokens: int) -> Optional[SnapshotHandle]:
         """Carve a donor ring snapshot out of the KV tier budget (a metered
         write of its actual bytes). Without headroom nothing is published:
         the prefix still shares pages, it just cannot donate compute."""
@@ -880,22 +959,46 @@ class ServeEngine:
         if rid is None:
             return None
         self.snapshots_published += 1
-        return SnapshotHandle(caches, nbytes, self.mem, rid, tokens=tokens)
+        return SnapshotHandle(caches, nbytes, self.mem, rid, kind=kind,
+                              tokens=tokens)
 
     def _donation_fn(self, st: _SlotPrefill, slot: int):
         """The payload factory a finished prompt registers with its prefix
         (the manager resolves it only if the deepest node's payload slot is
-        free, so a snapshot region is never written for nothing). The ring
-        path donates the slot's final rings, valid for any shorter
-        page-aligned borrower by position masking — unless the prompt
-        wrapped the smallest ring (the early positions a shorter borrower
-        needs are gone; pages still publish for memory-plane reuse). The
-        paged plane donates nothing: its pages are the state."""
+        free, so a snapshot region is never written for nothing). On the
+        ring path a positional stack donates the slot's final rings, valid
+        for any shorter page-aligned borrower by position masking — unless
+        the prompt wrapped the smallest ring (the early positions a shorter
+        borrower needs are gone; pages still publish for memory-plane
+        reuse); a point stack donates the state captured at the prompt's
+        last page boundary, when its prefill passed one. The paged plane
+        donates nothing: its pages are the state."""
         plen = self.backend.prefix_len()
-        if self.paged or plen + len(st.tokens) > self._min_ring_len():
+        if self.paged:
+            return None
+        if self.snapshot_kind == "point":
+            if st.point_caches is None or st.snap_end_at is None:
+                return None
+            caches, tokens = st.point_caches, plen + st.snap_end_at
+            return lambda: self._publish_snapshot(caches, "point", tokens)
+        if plen + len(st.tokens) > self._min_ring_len():
             return None
         return lambda: self._publish_snapshot(self.backend.snapshot_slot(slot),
-                                              tokens=plen + len(st.tokens))
+                                              "positional", plen + len(st.tokens))
+
+    def _attach_match_snapshot(self, st: _SlotPrefill, slot: int) -> None:
+        """Observed-share capture (point stacks): this request matched a
+        prefix in the memory plane but found no point snapshot at its
+        boundary, so it recomputed the shared run; now that its prefill
+        stands exactly there, hang the state on the matched node (pinned by
+        this session), so the next borrower skips it."""
+        node = st.match.node if st.match is not None else None
+        if node is None or node.parent is None or node.payload is not None:
+            return
+        handle = self._publish_snapshot(self.backend.snapshot_slot(slot), "point",
+                                        self.backend.prefix_len() + st.done)
+        if handle is not None:
+            node.payload = handle
 
     def live_snapshot_bytes(self) -> float:
         """Bytes of metered donor snapshots resident in the KV tier."""
@@ -1072,6 +1175,14 @@ class ServeEngine:
             self.sched.stats.prefill_chunks += 1
             st.done += len(ck.tokens)
             st.req.prompt_pos = min(st.done, st.req.prompt_len)
+            # point stacks: the state is capturable only at the boundary
+            # itself (chunks end on the page grid, so they land there)
+            if st.snap_match_at is not None and st.done == st.snap_match_at:
+                self._attach_match_snapshot(st, ck.slot)
+                st.snap_match_at = None
+            if (st.snap_end_at is not None and st.done == st.snap_end_at
+                    and st.point_caches is None):
+                st.point_caches = self.backend.snapshot_slot(ck.slot)
             rpt.prefill_tokens += len(ck.tokens)
             self.prefill_tokens_computed += len(ck.tokens)
             if ck.last:

@@ -3,7 +3,8 @@ reduced qwen3-8b in fp32, on the paged plane, with the same weights and
 prompts: the same greedy tokens and memory-plane report fields; within the
 port, a prefix hit decodes the same tokens as a cold start with zero copy
 bytes, the decode-masking audit passes, and migrated pages serve a hit.
-The engine's entry points refuse to run without a device that exists."""
+The engine's entry points refuse to run without a device that exists, and
+the ring path serves an SSM stack."""
 import jax
 import numpy as np
 import pytest
@@ -135,10 +136,19 @@ def test_engine_refuses_missing_device_and_unported_paths(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(cfg, params, mem, EngineConfig(**ECFG), account_cfg=full)
-    # the ring path serves attention stacks; an SSM stack's rings are A.6
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ServeEngine(reduced(get_config("mamba2-2.7b")), params, mem,
-                    EngineConfig(**{**ECFG, "paged_kernel": False}),
-                    device="cpu")
+    # the ring path serves an SSM stack too: it decodes the paged plane's tokens
+    from repro_torch.models import init_params
+    ssm = reduced(get_config("mamba2-2.7b"), dtype="float32", param_dtype="float32")
+    ssm_params = init_params(ssm, 0, device="cpu")
+    outs = []
+    for paged in (False, True):
+        eng = ServeEngine(ssm, ssm_params, MemorySystem({"mrm": (MRM_RRAM, 64 << 30),
+                                                         "hbm": (HBM3E, 16 << 30)}),
+                          EngineConfig(**{**ECFG, "paged_kernel": paged}),
+                          device="cpu")
+        eng.submit(list(range(2, 40)), 4)
+        eng.run_until_idle()
+        outs.append(eng.outputs[0])
+    assert outs[0] == outs[1] and len(outs[0]) == 4
     with pytest.raises(NotImplementedError, match="A.8"):
         _engine(setup, inject_rber=1e-6)

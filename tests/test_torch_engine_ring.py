@@ -15,8 +15,10 @@ the same weights and prompts at the reference's engine flags (page 16,
   snapshot on the ring path (``seed_copy_bytes`` > 0) and nothing on the
   paged plane;
 - the decode-masking audit catches a ring write to an inactive slot;
-- MLA, SSM and hybrid stacks refuse the ring path, citing ROADMAP A.6,
-  and the launcher serves ``--paged-kernel off`` on the CPU.
+- MLA, SSM and hybrid stacks build ring engines that serve (their whole
+  suite: ``tests/test_torch_engine_ring_point.py`` and
+  ``tests/test_torch_engine_ring_multiarch.py``), and the launcher serves
+  ``--paged-kernel off`` on the CPU for every family.
 """
 import contextlib
 import io
@@ -178,11 +180,20 @@ def test_decode_audit_catches_an_unmasked_ring_write(setups, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b"])
-def test_ring_path_refuses_mla_ssm_hybrid(arch):
-    cfg = reduced(get_config(arch))
-    mem = _mem(MemorySystem, MRM_RRAM, HBM3E)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ServeEngine(cfg, {}, mem, EngineConfig(**ECFG), device="cpu")
+def test_ring_path_refuses_mla_ssm_hybrid(setups, arch):
+    """Once refused (ROADMAP A.6), now served: the same construction gives
+    a ring engine whose rings are the family's, and it decodes the JAX
+    ring engine's tokens on one short prompt."""
+    setup = setups(arch)
+    prompt = _prompts(setup[4], (5,))[0]
+    jeng, teng = _jax_engine(setup), _engine(setup)
+    leaf_names = {"deepseek-v2-lite-16b": {"ckr", "pos"}, "mamba2-2.7b": {"conv", "state"},
+                  "hymba-1.5b": {"attn", "ssm"}}[arch]
+    assert set(teng.backend.caches[0][0]) == leaf_names
+    for eng in (jeng, teng):
+        eng.submit(prompt, 3)
+        eng.run_until_idle()
+    assert [int(t) for t in teng.outputs[0]] == [int(t) for t in jeng.outputs[0]]
 
 
 def test_ring_page_size_must_divide_every_ring(setups):
@@ -199,7 +210,7 @@ def test_launcher_serves_ring_path_on_cpu():
     assert json.loads(out.getvalue()) == json.loads(json.dumps(rep, default=float))
     assert rep["finished"] == 2 and rep["tokens_generated"] == 8
     assert rep["prefix"]["snapshots_published"] >= 1
-    with pytest.raises(NotImplementedError, match="A.6"):
-        with contextlib.redirect_stdout(io.StringIO()):
-            torch_serve.main(["--arch", "mamba2-2.7b", "--device", "cpu",
-                              "--paged-kernel", "off", "--requests", "1"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = torch_serve.main(["--arch", "mamba2-2.7b", "--device", "cpu",
+                                "--paged-kernel", "off", "--requests", "1"])
+    assert rep["finished"] == 1 and rep["prefix"]["snapshot_kind"] == "point"

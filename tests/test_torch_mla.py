@@ -13,7 +13,8 @@ initialiser:
   (one dense layer, three MoE layers) within 1e-5, and its latent pools
   within 1e-5 or twice the reference's own drift under a one-ulp weight
   nudge, whichever is more (the fourth layer's pool drifts ~2e-5);
-- the wrapper takes the latent head widths, and what is not ported raises.
+- the wrapper takes the latent head widths, what is not ported raises, and
+  the ring mode gives the paged extend's output.
 The engine on this stack: ``tests/test_torch_engine_mla.py``."""
 import jax
 import jax.numpy as jnp
@@ -136,9 +137,20 @@ def test_mla_sublayer_refuses_what_is_not_ported(setup):
     x = torch.zeros(1, 4, cfg.d_model)
     with pytest.raises(NotImplementedError, match="A.4"):
         tmla.mla_sublayer(cfg, p, x, positions=torch.arange(4), mode="train")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tmla.mla_sublayer(cfg, p, x, positions=torch.arange(4), mode="extend",
-                          cache={"c": None})
+    # the ring mode (once ROADMAP A.6) serves: a chunk into an empty ring
+    # gives the paged extend's output on empty pages
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 4, cfg.d_model)).astype(np.float32))
+    ring_out, ring = tmla.mla_sublayer(cfg, p, x, positions=torch.arange(4),
+                                       mode="extend", page_tokens=PT,
+                                       cache=tmla.mla_cache_init(cfg, 1, 2 * PT,
+                                                                 torch.float32))
+    paged_out, _ = tmla.mla_sublayer(
+        cfg, p, x, positions=torch.arange(4), mode="extend",
+        cache={"kv_pages": torch.zeros(3, PT, 2, 80)},
+        page_table=torch.tensor([[1, 2]], dtype=torch.int32))
+    _close(ring_out.numpy(), paged_out.numpy())
+    assert ring["pos"][0, :4].tolist() == [0, 1, 2, 3]
     with pytest.raises(NotImplementedError, match="A.4"):
         ttfm.loss_and_metrics(cfg, ttfm.init_params(cfg, 0, device="cpu"),
                               {"tokens": torch.zeros(1, 8, dtype=torch.long),

@@ -44,13 +44,21 @@ from test_torch_model import _paged_run
 from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 
-def _jax_layout(caches):
+def _jax_layout(caches, r=None):
     """A port ring tree in the JAX package's layout: each ``{"kv", "pos"}``
-    as ``{"k", "v", "pos"}``."""
+    as ``{"k", "v", "pos"}``, an MLA ``{"ckr", "pos"}`` as ``{"c", "kr",
+    "pos"}`` (``r`` the latent rank); SSM rings are laid out alike."""
     if isinstance(caches, dict):
-        k, v = split_kv(caches["kv"])
-        return {"k": k, "v": v, "pos": caches["pos"]}
-    return tuple(_jax_layout(c) for c in caches)
+        if "kv" in caches:
+            k, v = split_kv(caches["kv"])
+            return {"k": k, "v": v, "pos": caches["pos"]}
+        if "ckr" in caches:
+            ckr = caches["ckr"][..., 0, :]
+            return {"c": ckr[..., :r], "kr": ckr[..., r:], "pos": caches["pos"]}
+        if "attn" in caches:
+            return {"attn": _jax_layout(caches["attn"]), "ssm": caches["ssm"]}
+        return caches
+    return tuple(_jax_layout(c, r) for c in caches)
 
 
 def _assert_cache_equal(tcache, jcache):
@@ -229,23 +237,23 @@ def test_new_configs_paged_steps_match_jax(arch):
 
 
 def test_init_caches_layout_and_refusals():
-    for arch in ("gemma2-27b", "qwen3-8b"):
+    """Every family's rings (MLA, SSM and hybrid ones refused until ROADMAP
+    A.6 closed) in the JAX package's layout: leaf for leaf, shapes, dtypes
+    and values."""
+    for arch in ("gemma2-27b", "qwen3-8b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "hymba-1.5b"):
         jcfg = jax_reduced(jax_get_config(arch))
         cfg = reduced(get_config(arch))
         want = jax.tree_util.tree_flatten_with_path(
             jtfm.init_caches(jcfg, 3, 96, jnp.bfloat16))[0]
         got = tree_leaves(_jax_layout(ttfm.init_caches(cfg, 3, 96, torch.bfloat16,
-                                                       device="cpu")))
+                                                       device="cpu"), cfg.kv_lora_rank))
         assert len(got) == len(want)
         for (path, a), t in zip(want, got):
             a = np.asarray(a)
             assert tuple(t.shape) == a.shape, path
             assert str(t.dtype) == f"torch.{a.dtype.name}", path
             assert np.array_equal(t.float().numpy(), a.astype(np.float32)), path
-    for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            ttfm.init_caches(reduced(get_config(arch)), 1, 64, torch.float32,
-                             device="cpu")
 
 
 def test_windowed_ring_extend_loses_in_window_keys():

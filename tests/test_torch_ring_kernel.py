@@ -12,7 +12,7 @@ against the JAX package. Inputs are made with numpy and handed to both.
   own sweep (``tests/test_kernels.py``), fp32 and bf16, and its windowed
   case; the extend view against JAX's ``extend_attention``.
 - The wrapper: positions both or neither, CPU tensors to the plain
-  version, and the latent-head kernel's missing position mode (A.6).
+  version, the latent head's position mode included.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -256,13 +256,17 @@ def test_wrapper_positions_both_or_neither_and_cpu_routing():
 
 
 def test_latent_kernel_refuses_positions():
-    """bf16 at D 576 is the latent-head (MLA) kernel, which has no position
-    mode yet: the wrapper refuses on every device, citing A.6."""
-    q = torch.zeros(1, 16, 576, dtype=torch.bfloat16)
-    kvp = torch.zeros(1, 16, 2, 576, dtype=torch.bfloat16)
-    one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ragged_paged_attention(q, kvp, torch.zeros(1, 1, dtype=torch.int32),
-                               torch.tensor([0, 1], dtype=torch.int32),
-                               torch.tensor([16], dtype=torch.int32), scale=0.1,
-                               q_pos=one, kv_pos_pages=torch.zeros(1, 16, dtype=torch.int32))
+    """bf16 at D 576 is the latent-head (MLA) kernel, which once refused
+    positions (ROADMAP A.6): the same call now returns the plain version's
+    output, two planes and one."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 16, 576, generator=g).to(torch.bfloat16)
+    kvp = torch.randn(1, 16, 2, 576, generator=g).to(torch.bfloat16)
+    one = torch.zeros(1, dtype=torch.int32) + 9
+    args = (torch.zeros(1, 1, dtype=torch.int32), torch.tensor([0, 1], dtype=torch.int32),
+            torch.tensor([16], dtype=torch.int32))
+    kw = dict(scale=0.1, q_pos=one, kv_pos_pages=torch.arange(16, dtype=torch.int32)[None])
+    for pages, v_from_k in ((kvp, False), (kvp[:, :, :1].contiguous(), True)):
+        out = ragged_paged_attention(q, pages, *args, v_from_k=v_from_k, **kw)
+        ref = ragged_paged_attention_ref(q, pages, *args, v_from_k=v_from_k, **kw)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, ref)

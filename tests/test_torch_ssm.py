@@ -163,9 +163,18 @@ def test_sublayer_refuses_ring_path_and_missing_page_size():
     x = torch.zeros((1, 2, cfg.d_model))
     cache = {k: torch.from_numpy(v) for k, v in pools.items()}
     tbl = torch.tensor([[1, 0]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tssm.ssm_sublayer(cfg, p, x, cache=None, mode="extend",
-                          positions=torch.arange(2))
+    # the ring mode (once ROADMAP A.6) serves: a chunk from a fresh ring
+    # equals the reference's, output and carried state
+    x = torch.from_numpy(rng.normal(0, 1, (1, 2, cfg.d_model)).astype(np.float32))
+    ring = tssm.ssm_cache_init(cfg, 1, torch.float32)
+    tout, _ = tssm.ssm_sublayer(cfg, p, x, cache=ring, mode="extend",
+                                positions=torch.arange(2))
+    jout, jring = jssm.ssm_sublayer(
+        jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(x.numpy()),
+        cache=jssm.ssm_cache_init(jcfg, 1, jnp.float32), mode="extend",
+        positions=jnp.arange(2))
+    _close(tout.numpy(), jout, 2e-4)
+    _close(ring["state"].numpy(), jring["state"], 2e-4)
     with pytest.raises(ValueError, match="page_tokens"):
         tssm.ssm_sublayer(cfg, p, x, cache=cache, mode="extend",
                           positions=torch.arange(2), page_table=tbl)
