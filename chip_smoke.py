@@ -6,9 +6,11 @@ layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
 (mixtral-8x22b), multi-codebook audio (musicgen-large), a vision prefix
 (internvl2-76b) and the ring-cache path beside the paged one
 (gemma2-27b: alternating 4096/global windows; mamba2-2.7b, hymba-1.5b and
-deepseek-v2-lite-16b), the training path (gemma-2b), and their five
-kernels, ragged paged attention in both its position modes (the latent
-head's too, reading one plane or two).
+deepseek-v2-lite-16b), the fleet (two engine replicas behind the cluster
+frontend, prefixes migrating between them under the lockstep and the
+event clock) and fault injection into live pages, the training path
+(gemma-2b), and their five kernels, ragged paged attention in both its
+position modes (the latent head's too, reading one plane or two).
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -124,12 +126,27 @@ Phases, each printing one JSON line:
                  CPU, logits and every ring leaf), and reduced hymba (page
                  4) and deepseek ring and paged engines decoding the same
                  tokens on CUDA;
+6b. reduced fleet — two replicas of a reduced fp32 engine (page and chunk
+                 16) behind ``ClusterFrontend`` with prefix migration forced
+                 (``migrate_load_gap=-1``), on CUDA: deepseek-7b, mamba2-2.7b,
+                 deepseek-v2-lite-16b and hymba-1.5b on the ring path
+                 (positional, point, MLA and hybrid snapshots shipped as host
+                 tensors) and qwen3-8b on the paged plane (pages shipped),
+                 lockstep and event clocks: a migrated hit skipped prefill on
+                 the receiver, the fan-out decodes a cold CUDA engine's
+                 tokens, lockstep tokens equal event tokens, and the fleet
+                 report sums its replicas' tokens and tier bytes;
+6c. reliability — the three arms of ``benchmarks/serving_sim.py``'s
+                 reliability gate (clean, protected with scrub-on-read,
+                 over-aged without refresh) on reduced fp32 deepseek-7b, on
+                 CUDA with the gate's thresholds, and each arm's injection
+                 counters equal to the same arm on the CPU;
 7. reduced train — reduced gemma-2b (head_dim 256) in fp32, same weights
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
                  plain versions) within 1e-4, and on CUDA a save / restore
                  / resume that continues the loss;
-8. full-width grads — gemma-2b at full width, 6 layers, fp32, 1 x 512
+8. full-width grads — gemma-2b at full width, 3 layers, fp32, 1 x 512
                  tokens: loss and every gradient leaf on CUDA (the kernels)
                  against the CPU (the plain versions) within 1e-4, with
                  conditioned wq/wk; for both initialisations it records the
@@ -141,6 +158,17 @@ Phases, each printing one JSON line:
                  ``ServeEngine`` with ``launch/serve.py``'s defaults, 8 requests
                  x 16 new tokens behind a shared 32-token head; every layer
                  of every model call launched the attention kernel;
+9b. fleet serve — two qwen3-8b engines on the serve phase's weights (no
+                 second draw) behind the launcher's cluster frontend with
+                 ``--migrate-prefixes`` (gap forced to -1), the same traffic,
+                 under the lockstep clock and the event clock: migrations,
+                 ragged paged attention launched in both replicas (each
+                 count read from zero), fleet decode tokens/s, wall, peak
+                 memory, the idle share, migration bytes and time, the event
+                 trace digest, and the share of event tokens equal to
+                 lockstep tokens (recorded: bf16 ties); then one engine on
+                 the same weights with ``--inject-rber 1e-3 --ecc-profile
+                 domain``: pages visited, flips, wall beside the clean run;
 10. ssm serve  — the same for mamba2-2.7b (64 layers, d 2560, 80 SSD heads
                  of 64, state 128, vocab 50280, bf16), after the qwen3-8b
                  engine is freed; every layer of every prefill chunk
@@ -1862,7 +1890,7 @@ def reduced_frontend_phase(torch, cfg_mod, tfm, param, serve, frontends, arch):
 
 
 def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None,
-              ring_slots=None):
+              ring_slots=None, keep=None):
     """Drive one serving path once at full width: ``arch`` with nothing
     reduced but, where ``layers`` is given, its depth (the first ``layers``
     layers; the memory plane still meters the published config, as the
@@ -1875,7 +1903,9 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None,
     (``--paged-kernel off``, rings of ``ring_slots``) serves the same
     prompts on the same weights (``drive_ring_serve``); its stats, with the
     share of its tokens equal to the paged engine's, land in
-    ``stats["ring"]`` and its launches in ``stats["ring_launches"]``.
+    ``stats["ring"]`` and its launches in ``stats["ring_launches"]``. A
+    ``keep`` dict receives the weights, configs, arguments and prompts, for
+    a later phase to serve on the same draw.
     Returns (cfg, report, launches, stats), ``cfg`` the config that
     computed."""
     import dataclasses
@@ -1936,6 +1966,10 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None,
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
     decode_tokens = rep["tokens_generated"] - rep["finished"]
+    if keep is not None:
+        keep.update(cfg=cfg, full=full, params=params, prompts=prompts,
+                    wall_s=wall_s, tokens={k: [int(t) for t in v]
+                                           for k, v in eng.outputs.items()})
     stats = dict(
         arch=cfg.name, layers=cfg.num_layers, published_layers=full.num_layers,
         d_model=cfg.d_model,
@@ -1987,11 +2021,11 @@ def _require(phase: str, checks: dict) -> None:
         raise AssertionError(f"{phase} checks failed: {failed}")
 
 
-def serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
+def serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi, keep=None):
     """qwen3-8b: every layer of every model call launched the attention
-    kernel."""
+    kernel. ``keep`` receives the weights for the fleet phase."""
     cfg, rep, launches, st = run_serve(torch, cfg_mod, tfm, serve, param,
-                                       "qwen3-8b", kernels)
+                                       "qwen3-8b", kernels, keep=keep)
     n = launches["ragged_paged_attention"]
     calls = st["model_calls"]
     checks = {
@@ -2355,6 +2389,416 @@ def ring_serve_phase(torch, cfg_mod, tfm, serve, param, kernels, smi):
 # Training: reduced gemma-2b CUDA vs CPU, then full width and depth
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the fleet: the cluster frontend over torch replicas, and fault injection
+# ---------------------------------------------------------------------------
+
+FLEET_ARCHS = (("deepseek-7b", False), ("mamba2-2.7b", False),
+               ("deepseek-v2-lite-16b", False), ("hymba-1.5b", False),
+               ("qwen3-8b", True))          # (arch, paged plane): the ring path else
+FLEET_ECFG = dict(max_slots=2, max_cache_len=96, weight_tier="hbm", kv_tier="mrm",
+                  eos_token=-1, chunk_tokens=16, page_tokens=16)
+# which kernel entry each reduced-fleet arch's launches land in
+FLEET_MODES = {"deepseek-7b": "ragged_paged_attention_positions",
+               "hymba-1.5b": "ragged_paged_attention_positions",
+               "deepseek-v2-lite-16b": "ragged_paged_attention_latent_positions",
+               "qwen3-8b": "ragged_paged_attention"}
+
+
+def fleet_prompts():
+    """The reference tests' fan-out: a 48-token shared head alone, then
+    three prompts behind it, each on its own session key."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    shared = [int(x) for x in rng.integers(2, 400, 48)]
+    return [list(shared)] + [shared + [int(x) for x in rng.integers(2, 400, 8)]
+                             for _ in range(3)]
+
+
+def fleet_sums_match(rep) -> bool:
+    """The fleet report's tokens and per-tier bytes equal the sums of its
+    per-replica reports."""
+    reps = rep["per_replica"]
+    if rep["tokens_generated"] != sum(r["tokens_generated"] for r in reps):
+        return False
+    for name, tier in rep["tiers"].items():
+        for k in ("read_gb", "write_gb"):
+            total = 0.0
+            for r in reps:
+                total += r["memory"]["tiers"][name][k]
+            if tier[k] != total:
+                return False
+    return True
+
+
+def reduced_fleet_phase(torch, cfg_mod, tfm, kernels):
+    """Two replicas of a reduced fp32 engine (page and chunk 16: the
+    reference tests' settings) behind ``ClusterFrontend`` with
+    ``migrate_prefixes=True`` and ``migrate_load_gap=-1`` (a queued owner
+    always loses the request), on CUDA, for deepseek-7b (ring, positional
+    snapshots), mamba2-2.7b (ring, point snapshots), deepseek-v2-lite-16b
+    (the MLA ring), hymba-1.5b (the hybrid ring) and qwen3-8b (paged), under
+    the lockstep and the event clock: a migrated hit that skipped prefill on
+    the receiver, the fan-out's tokens equal to a cold CUDA engine's, the
+    lockstep tokens equal to the event tokens, and the fleet report's tokens
+    and per-tier bytes equal to the sums of the per-replica reports. Every
+    wrapper's count is zeroed before each fleet run and read after it.
+    Returns each kernel entry's launches on these runs."""
+    from repro_torch.core.memclass import HBM3E, MRM_RRAM
+    from repro_torch.core.simulator import MemorySystem
+    from repro_torch.serving import ClusterFrontend, EngineConfig, ServeEngine
+    prompts = fleet_prompts()
+
+    def engine(cfg, full, params, paged, **kw):
+        mem = MemorySystem({"mrm": (MRM_RRAM, 64 << 30), "hbm": (HBM3E, 16 << 30)})
+        return ServeEngine(cfg, params, mem,
+                           EngineConfig(**FLEET_ECFG, paged_kernel=paged, **kw),
+                           account_cfg=full, device="cuda")
+
+    by_entry, results, checks = {}, {}, {}
+    for arch, paged in FLEET_ARCHS:
+        full = cfg_mod.get_config(arch)
+        cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
+        params = tfm.init_params(cfg, 0, device="cuda")
+        runs = {}
+        for clock in ("lockstep", "event"):
+            fe = ClusterFrontend([engine(cfg, full, params, paged) for _ in range(2)],
+                                 migrate_prefixes=True, migrate_load_gap=-1,
+                                 clock_mode=clock, record_trace=True)
+            for fn in kernels:
+                fn.launches = 0
+            rids = []
+            for i, pr in enumerate(prompts):
+                rids.append(fe.submit(list(pr), 6, session_key=f"u{i}"))
+                fe.run_until_idle()
+            rep = fe.run_until_idle()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            home = fe.replica_of(rids[0])
+            runs[clock] = dict(
+                tokens=[[int(t) for t in fe.output(r)] for r in rids],
+                replicas=sorted({fe.replica_of(r) for r in rids}),
+                hits_migrated=rep["prefix_hits_migrated"],
+                migrations=rep["interconnect"]["migrations"],
+                migration_bytes=rep["interconnect"]["migration_bytes"],
+                receiver_skipped=fe.engines[1 - home].prefill_tokens_skipped,
+                snapshot_kinds=sorted({n.payload.kind for e in fe.engines
+                                       for n in e.kv.radix.nodes()
+                                       if getattr(n.payload, "live", False)}),
+                sums_match=fleet_sums_match(rep), digest=fe.trace.digest(),
+                launches=launches)
+            entry = FLEET_MODES.get(arch)
+            if entry:
+                by_entry[entry] = (by_entry.get(entry, 0)
+                                   + launches["ragged_paged_attention"])
+            for name in ("ssd_scan", "flash_attention_fwd"):
+                by_entry[name] = by_entry.get(name, 0) + launches[name]
+            del fe
+        cold = engine(cfg, full, params, paged, prefix_caching=False)
+        for pr in prompts:
+            cold.submit(list(pr), 6)
+            cold.run_until_idle()
+        cold_tokens = [[int(t) for t in cold.outputs[i]] for i in range(len(prompts))]
+        lk, ev = runs["lockstep"], runs["event"]
+        kinds = {"ragged_paged_attention": arch in FLEET_MODES,
+                 "ssd_scan": arch in ("mamba2-2.7b", "hymba-1.5b"),
+                 "flash_attention_fwd": not paged and arch in ("deepseek-7b",
+                                                               "hymba-1.5b")}
+        checks[arch] = {
+            "migrated_hit": all(r["hits_migrated"] >= 1 for r in runs.values()),
+            "receiver_skipped": all(r["receiver_skipped"] > 0 for r in runs.values()),
+            "crossed_replicas": all(r["replicas"] == [0, 1] for r in runs.values()),
+            "tokens_equal_cold": lk["tokens"] == cold_tokens,
+            "lockstep_equals_event": lk["tokens"] == ev["tokens"],
+            "report_sums": lk["sums_match"] and ev["sums_match"],
+            "kernels_launched": all(r["launches"][k] > 0 for r in runs.values()
+                                    for k, on in kinds.items() if on),
+        }
+        results[arch] = {"engine": "paged" if paged else "ring", **{
+            c: {k: v for k, v in r.items() if k != "tokens"} for c, r in runs.items()}}
+        del cold, params
+        gc.collect()
+    emit("reduced_fleet", dtype="float32", page_tokens=16, chunk_tokens=16,
+         migrate_load_gap=-1, runs=results, launches=by_entry, checks=checks)
+    _require("reduced fleet", {f"{a}.{k}": ok for a, c in checks.items()
+                               for k, ok in c.items()})
+    return by_entry
+
+
+def drive_fleet(torch, serve, args, cfg, full, params, prompts, rpa, kernels,
+                clock, profiled=True):
+    """Two qwen3-8b engines on ``params`` (one draw) behind the launcher's
+    ``build_cluster`` under ``clock``, on ``prompts`` as the serve phase
+    drives them (the first alone, publishing the head, then the rest, 16
+    new tokens each, session keys as the launcher gives them), under the
+    profiler for the idle share unless ``profiled`` is False. Each
+    replica's ragged-paged-attention launches are the wrapper's count's
+    growth over that replica's model calls, read from zero. Returns
+    (stats, tokens)."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    args.clock = clock
+    engines = [serve.build_engine(args, cfg, full, params, device="cuda")
+               for _ in range(2)]
+    per_replica, decode_s, finite = [0, 0], [0.0], []
+    for i, eng in enumerate(engines):
+        eng.ecfg.eos_token = -1     # random weights may emit the default eos
+        b = eng.backend
+
+        def counted(fn, i=i, decode=False):
+            def run(*a, **kw):
+                n0, t = rpa.launches, time.perf_counter()
+                out = fn(*a, **kw)          # ends in a host copy: synchronous
+                if decode:
+                    decode_s[0] += time.perf_counter() - t
+                per_replica[i] += rpa.launches - n0
+                return out
+            return run
+
+        def checked_sample(logits, sample=b.sample):
+            finite.append(bool(torch.isfinite(logits).all()))
+            return sample(logits)
+
+        b.run_prefill_chunk = counted(b.run_prefill_chunk)
+        b.run_decode = counted(b.run_decode, decode=True)
+        b.sample = checked_sample
+    shared = all(e.params is params and e.backend.params is params for e in engines)
+    fe = serve.build_cluster(args, engines)
+    # the default gap of 2 never fires on 8 requests over two replicas
+    fe.migrate_load_gap = -1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        rids = [fe.submit(prompts[0], max_new_tokens=args.max_new,
+                          session_key="session-0")]
+        fe.run_until_idle()
+        for i, pr in enumerate(prompts[1:], 1):
+            rids.append(fe.submit(pr, max_new_tokens=args.max_new,
+                                  session_key=f"session-{i % args.sessions}"))
+        rep = fe.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+    busy = device_busy_s(torch, prof) if profiled else None
+    inter = rep["interconnect"]
+    decode_tokens = rep["tokens_generated"] - rep["finished"]
+    stats = dict(
+        clock=clock, wall_s=wall_s, decode_s=decode_s[0], decode_tokens=decode_tokens,
+        fleet_decode_tokens_per_s=decode_tokens / decode_s[0],
+        tokens_per_s=rep["tokens_generated"] / wall_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        device_busy_s=busy, device_idle_share=None if busy is None else 1 - busy / wall_s,
+        finished=rep["finished"], tokens_generated=rep["tokens_generated"],
+        replicas_used=sorted({fe.replica_of(r) for r in rids}),
+        migrations=inter["migrations"], migration_bytes=inter["migration_bytes"],
+        migration_s=inter["migration_s"], migrated_tokens=inter["migrated_tokens"],
+        prefix_hits_migrated=rep["prefix_hits_migrated"],
+        prefill_tokens_skipped=rep["prefill_tokens_skipped"],
+        trace_digest=rep["trace"]["digest"], trace_events=rep["trace"]["n_events"],
+        rpa_launches_by_replica=per_replica, kernel_launches=launches,
+        weights_shared=shared,
+        sums_match=fleet_sums_match(rep), finite_logits=bool(finite) and all(finite))
+    tokens = [[int(t) for t in fe.output(r)] for r in rids]
+    del fe, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, tokens
+
+
+def fleet_serve_phase(torch, serve, param, kernels, smi, held):
+    """qwen3-8b at full width and depth on the ``serve`` phase's weights
+    (``held``: no second draw), two replicas behind the launcher's cluster
+    frontend with ``--migrate-prefixes``, the serve defaults' traffic,
+    under the lockstep clock and the event clock (each under the profiler,
+    then lockstep again without it): migrations happen (the load gap forced
+    to -1), ragged paged attention launched in both replicas in every run,
+    every request finished with finite logits.
+    Recorded, not held: the share of event tokens equal to lockstep tokens
+    (bf16 ties part them, ROADMAP §C.4). Then one engine on the same
+    weights and prompts with ``inject_rber=1e-3`` and the ``domain`` ECC
+    profile, driven as the serve phase drives it: its pages were visited,
+    its wall time beside the clean run's. Returns the fleets' and the
+    injected run's launch counts."""
+    rpa = kernels[0]
+    cfg, full, params, prompts = (held["cfg"], held["full"], held["params"],
+                                  held["prompts"])
+    weight_bytes = sum(t.numel() * t.element_size() for t in param.tree_leaves(params))
+    args = serve.parser().parse_args(["--arch", "qwen3-8b", "--replicas", "2",
+                                      "--migrate-prefixes"])
+    runs, tokens = {}, {}
+    for clock in ("lockstep", "event"):
+        runs[clock], tokens[clock] = drive_fleet(torch, serve, args, cfg, full, params,
+                                                 prompts, rpa, kernels, clock)
+    # the profiler's own cost, beside the single engine's unprofiled run
+    runs["lockstep_unprofiled"], _ = drive_fleet(torch, serve, args, cfg, full, params,
+                                                 prompts, rpa, kernels, "lockstep",
+                                                 profiled=False)
+    same = sum(a == b for x, y in zip(tokens["lockstep"], tokens["event"])
+               for a, b in zip(x, y))
+    event_equal_share = same / sum(map(len, tokens["event"]))
+    # one engine, the same traffic, faults injected into its live pages
+    args = serve.parser().parse_args(["--arch", "qwen3-8b", "--inject-rber", "1e-3",
+                                      "--ecc-profile", "domain"])
+    eng = serve.build_engine(args, cfg, full, params, device="cuda")
+    eng.ecfg.eos_token = -1
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(prompts[0], max_new_tokens=args.max_new)
+    eng.run_until_idle()
+    for pr in prompts[1:]:
+        eng.submit(pr, max_new_tokens=args.max_new)
+    rep = eng.run_until_idle()
+    torch.cuda.synchronize()
+    inject_wall = time.perf_counter() - t0
+    inject_launches = {fn.__name__: fn.launches for fn in kernels}
+    inj = rep["reliability"]["injection"]
+    same = sum(a == b for k, v in eng.outputs.items()
+               for a, b in zip(v, held["tokens"][k]))
+    injected = dict(inject_rber=1e-3, ecc_profile="domain", wall_s=inject_wall,
+                    clean_wall_s=held["wall_s"], injection=inj,
+                    finished=rep["finished"], tokens_generated=rep["tokens_generated"],
+                    tokens_equal_clean_share=same / max(rep["tokens_generated"], 1),
+                    kernel_launches=inject_launches)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {
+        **{f"{c}.{k}": ok for c, r in runs.items() for k, ok in {
+            "finished": r["finished"] == 8,
+            "tokens_generated": r["tokens_generated"] == 8 * 16,
+            "finite_logits": r["finite_logits"],
+            "migrations": r["migrations"] >= 1 and r["migration_bytes"] > 0,
+            "both_replicas_served": r["replicas_used"] == [0, 1],
+            # one weight draw: no replica copied it (peak within 10% of it)
+            "one_weight_copy": r["weights_shared"]
+            and r["peak_mem_bytes"] < 1.1 * weight_bytes,
+            "rpa_in_both_replicas": all(n > 0 for n in r["rpa_launches_by_replica"])
+            and sum(r["rpa_launches_by_replica"])
+            == r["kernel_launches"]["ragged_paged_attention"],
+            "report_sums": r["sums_match"]}.items()},
+        "event_trace": runs["event"]["trace_events"] > 0,
+        "inject_pages_visited": inj["pages_visited"] > 0,
+        "inject_finished": rep["finished"] == 8,
+    }
+    emit("fleet_serve", nvidia_smi=smi, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, replicas=2, migrate_load_gap=-1,
+         runs=runs, event_tokens_equal_lockstep_share=event_equal_share,
+         injected=injected, checks=checks)
+    _require("fleet serve", checks)
+    return ({c: runs[c]["kernel_launches"] for c in ("lockstep", "event")},
+            inject_launches)
+
+
+RELIABILITY_ARMS = {"clean": (None, True, 0.8), "protected": (1e-3, True, 0.8),
+                    "overaged": (1e-3, False, 8.0)}   # (rber, refresh, jump / deadline)
+
+
+def reliability_phase(torch, cfg_mod, tfm, param, kernels):
+    """The three arms of ``benchmarks/serving_sim.py::reliability`` through
+    the port, on reduced fp32 deepseek-7b (page and chunk 16, no tail copy,
+    the domain ECC profile, sessions of 600 s): clean; protected (RBER
+    1e-3 at retention, the clock jumped to 80% of the refresh deadline
+    after the first decode tokens, so scrub-on-read fires); over-aged
+    (refresh servicing off, the clock jumped past 4x retention). Its gates:
+    protected tokens match the clean run's on >= 95%, with no
+    uncorrectable block and scrubbed pages; the over-aged arm reports
+    uncorrectable blocks and matches below the protected arm and at most
+    90%. Each arm runs on CUDA (the kernels, flips XORed into the pages on
+    the card) and on the CPU (the plain versions), same weights: its
+    injection counters must be equal, since the draws come from one numpy
+    generator and the page visits follow the schedule, not the values.
+    Returns the CUDA arms' launches."""
+    import numpy as np
+    from repro_torch.core.memclass import HBM3E, MRM_RRAM
+    from repro_torch.core.simulator import MemorySystem
+    from repro_torch.serving import EngineConfig, ServeEngine
+    full = cfg_mod.get_config("deepseek-7b")
+    cfg = cfg_mod.reduced(full, dtype="float32", param_dtype="float32")
+    cpu_params = tfm.init_params(cfg, 0, device="cpu")
+    weights = {"cpu": cpu_params,
+               "cuda": param.tree_map(lambda a: a.to("cuda"), cpu_params)}
+    rng = np.random.default_rng(0)
+    head = [int(x) for x in rng.integers(2, cfg.vocab_size, 32)]
+    prompts = [head + [int(x) for x in rng.integers(2, cfg.vocab_size, 8)]
+               for _ in range(3)]
+    session_s = 600.0
+    deadline_s = 2.0 * session_s / 2.0      # retention 2x session, deadline half
+
+    def run_arm(arm, dev):
+        rber, refresh, jump = RELIABILITY_ARMS[arm]
+        mem = MemorySystem({"mrm": (MRM_RRAM, 1 << 40), "hbm": (HBM3E, 1 << 37)},
+                           ecc_profile="domain", service_refresh=refresh)
+        eng = ServeEngine(cfg, weights[dev], mem,
+                          EngineConfig(max_slots=2, max_cache_len=96, weight_tier="hbm",
+                                       kv_tier="mrm", eos_token=-1, chunk_tokens=16,
+                                       page_tokens=16, tail_copy=False, paged_kernel=True,
+                                       expected_session_s=session_s, inject_rber=rber,
+                                       inject_seed=0),
+                          account_cfg=full, device=dev)
+        for pr in prompts:
+            eng.submit(list(pr), 6)
+        steps = 0
+        while not eng.sched.idle and eng.tokens_generated < 2 and steps < 500:
+            eng.step()
+            steps += 1
+        eng.mem.advance(jump * deadline_s)
+        rep = eng.run_until_idle()
+        return (eng.kv.lifecycle.stats.scrubbed_pages, rep["reliability"],
+                {k: [int(t) for t in v] for k, v in eng.outputs.items()})
+
+    def match(a, b):
+        total = hits = 0
+        for k, toks in a.items():
+            other = b.get(k, [])
+            total += max(len(toks), len(other))
+            hits += sum(x == y for x, y in zip(toks, other))
+        return hits / max(total, 1)
+
+    arms, launches = {}, {}
+    for arm in RELIABILITY_ARMS:
+        for fn in kernels:
+            fn.launches = 0
+        arms[arm] = {"cuda": run_arm(arm, "cuda")}
+        launches[arm] = {fn.__name__: fn.launches for fn in kernels}
+        arms[arm]["cpu"] = run_arm(arm, "cpu")
+    clean = arms["clean"]["cuda"][2]
+    (p_scrub, p_rel, p_out), (_, o_rel, o_out) = (arms["protected"]["cuda"],
+                                                  arms["overaged"]["cuda"])
+    prot_match, over_match = match(clean, p_out), match(clean, o_out)
+    checks = {
+        "protected_match": prot_match >= 0.95,
+        "protected_no_uncorrectable": p_rel["injection"]["uncorrectable_blocks"] == 0,
+        "protected_scrubbed": p_scrub > 0
+        and p_rel["tiers"]["mrm"]["scrub_read_bytes"] > 0,
+        "overaged_uncorrectable": o_rel["injection"]["uncorrectable_blocks"] > 0,
+        "overaged_degrades": over_match < prot_match and over_match <= 0.9,
+        **{f"{arm}.injection_cuda_equals_cpu":
+           a["cuda"][1].get("injection") == a["cpu"][1].get("injection")
+           and a["cuda"][0] == a["cpu"][0] for arm, a in arms.items()},
+        "paged_kernel_launched": all(n["ragged_paged_attention"] > 0
+                                     for n in launches.values()),
+    }
+    emit("reliability", arch=cfg.name, dtype="float32", inject_rber=1e-3,
+         protected_match=prot_match, overaged_match=over_match,
+         cpu_protected_match=match(arms["clean"]["cpu"][2], arms["protected"]["cpu"][2]),
+         cpu_overaged_match=match(arms["clean"]["cpu"][2], arms["overaged"]["cpu"][2]),
+         arms={arm: {"scrubbed_pages": a["cuda"][0],
+                     "injection": a["cuda"][1].get("injection"),
+                     "cpu_injection": a["cpu"][1].get("injection"),
+                     "tokens_equal_cpu_share": match(a["cpu"][2], a["cuda"][2])}
+               for arm, a in arms.items()},
+         launches=launches, checks=checks)
+    _require("reliability", checks)
+    return sum(n["ragged_paged_attention"] for n in launches.values())
+
+
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=6)
 
 
@@ -2432,7 +2876,7 @@ def reduced_train_phase(torch, cfg_mod, tfm, param, optim, train, data, ckpt):
 
 
 def full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops, fref):
-    """gemma-2b at full width, 6 layers, fp32, one batch of 1 x 512 tokens:
+    """gemma-2b at full width, 3 layers, fp32, one batch of 1 x 512 tokens:
     loss and gradients through the flash kernels (CUDA) against the plain
     versions (CPU), at the reference's initialisation and with conditioned
     wq/wk. With conditioned weights CUDA must agree with the CPU within
@@ -2445,7 +2889,7 @@ def full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops, 
     (B 1, S 512, H 8, Hkv 1, D 256): the kernels and the plain versions in
     fp32, each against the plain versions in float64."""
     import dataclasses
-    cfg = dataclasses.replace(cfg_mod.get_config("gemma-2b"), num_layers=6,
+    cfg = dataclasses.replace(cfg_mod.get_config("gemma-2b"), num_layers=3,
                               dtype="float32", param_dtype="float32")
     pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=512, global_batch=1,
                                                        seed=0))
@@ -2654,14 +3098,24 @@ def main() -> int:
     timed("reduced ring", reduced_ring_phase, torch, cfg_mod, tfm, param, serve)
     timed("reduced ring multiarch", reduced_ring_multiarch_phase, torch, cfg_mod, tfm,
           param, serve)
+    fleet_launches = timed("reduced fleet", reduced_fleet_phase, torch, cfg_mod, tfm,
+                           kernels)
+    rel_launches = timed("reliability", reliability_phase, torch, cfg_mod, tfm, param,
+                         kernels)
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
     timed("full-width grads", full_width_grad_phase, torch, cfg_mod, tfm, param,
           optim, train, data, fops, fref)
+    held = {}                        # the serve phase's weights, for the fleet
     rpa_launches = timed("serve", serve_phase, torch, cfg_mod, tfm, serve, param,
-                         kernels, smi)
-    gc.collect()                     # the qwen3-8b engine and weights
+                         kernels, smi, held)
+    gc.collect()                     # the qwen3-8b engine
+    torch.cuda.empty_cache()
+    fleet_serve_launches, inject_launches = timed(
+        "fleet serve", fleet_serve_phase, torch, serve, param, kernels, smi, held)
+    del held
+    gc.collect()                     # the qwen3-8b weights
     torch.cuda.empty_cache()
     ssd_launches, ssm_ring = timed("ssm serve", ssm_serve_phase, torch, cfg_mod, tfm,
                                    serve, param, kernels, smi)
@@ -2704,19 +3158,29 @@ def main() -> int:
             "hymba-1.5b serve": hybrid_launches["ragged_paged_attention"],
             "deepseek-v2-lite-16b serve": mla_launches,
             **{f"{arch} serve": n for arch, n in frontend_launches.items()},
-            "gemma2-27b paged serve": ring_paged_launches["ragged_paged_attention"]},
+            "gemma2-27b paged serve": ring_paged_launches["ragged_paged_attention"],
+            **{f"qwen3-8b fleet serve {clock}": n["ragged_paged_attention"]
+               for clock, n in fleet_serve_launches.items()},
+            "qwen3-8b inject serve": inject_launches["ragged_paged_attention"],
+            "reduced fleet": fleet_launches.get("ragged_paged_attention", 0),
+            "reduced reliability": rel_launches},
         "ragged_paged_attention_positions": {
             "gemma2-27b ring serve": ring_launches["ragged_paged_attention"],
-            "hymba-1.5b ring serve": hybrid_ring["ragged_paged_attention"]},
+            "hymba-1.5b ring serve": hybrid_ring["ragged_paged_attention"],
+            "reduced fleet": fleet_launches.get("ragged_paged_attention_positions", 0)},
         "ragged_paged_attention_latent_positions": {
-            "deepseek-v2-lite-16b ring serve": mla_ring["ragged_paged_attention"]},
+            "deepseek-v2-lite-16b ring serve": mla_ring["ragged_paged_attention"],
+            "reduced fleet": fleet_launches.get(
+                "ragged_paged_attention_latent_positions", 0)},
         "flash_attention_fwd": {"gemma-2b train": fa_launches["flash_attention_fwd"],
                                 "gemma2-27b ring serve": ring_launches["flash_attention_fwd"],
-                                "hymba-1.5b ring serve": hybrid_ring["flash_attention_fwd"]},
+                                "hymba-1.5b ring serve": hybrid_ring["flash_attention_fwd"],
+                                "reduced fleet": fleet_launches["flash_attention_fwd"]},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches["ssd_scan"],
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"],
                      "mamba2-2.7b ring serve": ssm_ring["ssd_scan"],
-                     "hymba-1.5b ring serve": hybrid_ring["ssd_scan"]}}
+                     "hymba-1.5b ring serve": hybrid_ring["ssd_scan"],
+                     "reduced fleet": fleet_launches["ssd_scan"]}}
 
     def times(t):
         return {k: t[k] for k in ("ms", "view_ms", "plain_ms", "bound_ms", "bound_by",

@@ -20,9 +20,20 @@ every layer, KV and state pages under one table, 128 meta tokens),
 instead, reading each attention or MLA ring through the paged kernel's
 explicit-position mode at ``--page-tokens``-slot pages and carrying SSM
 state per slot, with point snapshots for SSM and hybrid prefixes.
+With ``--replicas N`` a :class:`~repro_torch.serving.ClusterFrontend`
+fans the requests across N engine replicas that share one weight draw
+(fleet prefix-directory routing, ``--clock lockstep`` or ``event``, an
+aggregated fleet report); ``--migrate-prefixes`` lets the directory move a
+hot prefix (pages, or a ring snapshot) to a less-loaded replica.
+``--inject-rber`` flips bits in live paged KV/state pages before each
+decode round, corrected or not as ``--ecc-profile`` and ``--no-refresh``
+say (DESIGN.md §11).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --replicas 2 --migrate-prefixes --clock event --shared-prefix-tokens 32
+
 What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: ``--replicas > 1`` (the cluster, A.7), ``--inject-rber``
-(faults, A.8) and the TPU autotuner's
+ROADMAP item: the TPU autotuner's
 ``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
 """
 from __future__ import annotations
@@ -95,8 +106,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--session-s", type=float, default=60.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind a cluster frontend (only 1 "
-                         "is ported)")
+                    help="engine replicas behind a cluster frontend, all on "
+                         "one weight draw")
     ap.add_argument("--chunk-tokens", type=int, default=None,
                     help="chunked prefill piece size (None = one maximal "
                          "chunk per prompt on the same unpadded path)")
@@ -137,31 +148,46 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--radix-cold-ttl", type=float, default=None,
                     help="idle seconds before a cold prefix leaf decays")
     ap.add_argument("--migrate-prefixes", action="store_true",
-                    help="cluster option (needs --replicas > 1)")
+                    help="fleet prefix directory migrates a hot prefix to "
+                         "a less-loaded replica instead of queueing on the "
+                         "owner (metered inter-replica transfer)")
     ap.add_argument("--ecc-profile", choices=("off", "uniform", "domain"),
                     default="off",
                     help="reliability plane (DESIGN.md §11): meter ECC "
                          "check bits per tier")
     ap.add_argument("--inject-rber", type=float, default=None,
-                    help="fault injection (not ported)")
+                    help="inject age-driven bit flips into paged KV/state "
+                         "pages: a page exactly at its programmed retention "
+                         "sees this raw bit error rate; correction/scrub "
+                         "behavior follows --ecc-profile (DESIGN.md §11)")
     ap.add_argument("--no-refresh", action="store_true",
                     help="disable retention-deadline servicing")
     ap.add_argument("--clock", choices=("lockstep", "event"),
                     default="lockstep",
-                    help="cluster clock discipline (needs --replicas > 1)")
+                    help="cluster clock discipline (DESIGN.md §12): "
+                         "'lockstep' advances every replica together each "
+                         "frontend step; 'event' drains a priority event "
+                         "queue so replicas advance independently")
     ap.add_argument("--abandon-after", type=float, default=None,
                     help="seconds a request may wait queued before the "
                          "scheduler abandons it (None = wait forever)")
     ap.add_argument("--interconnect-gbps", type=float, default=50.0,
-                    help="cluster option (needs --replicas > 1)")
+                    help="per-replica NIC link bandwidth in GBYTES/s (the "
+                         "prefix-migration cost model)")
     ap.add_argument("--fabric-gbps", type=float, default=None,
-                    help="cluster option (needs --replicas > 1)")
+                    help="shared-fabric bisection bandwidth in GBYTES/s "
+                         "(DESIGN.md §13; default: half-bisection, link * "
+                         "replicas//2)")
     ap.add_argument("--replicate-threshold", type=int, default=None,
-                    help="cluster option (needs --replicas > 1)")
+                    help="fleet-wide directory hits after which a prefix "
+                         "is speculatively pushed to the least-loaded "
+                         "non-owners (default: demand migration only)")
     ap.add_argument("--replicate-copies", type=int, default=1,
-                    help="cluster option (needs --replicas > 1)")
+                    help="extra owners the predictive replicator maintains "
+                         "for a hot prefix")
     ap.add_argument("--directory-shards", type=int, default=8,
-                    help="cluster option (needs --replicas > 1)")
+                    help="hash shards the fleet prefix directory spreads "
+                         "its digest keys across")
     return ap
 
 
@@ -181,11 +207,22 @@ def make_prompts(cfg, n: int, shared_prefix_tokens: int, seed: int) -> list:
     return [shared_head + tokens(rng.integers(8, 48)) for _ in range(n)]
 
 
+def build_cluster(args, engines):
+    """The cluster frontend ``main`` puts ``engines`` behind, with every
+    cluster flag from ``args``."""
+    from repro_torch.serving import ClusterFrontend
+    return ClusterFrontend(engines,
+                           migrate_prefixes=args.migrate_prefixes,
+                           interconnect_gbps=args.interconnect_gbps,
+                           clock_mode=args.clock,
+                           fabric_bisection_gbps=args.fabric_gbps,
+                           replicate_threshold=args.replicate_threshold,
+                           replicate_copies=args.replicate_copies,
+                           directory_shards=args.directory_shards)
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.replicas > 1:
-        raise NotImplementedError("--replicas > 1: the cluster frontend is "
-                                  "not ported yet (ROADMAP A.7)")
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.device import resolve_device
@@ -194,12 +231,24 @@ def main(argv=None):
     device = resolve_device(args.device)
     full = get_config(args.arch)
     cfg = reduced(full)
+    # one weight draw: every replica computes on the same tensors, which an
+    # engine reads and never writes
     params = init_params(cfg, args.seed, device=device)
-    eng = build_engine(args, cfg, full, params, device=device)
-    for prompt in make_prompts(cfg, args.requests, args.shared_prefix_tokens,
-                               args.seed):
-        eng.submit(prompt, max_new_tokens=args.max_new)
-    rep = eng.run_until_idle()
+    engines = [build_engine(args, cfg, full, params, device=device)
+               for _ in range(max(args.replicas, 1))]
+    prompts = make_prompts(cfg, args.requests, args.shared_prefix_tokens,
+                           args.seed)
+    if len(engines) == 1:
+        eng = engines[0]
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=args.max_new)
+        rep = eng.run_until_idle()
+    else:
+        fe = build_cluster(args, engines)
+        for i, prompt in enumerate(prompts):
+            fe.submit(prompt, max_new_tokens=args.max_new,
+                      session_key=f"session-{i % max(args.sessions, 1)}")
+        rep = fe.run_until_idle()
     print(json.dumps(rep, indent=1, default=float))
     return rep
 

@@ -34,11 +34,22 @@ the matched pages in the memory plane and splices the same compute pages
 into the borrower's page table (zero copy bytes); extend resumes from the
 boundary. Prompts always run unpadded (DESIGN.md §5).
 
+Cross-replica migration (``export_prefix``/``import_prefix``, driven by
+``repro_torch.serving.cluster``) ships host torch tensors, which the
+receiver copies onto its own device: it never holds a view of the donor's
+tensors, which are written in place. Paged payloads keep the JAX
+package's layout (``(repeats, P, ps, 2*Hkv, D)`` per leaf), so pages cross
+between a JAX replica and a torch replica as arrays of the same shape
+(float32 for bf16 pools: numpy has no bfloat16). Ring snapshots cross only
+between torch replicas: the port's MLA ring is ``{"ckr", "pos"}`` where
+the JAX package's is ``c``/``kr``/``pos``, and ``_snapshot_compatible``
+turns away any tree that is not this backend's. Fault injection
+(``inject_rber``, DESIGN.md §11) draws each visit's flips on the host and
+XORs only the flipped words into the compute page where it lives.
+
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: ring-path prefix migration (A.7), fault injection
-(``inject_rber``, A.8) and the TPU
-autotuner's launch overrides (``kernel_block_q/kv``, ``kernel_buffers``,
-A.9). Hybrid stacks (hymba)
+ROADMAP item: the TPU autotuner's launch overrides (``kernel_block_q/kv``,
+``kernel_buffers``, A.9). Hybrid stacks (hymba)
 serve on one page table that holds KV pages and state pages together.
 Multi-codebook stacks (musicgen) carry a token as a K-tuple: prompts are
 (L, K), ``last_tokens`` (B, 1, K), greedy sampling is per codebook, the
@@ -111,7 +122,8 @@ class EngineConfig:
     kernel_block_q: Optional[int] = None
     kernel_block_kv: Optional[int] = None
     kernel_buffers: Optional[int] = None
-    # reliability plane (DESIGN.md §11): not ported, any value raises
+    # reliability plane (DESIGN.md §11): age-driven bit flips into the
+    # paged compute pages before each decode round (None = off)
     inject_rber: Optional[float] = None
     inject_seed: int = 0
     # abandonment (DESIGN.md §12): queued requests older than this are
@@ -605,9 +617,6 @@ class ServeEngine:
             raise NotImplementedError("kernel launch overrides tune the TPU "
                                       "kernel's grid (tune.py), which is not "
                                       "ported (ROADMAP A.9)")
-        if ecfg.inject_rber:
-            raise NotImplementedError("fault injection is not ported yet "
-                                      "(ROADMAP A.8)")
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"params are on {leaf.device}, the engine "
@@ -650,6 +659,13 @@ class ServeEngine:
             else:                      # ssm: no KV token stream
                 lb, sb = 0.0, state_lb
             self._acct_layers.append((float(lb), spec.window, sb))
+        # fault injection (DESIGN.md §11): age-driven flips over the paged
+        # compute plane, sampled against each page's tracked region
+        self.faults = None
+        if ecfg.inject_rber:
+            from repro_torch.core.faults import FaultInjector
+            self.faults = FaultInjector(mem, ecfg.inject_rber,
+                                        seed=ecfg.inject_seed)
         self.outputs: Dict[int, list] = {}
         self._inflight: Dict[int, _SlotPrefill] = {}  # slot -> chunk state
         self._prep_cache: Dict[int, tuple] = {}  # rid -> (tokens, chunk, key)
@@ -660,6 +676,7 @@ class ServeEngine:
         self.prefill_tokens_skipped = 0    # tokens a radix hit skipped
         self.prefix_compute_hits = 0       # admissions seeded from a prefix
         self.snapshots_published = 0       # ring: metered donor snapshots
+        self._snap_spec = None             # cached foreign-snapshot template
 
     # -- legacy surface (kept stable for callers/tests) ----------------
     @property
@@ -1006,39 +1023,71 @@ class ServeEngine:
                    if isinstance(n.payload, SnapshotHandle) and n.payload.live)
 
     # -- cross-replica migration ----------------------------------------
-    def _check_migration(self) -> None:
-        if not self.paged:
-            raise NotImplementedError("ring-path prefix migration is not "
-                                      "ported yet (ROADMAP A.7)")
+    def _snapshot_compatible(self, caches) -> bool:
+        """A foreign ring snapshot is seedable only when its tree matches
+        this backend's per-slot cache template exactly (identical
+        replicas): the same containers, and each leaf a tensor of the
+        slot's shape (slot axis 1) and dtype. The template is taken once
+        from the resident rings."""
+        if self._snap_spec is None:
+            self._snap_spec = [((a.shape[0], 1) + tuple(a.shape[2:]), a.dtype)
+                               for a in tree_leaves(self.backend.caches)]
+        if not tree_same_structure(caches, self.backend.caches):
+            return False
+        return all(isinstance(a, torch.Tensor) and tuple(a.shape) == shape
+                   and a.dtype == dtype
+                   for a, (shape, dtype) in zip(tree_leaves(caches), self._snap_spec))
 
     def export_prefix(self, key_tokens) -> Optional[dict]:
         """Donor half of a cross-replica prefix migration: match the
         longest published prefix of ``key_tokens`` (position-space), read
-        its pages out of this replica's tiers (metered reads) and ship the
-        matched compute pages."""
-        self._check_migration()
+        its pages and covering snapshot out of this replica's tiers
+        (metered reads — the transfer is not free for the donor), and
+        return the page metadata with the compute state for the receiver:
+        the matched compute pages on the paged plane, the covering ring
+        snapshot on the ring path, each as host tensors."""
         if not self.ecfg.prefix_caching:
             return None
-        # non-bumping walk: a migration probe is not local reuse
+        # non-bumping walk: a migration probe is not local reuse — it must
+        # not feed the donor's hit counts / hot promotion / LRU order
         m = self.kv.radix.match(key_tokens, self.mem.now,
                                 bump_hits=False, bump_lru=False)
         if m.tokens == 0:
             return None
         kv_bytes = 0.0
         for p in m.pages:
+            # paged point stacks: the page's region also carries its
+            # recurrent-state snapshot, which the transfer ships too
             nb = p.n_tokens * self.kv.kv_bytes_token + self.kv.state_bytes_page
             if p.region_id is not None and nb > 0:
                 self.mem.read_region(p.region_id, nb, sequential=True)
             kv_bytes += nb
+        # per-kind snapshot resolution (DESIGN.md §8): positional — the
+        # nearest payload below the match covers it via position masking;
+        # point — the deepest snapshot at a boundary the match covers
+        if self.snapshot_kind == "point":
+            handle = self._point_snapshot_for(m.node, m.tokens)
+        else:
+            handle = (m.payload if isinstance(m.payload, SnapshotHandle)
+                      and m.payload.live else None)
+        caches, snap_bytes, skind, stok = None, 0.0, "positional", 0
+        if handle is not None:
+            self.mem.read_region(handle.region_id, handle.nbytes)
+            caches = tree_map(lambda a: a.detach().to("cpu", copy=True),
+                              handle.caches)
+            snap_bytes, skind, stok = handle.nbytes, handle.kind, handle.tokens
         out = {"tokens": np.asarray(key_tokens)[:m.tokens],
                "n_tokens": m.tokens, "kv_bytes": kv_bytes,
-               "caches": None, "snapshot_bytes": 0.0,
-               "snap_kind": "positional", "snap_tokens": 0,
+               "caches": caches, "snapshot_bytes": snap_bytes,
+               "snap_kind": skind, "snap_tokens": stok,
                "hot": m.node.hot, "hits": m.node.hits}
-        ids = [p.compute_page for p in m.pages]
-        if all(i is not None for i in ids):
-            out["page_data"] = self.backend.export_pages(ids)
-            out["page_tokens"] = self.kv.page_tokens
+        if self.paged:
+            # paged plane: the pages themselves are the compute state — ship
+            # the matched compute pages (the metering above charged them)
+            ids = [p.compute_page for p in m.pages]
+            if all(i is not None for i in ids):
+                out["page_data"] = self.backend.export_pages(ids)
+                out["page_tokens"] = self.kv.page_tokens
         return out
 
     def import_prefix(self, tokens, caches=None, hot: bool = False,
@@ -1046,30 +1095,50 @@ class ServeEngine:
                       snap_tokens: int = 0, page_data=None,
                       page_tokens: Optional[int] = None) -> dict:
         """Receiver half: adopt the pages (metered writes into this
-        replica's tiers) and write the donor's compute pages straight into
-        the pool pages the adoption allocated. Data that does not match
-        this replica's page geometry or cache families is rejected before
-        adoption. ``caches``/``snap_*`` belong to the ring path and are
-        ignored here."""
-        self._check_migration()
-        if (page_data is None or page_tokens != self.kv.page_tokens
-                or not self.backend.pages_compatible(page_data)):
-            return {"new_tokens": 0, "total_tokens": 0,
+        replica's tiers; a donor-hot prefix lands in the hot tier with long
+        retention) and take the donor's compute state onto this device.
+
+        Paged receivers write ``page_data`` straight into the pool pages
+        the adoption allocated — a later local hit on the grafted prefix is
+        then a zero-copy page-table splice. Ring receivers re-publish the
+        ``caches`` snapshot under a locally metered handle; a *point*
+        snapshot only when the adoption kept every token up to its
+        boundary (DESIGN.md §8). Data that does not match this replica's
+        page geometry or cache families is rejected *before* adoption."""
+        if self.paged:
+            if (page_data is None or page_tokens != self.kv.page_tokens
+                    or not self.backend.pages_compatible(page_data)):
+                return {"new_tokens": 0, "total_tokens": 0,
+                        "snapshot_bytes": 0.0}
+            new_tokens, total, node = self.kv.adopt_prefix(tokens, hot=hot,
+                                                           hits=hits)
+            inserted = self.kv._last_adopt_pages
+            if inserted:
+                # the graft kept pages [dup, total) — slice the donor data
+                # to the pages actually inserted and write them in place
+                pt = self.kv.page_tokens
+                dup_pages = (total - new_tokens) // pt
+                ids = [p.compute_page for p in inserted]
+                data = tree_map(lambda a: a[:, dup_pages:dup_pages + len(ids)],
+                                page_data)
+                self.backend.import_pages(ids, data)
+            return {"new_tokens": new_tokens, "total_tokens": total,
                     "snapshot_bytes": 0.0}
         new_tokens, total, node = self.kv.adopt_prefix(tokens, hot=hot,
                                                        hits=hits)
-        inserted = self.kv._last_adopt_pages
-        if inserted:
-            # the graft kept pages [dup, total) — slice the donor data to
-            # the pages actually inserted and write them in place
-            pt = self.kv.page_tokens
-            dup_pages = (total - new_tokens) // pt
-            ids = [p.compute_page for p in inserted]
-            data = tree_map(lambda a: a[:, dup_pages:dup_pages + len(ids)],
-                            page_data)
-            self.backend.import_pages(ids, data)
+        snap_bytes = 0.0
+        if (node is not None and node.payload is None and caches is not None
+                and tfm.supports_extend(self.cfg)
+                and (snap_kind != "point" or 0 < snap_tokens <= total)
+                and self._snapshot_compatible(caches)):
+            handle = self._publish_snapshot(
+                tree_map(lambda a: a.to(self.device, copy=True), caches),
+                snap_kind, snap_tokens)
+            if handle is not None:
+                node.payload = handle
+                snap_bytes = handle.nbytes
         return {"new_tokens": new_tokens, "total_tokens": total,
-                "snapshot_bytes": 0.0}
+                "snapshot_bytes": snap_bytes}
 
     # -- paged compute plane (DESIGN.md §10) ---------------------------
     def _on_page_alloc(self, page) -> None:
@@ -1135,6 +1204,50 @@ class ServeEngine:
             if sb and 0 <= rs < len(pages):
                 page_bytes[rs] += sb
         self.kernel_read_bytes += self.kv.read_pages(rid, page_bytes)
+
+    def _inject_faults(self, slots: List[int]) -> None:
+        """Reliability-plane injection point (DESIGN.md §11): before the
+        decode kernel gathers its pages, visit every page of every decoding
+        session and let the fault injector act on its tracked region's age.
+        Near-deadline pages under an active ECC profile scrub-on-read
+        (corrected + re-armed, metered through the lifecycle); otherwise
+        sampled flips land in the compute page in place — drawn on the
+        host from the page's geometry alone, XORed into only the flipped
+        words on the device — so corruption propagates through the real
+        decode math."""
+        if self.faults is None or not self.paged:
+            return
+        from repro_torch.core.faults import dtype_name, xor_words_
+        protected = getattr(self.mem, "ecc_profile", "off") != "off"
+        for slot in slots:
+            rid = self.sched.active[slot].request_id
+            sess = self.kv.sessions.get(rid)
+            if sess is None:
+                continue
+            for page in sess.pages:
+                if page.region_id is None or page.compute_page is None:
+                    continue
+                r = self.mem.region(page.region_id)
+                if r is None:
+                    continue
+                self.faults.stats.pages_visited += 1
+                # scrub-on-read is retention servicing: with --no-refresh
+                # (service_refresh=False) the controller neither refreshes
+                # nor scrubs, so over-aged corruption lands un-corrected
+                if (protected and self.mem.service_refresh
+                        and self.faults.wants_scrub(r)):
+                    if self.kv.lifecycle.scrub(page):
+                        self.faults.note_scrub()
+                        continue
+                # one page of a leaf is pool[:, pid], (repeats, ...): its
+                # flat words are those of the JAX package's exported page
+                for a in tree_leaves(self.backend.paged_caches):
+                    page_words = a[:, int(page.compute_page)]
+                    flips, _ = self.faults.sample(page_words.numel(),
+                                                  a.element_size(), dtype_name(a),
+                                                  r, protected)
+                    if flips is not None:
+                        xor_words_(page_words, flips)
 
     def _account_chunk_kv(self, ck: PrefillChunk) -> None:
         """This chunk's tokens enter the paged KV — unless a shared prefix
@@ -1205,6 +1318,7 @@ class ServeEngine:
                 # its KV row in place
                 for slot in plan.decode:
                     self.kv.append_tokens(self.sched.active[slot].request_id, 1)
+                self._inject_faults(plan.decode)
                 tables, audit = self._decode_tables(plan.decode)
                 next_np = self.backend.run_decode(plan.decode, page_tables=tables,
                                                   audit_pages=audit)
@@ -1321,9 +1435,10 @@ class ServeEngine:
         }
 
     def _reliability_report(self) -> dict:
-        """The reliability plane's ledger (DESIGN.md §11): ECC profile and
-        per-tier check-bit / scrub traffic."""
-        return {
+        """The reliability plane's ledger (DESIGN.md §11): ECC profile,
+        per-tier check-bit / scrub traffic, and — when injection is on —
+        the fault injector's flip/correction/uncorrectable counters."""
+        out = {
             "ecc_profile": getattr(self.mem, "ecc_profile", "off"),
             "tiers": {
                 n: {"ecc_read_bytes": d.stats.ecc_read_bytes,
@@ -1333,6 +1448,10 @@ class ServeEngine:
                     "scrub_rewrites": d.wear.scrub_rewrites}
                 for n, d in self.mem.devices.items()},
         }
+        if self.faults is not None:
+            out["injection"] = self.faults.stats.as_dict()
+            out["inject_rber"] = self.faults.rber
+        return out
 
 
 def latency_percentiles(records: List[dict]) -> dict:

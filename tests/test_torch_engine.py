@@ -3,8 +3,8 @@ reduced qwen3-8b in fp32, on the paged plane, with the same weights and
 prompts: the same greedy tokens and memory-plane report fields; within the
 port, a prefix hit decodes the same tokens as a cold start with zero copy
 bytes, the decode-masking audit passes, and migrated pages serve a hit.
-The engine's entry points refuse to run without a device that exists, and
-the ring path serves an SSM stack."""
+The engine's entry points refuse to run without a device that exists, the
+ring path serves an SSM stack, and fault injection runs."""
 import jax
 import numpy as np
 import pytest
@@ -150,5 +150,9 @@ def test_engine_refuses_missing_device_and_unported_paths(setup, monkeypatch):
         eng.run_until_idle()
         outs.append(eng.outputs[0])
     assert outs[0] == outs[1] and len(outs[0]) == 4
-    with pytest.raises(NotImplementedError, match="A.8"):
-        _engine(setup, inject_rber=1e-6)
+    # fault injection is ported: it visits the decoding sessions' pages and
+    # reports its counters
+    eng = _engine(setup, inject_rber=1e-6)
+    eng.submit(_prompts()[0], 3)
+    rel = eng.run_until_idle()["reliability"]
+    assert rel["inject_rber"] == 1e-6 and rel["injection"]["pages_visited"] > 0
