@@ -8,9 +8,10 @@ layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
 (gemma2-27b: alternating 4096/global windows; mamba2-2.7b, hymba-1.5b and
 deepseek-v2-lite-16b), the fleet (two engine replicas behind the cluster
 frontend, prefixes migrating between them under the lockstep and the
-event clock) and fault injection into live pages, the training path
-(gemma-2b), and their five kernels, ragged paged attention in both its
-position modes (the latent head's too, reading one plane or two).
+event clock) and fault injection into live pages, the training paths
+(gemma-2b; mamba2-2.7b and hymba-1.5b through the SSD backward), and
+their six kernels, ragged paged attention in both its position modes
+(the latent head's too, reading one plane or two).
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -85,6 +86,17 @@ Phases, each printing one JSON line:
                  launches are bit-equal; times the kernel (events and the
                  profiler's device time) and its plain version (no single
                  PyTorch call computes an SSD scan);
+4b. ssd bwd kernel — the SSD backward (states, backward and reduce
+                 kernels) against its plain version ``ssd_scan_bwd_ref`` and
+                 against autograd through ``ssd_scan_ref``, both on the
+                 card, at mamba2-2.7b's (H 80, P 64, N 128) and hymba-1.5b's
+                 (H 50, P 64, N 16) geometries: S 256 with an initial state
+                 and a final-state cotangent, a ragged S 40 (B 2) without,
+                 and the training shapes 4 x 2048 / 2 x 2176 with x/b/c as
+                 projection views; fp32 and bf16 (tolerances set from each
+                 plain version's error against float64); two launches
+                 bit-equal; times at the training shapes (device ms, the
+                 states pass alone, the bound, the plain version);
 5. flash       — holds the flash-attention forward and both backward
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
@@ -94,8 +106,9 @@ Phases, each printing one JSON line:
                  ragged S 1000, at D 64
                  and D 32, at S 17 (below a tile) and with G = 3, fp32 and
                  bf16 (bf16 through the tensor-core forward, dK/dV and dQ
-                 kernels), and at hymba-1.5b's ring first chunk (S 160,
-                 25/5 at D 64, window 2048); checks that repeat launches
+                 kernels), at hymba-1.5b's ring first chunk (S 160,
+                 25/5 at D 64, window 2048) and at its training shape (B 2,
+                 S 2176, the window binding); checks that repeat launches
                  are bit-equal; times the
                  three kernels (achieved TFLOP/s, share of the bound; dK/dV
                  also without its row split), their plain versions and
@@ -153,6 +166,11 @@ Phases, each printing one JSON line:
                  plain versions against themselves on weights moved by half
                  an ulp, and attention alone at that initialisation's
                  scales, kernels and plain versions against float64;
+8b. ssm grads  — mamba2-2.7b at full width, 2 layers, fp32, 1 x 512
+                 tokens: loss and every gradient leaf through the SSD
+                 forward and backward kernels (CUDA) against the plain
+                 versions (CPU) within 1e-5 (loss) and 1e-4 (grad norm, each
+                 leaf's largest |grad|), at the reference's initialisation;
 9. serve       — qwen3-8b at full width and depth (36 layers, d 4096,
                  vocab 151936, bf16, random weights from a seed) through
                  ``ServeEngine`` with ``launch/serve.py``'s defaults, 8 requests
@@ -233,7 +251,16 @@ Phases, each printing one JSON line:
                  4 steps of 4 x 2048 tokens, after the serving engines are
                  freed; every layer of every step launched the forward
                  kernel twice (forward and recompute) and each backward
-                 kernel once.
+                 kernel once;
+17. ssm and hybrid train — mamba2-2.7b (64 layers, 4 steps of 4 x 2048
+                 tokens) and hymba-1.5b (32 layers, 3 steps of 2 x 2048
+                 tokens behind 128 meta tokens) at full width and depth
+                 through ``repro_torch.launch.train``, bf16, ``remat="full"``:
+                 every SSM layer of every step launched the SSD forward twice
+                 and its backward once, every hymba attention half the flash
+                 forward twice and dK/dV and dQ once; finite losses and grad
+                 norms, mamba2's step-0 loss within 3 of ln(vocab); step ms,
+                 tokens/s and peak memory.
 
 Then a ``phase_seconds`` line with each phase's wall time and the total,
 a line ``{"kernels": [...]}`` with each kernel's launches (summed
@@ -1082,9 +1109,7 @@ def ssd_work(case, init, dtype_name, block=32):
         L = min(block, S - t0)
         flops += N * L * (L + 1) + P * L * (L + 1) + 4 * L * P * N
     flops *= B * H
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]
-    return (n_bytes, flops, max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return (n_bytes, flops, *_bound(flops, n_bytes, dtype_name))
 
 
 def ssd_kernel_phase(torch, sops, sref, smi):
@@ -1160,6 +1185,177 @@ def ssd_kernel_phase(torch, sops, sref, smi):
 
 
 # ---------------------------------------------------------------------------
+# The SSD scan's backward at the training path's geometry
+# ---------------------------------------------------------------------------
+
+SSD_BWD_GEOS = {"mamba2": {"H": SSD_H, "P": SSD_P, "N": SSD_N, "G": 1},
+                "hymba": SSD_HYMBA}
+SSD_BWD_SHAPES = {"mamba2": (4, 2048), "hymba": (2, HYMBA_META + 2048)}   # training
+SSD_BWD_REL = 1e-4
+# Each gradient g against the plain version's (same inputs, fp32 sums over
+# 256-token chunks where the kernels walk 32-token blocks): |g - plain| <=
+# rtol |plain| + atol, atol = max(1e-4 max|plain|, 4x the plain version's
+# own error against itself in float64 on those inputs), rtol 2**-8 (one bf16
+# rounding) for dx, db, dc in bf16 and 0 otherwise. bf16 runs take the fp32
+# plain version on the same bf16 inputs.
+SSD_BWD_NAMES = ("dx", "d_dt", "d_a", "db", "dc", "d_init")
+
+
+def ssd_bwd_case(torch, B, S, dtype, *, geo, state, views, seed):
+    """The scan's inputs as ``ssd_case`` draws them, and the cotangents dy
+    ~ N(0, 1) in x's dtype and d_final ~ N(0, 1) fp32 (None with no
+    state: the training path's)."""
+    case, init = ssd_case(torch, S, dtype, B=B, state=state, views=views, seed=seed,
+                          **geo)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(tuple(case[0].shape), generator=g).to(dtype).cuda()
+    d_final = torch.randn(tuple(init.shape), generator=g).cuda() if state else None
+    return case, init, dy, d_final
+
+
+def ssd_bwd_work(case, init, d_final, block=32):
+    """(bytes, flops, bound_ms, bound_by) of the backward on this input:
+    x, dt, a, b, c, dy, the initial state and d_final read once, dx, d_dt,
+    d_a, db, dc, d_init written once; per (batch, head) and 32-token block
+    of L tokens M/Q/G over the lower triangle (L(L+1)/2 (N + P)), dxdt (P
+    (L(L+1)/2 + L N)), dC and dB (N (L(L+1)/2 + L P) each) and the dState
+    update (L P N), two flops an FMA at the peak rate of x's dtype (bf16
+    products with fp32 sums run on the tensor cores, as the flash rows
+    count them). The block-start states the kernels recompute are the
+    design's own work, not the function's, and are not counted."""
+    x, dt, a, b, c = case
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    item = x.element_size()
+    state_bytes = 4 * B * H * P * N
+    n_bytes = (3 * x.numel() * item + 2 * (b.numel() + c.numel()) * item
+               + 4 * (2 * dt.numel() + 2 * a.numel()) + state_bytes
+               + (0 if init is None else state_bytes)
+               + (0 if d_final is None else state_bytes))
+    fma = 0
+    for t0 in range(0, S, block):
+        L = min(block, S - t0)
+        tri = L * (L + 1) // 2
+        fma += (L * P * N + tri * (N + P) + P * (tri + L * N)
+                + 2 * N * (tri + L * P))
+    flops = 2 * fma * B * H
+    return (n_bytes, flops, *_bound(flops, n_bytes, str(x.dtype).removeprefix("torch.")))
+
+
+def ssd_bwd_kernel_phase(torch, sops, sref, smi):
+    """The backward kernels (states, backward, reduce) against the plain
+    version ``ssd_scan_bwd_ref`` and against autograd through
+    ``ssd_scan_ref``, both on the card, at mamba2-2.7b's and hymba-1.5b's
+    geometries: S 256 with an initial state and a final-state cotangent, a
+    ragged S 40 (B 2) without, and the training shape (4 x 2048, 2 x 2176)
+    with x/b/c as views into one projection, fp32 and bf16; two launches
+    bit-equal; times at the training shapes."""
+    bwd, plain = sops.ssd_scan_bwd, sref.ssd_scan_bwd_ref
+    cases = [(f"{geo}_{name}", geo, B, S, state, views)
+             for geo in SSD_BWD_GEOS
+             for name, B, S, state, views in (
+                 ("S256_state", 1, 256, True, False),
+                 ("B2_S40_zero", 2, 40, False, False),
+                 (f"B{SSD_BWD_SHAPES[geo][0]}_S{SSD_BWD_SHAPES[geo][1]}_views",
+                  *SSD_BWD_SHAPES[geo], False, True))]
+    errs = {}
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for i, (name, geo, B, S, state, views) in enumerate(cases):
+            case, init, dy, d_final = ssd_bwd_case(torch, B, S, dtype, geo=SSD_BWD_GEOS[geo],
+                                                   state=state, views=views, seed=40 + i)
+            kw = dict(chunk=SSD_CHUNK, init_state=init, d_final=d_final)
+            got = bwd(*case, dy, **kw)
+            again = bwd(*case, dy, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"ssd bwd {dname}/{name}: two launches on the "
+                                     "same input differ")
+            del again
+            ref = plain(*case, dy, **kw)
+            f64 = plain(*(t.double() for t in case), dy.double(), chunk=SSD_CHUNK,
+                        init_state=None if init is None else init.double(),
+                        d_final=None if d_final is None else d_final.double())
+            leaves = [t.detach().float().clone().requires_grad_() for t in case]
+            init_leaf = None if init is None else init.clone().requires_grad_()
+            y, final = sref.ssd_scan_ref(*leaves, chunk=SSD_CHUNK, init_state=init_leaf)
+            outs, cots = [y], [dy.float()]
+            if d_final is not None:
+                outs.append(final)
+                cots.append(d_final)
+            auto = list(torch.autograd.grad(
+                outs, leaves + ([init_leaf] if init_leaf is not None else []), cots))
+            if init_leaf is None:
+                auto.append(None)
+            del leaves, init_leaf, y, final, outs
+            case_err = {}
+            for key, g, r, t, au in zip(SSD_BWD_NAMES, got, ref, f64, auto):
+                r, t = r.float(), t.double()
+                scale = r.abs().max().item()
+                atol = max(SSD_BWD_REL * scale, 4 * (r.double() - t).abs().max().item())
+                rtol = 2 ** -8 if g.dtype == torch.bfloat16 else 0.0
+                err = (g.float() - r).abs().max().item()
+                ok = bool(((g.float() - r).abs() <= rtol * r.abs() + atol).all())
+                entry = {"vs_plain": err, "atol": atol, "rtol": rtol,
+                         "kernel_vs_f64": (g.double() - t).abs().max().item(),
+                         "plain_vs_f64": (r.double() - t).abs().max().item(),
+                         "max_abs": scale}
+                if au is not None:      # d_init exists only with an initial state
+                    au = au.float()
+                    entry["vs_autograd"] = (g.float() - au).abs().max().item()
+                    ok = ok and bool(((g.float() - au).abs()
+                                      <= rtol * au.abs() + atol).all())
+                case_err[key] = entry
+                max_err[dname] = max(max_err[dname], err)
+                if not ok:
+                    raise AssertionError(f"ssd bwd {dname}/{name}: {key} {entry}")
+            errs[f"{dname}/{name}"] = case_err
+            del case, init, dy, d_final, got, ref, f64, auto
+    emit("kernel_check", kernel="ssd_scan_bwd", max_abs_err=errs,
+         tolerance="|g - plain| <= rtol |plain| + atol, atol = max(1e-4 max|plain|, "
+                   "4 x plain's error vs float64), rtol 2**-8 for bf16 dx/db/dc, 0 "
+                   "otherwise; the same against autograd through ssd_scan_ref",
+         launches_bit_equal=True)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    for geo, (B, S) in SSD_BWD_SHAPES.items():
+        case, init, dy, d_final = ssd_bwd_case(torch, B, S, torch.bfloat16,
+                                               geo=SSD_BWD_GEOS[geo], state=False,
+                                               views=True, seed=90)
+        n_bytes, flops, bound_ms, bound_by = ssd_bwd_work(case, init, d_final)
+        x = case[0]
+        P, N = x.shape[3], case[3].shape[3]
+        nb = -(-S // sops.BLOCK)
+        kernel = lambda: bwd(*case, dy, chunk=SSD_CHUNK)  # noqa: E731
+        states_ms = device_ms(torch, kernel, flush, lambda key: "bwd_states" in key)
+        timing[geo] = {
+            "shape": [B, S, x.shape[2], P, N], "bytes": n_bytes, "flops": flops,
+            "ms": time_ms(torch, kernel, flush, iters=10, warmup=2),
+            "plain_ms": time_ms(torch, lambda: plain(*case, dy, chunk=SSD_CHUNK), flush,
+                                iters=3, warmup=1),
+            "library_ms": None,   # no single PyTorch call computes an SSD backward
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": device_ms(torch, kernel, flush, lambda key: "ssd_scan_bwd" in key),
+            "states_device_ms": states_ms,
+            "reduce_device_ms": device_ms(torch, kernel, flush,
+                                          lambda key: "bwd_reduce" in key),
+            "forward_device_ms": device_ms(
+                torch, lambda: sops.ssd_scan(*case, chunk=SSD_CHUNK), flush,
+                lambda key: "ssd_scan_mma" in key),
+            # the block-start states: recomputed here (scratch written and
+            # read once) or, the alternative, written by every forward
+            "states_bytes": 4 * B * nb * x.shape[2] * P * N,
+            "partials_bytes": 2 * 4 * B * S * x.shape[2] * N,
+            "smem_bytes": sops.bwd_smem_bytes(P, N)}
+        timing[geo]["bound_share"] = timing[geo]["bound_ms"] / timing[geo]["device_ms"]
+        del case, dy
+    emit("kernel_time", kernel="ssd_scan_bwd", dtype="bfloat16", nvidia_smi=smi,
+         shapes=timing)
+    return max_err, timing
+
+
+# ---------------------------------------------------------------------------
 # Flash attention at the training path's geometry
 # ---------------------------------------------------------------------------
 
@@ -1177,6 +1373,8 @@ FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
     ("gemma2_27b_S4400_window4096", 1, 4400, 32, 16, 128, 50.0, 4096),
     # hymba-1.5b's ring first chunk: 128 meta tokens + 32, 25/5 heads at D 64
     ("hymba_ring_first_chunk", 1, 160, 25, 5, 64, None, 2048),
+    # hymba-1.5b's training: 128 meta tokens + 2048, its window of 2048 binding
+    ("hymba_train", 2, HYMBA_META + 2048, 25, 5, 64, None, 2048),
 ]
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
 # (HMMA) in paged attention and the SSD scan
@@ -1369,7 +1567,39 @@ def flash_kernel_phase(torch, fops, fref, smi):
                               flush)}
     hymba["bound_ms"], hymba["bound_by"] = _bound(flops3, bytes3, "bfloat16")
     timing["flash_attention_fwd"]["hymba_ring_first_chunk"] = hymba
-    for t in (*timing.values(), gemma2, hymba):
+    # hymba-1.5b's training: 2 x (128 meta tokens + 2048), 25/5 heads at D 64,
+    # its window of 2048 binding; the bounds count the causal pairs (the
+    # window drops ~1.3% of them). SDPA has no window: timed causal.
+    B4, S4, H4, Hkv4, D4 = 2, HYMBA_META + 2048, *HYMBA
+    q4, k4, v4, do4 = flash_case(torch, B4, S4, H4, Hkv4, D4, torch.bfloat16, seed=10)
+    kw4 = dict(scale=D4 ** -0.5, window=2048)
+    o4, m4, l4 = fops.flash_attention_fwd(q4, k4, v4, **kw4)
+    delta4 = (do4.float() * o4.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd4 = (q4, k4, v4, m4, l4, do4, delta4)
+    plain_bwd4 = time_ms(torch, lambda: fref.flash_bwd_ref(*bwd4, **kw4), flush,
+                         iters=3, warmup=1)
+    qs4, ks4, vs4 = (t.transpose(1, 2).contiguous() for t in (q4, k4, v4))
+    train4 = {
+        "flash_attention_fwd": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_fwd(q4, k4, v4, **kw4), flush),
+            "plain_ms": time_ms(torch, lambda: fref.flash_fwd_ref(q4, k4, v4, **kw4), flush,
+                                iters=3, warmup=1),
+            "library_ms": time_ms(torch, lambda: sdpa(qs4, ks4, vs4, is_causal=True,
+                                                      scale=kw4["scale"], enable_gqa=True),
+                                  flush)},
+        "flash_attention_bwd_dkdv": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dkdv(*bwd4, **kw4), flush),
+            "plain_ms": plain_bwd4, "library_ms": None},
+        "flash_attention_bwd_dq": {
+            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dq(*bwd4, **kw4), flush),
+            "plain_ms": plain_bwd4, "library_ms": None}}
+    for name, (flops4, bytes4) in flash_work(B4, S4, H4, Hkv4, D4, 2).items():
+        t = train4[name]
+        t.update(shape=[B4, S4, H4, Hkv4, D4], window=2048, flops=flops4, bytes=bytes4)
+        t["bound_ms"], t["bound_by"] = _bound(flops4, bytes4, "bfloat16")
+        timing[name]["hymba_train"] = t
+    del q4, k4, v4, do4, o4, bwd4, qs4, ks4, vs4
+    for t in (*timing.values(), gemma2, hymba, *train4.values()):
         t["tflops"] = t["flops"] / t["ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["ms"]
     sdpa_fwd_ms = timing["flash_attention_fwd"]["library_ms"]
@@ -2975,6 +3205,126 @@ def full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops, 
     _require("full-width gemma-2b gradients, kernels vs plain", checks)
 
 
+def ssm_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, sops):
+    """mamba2-2.7b at full width, 2 layers, fp32, one batch of 1 x 512
+    tokens: the loss and every gradient leaf through the SSD kernels, the
+    forward and the backward (CUDA), against the plain versions (CPU), same
+    weights: 1e-5 relative in the loss, 1e-4 relative in the grad norm and
+    1e-4 of each leaf's largest |grad| (the tolerances of
+    tests/test_torch_train_ssm.py). mamba2 is well conditioned at the
+    reference's initialisation (no attention): no rescaling. Every layer
+    launched the forward kernel twice (forward and remat recompute) and the
+    backward once."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg_mod.get_config("mamba2-2.7b"), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=512, global_batch=1,
+                                                       seed=0))
+    batch = pipe.batch_at(0)
+    base = param.tree_map(lambda a: a.cpu(), tfm.init_params(cfg, 0, device="cuda"))
+
+    def grads(dev):
+        t0 = time.perf_counter()
+        loss, _, g = train.step.value_and_grad(
+            cfg, param.tree_map(lambda a: a.to(dev), base),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        g = [x.cpu() for x in param.tree_leaves(g)]
+        return {"loss": float(loss), "grad_norm": float(optim.global_norm(g)),
+                "leaves": g, "s": time.perf_counter() - t0}
+
+    sops.ssd_scan.launches = sops.ssd_scan_bwd.launches = 0
+    kern = grads("cuda")
+    launches = {"ssd_scan": sops.ssd_scan.launches,
+                "ssd_scan_bwd": sops.ssd_scan_bwd.launches}
+    plain = grads("cpu")
+    torch.cuda.empty_cache()
+    leaf_rel = [float((x.double() - y.double()).abs().max() / y.double().abs().max())
+                for x, y in zip(kern["leaves"], plain["leaves"])]
+    res = {"loss_rel": abs(kern["loss"] - plain["loss"]) / abs(plain["loss"]),
+           "grad_norm_rel": abs(kern["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"],
+           "leaf_rel_max": max(leaf_rel)}
+    checks = {"loss": res["loss_rel"] <= 1e-5, "grad_norm": res["grad_norm_rel"] <= 1e-4,
+              "leaves": res["leaf_rel_max"] <= 1e-4,
+              "every_leaf_reached": all(float(y.abs().max()) > 0 for y in plain["leaves"]),
+              "fwd_launches": launches["ssd_scan"] == 2 * cfg.num_layers,
+              "bwd_launches": launches["ssd_scan_bwd"] == cfg.num_layers}
+    emit("ssm_grad_check", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         ssd=[cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state], vocab=cfg.vocab_size,
+         dtype=cfg.dtype, batch=1, seq_len=512,
+         kernels={k: kern[k] for k in ("loss", "grad_norm", "s")},
+         plain={k: plain[k] for k in ("loss", "grad_norm", "s")},
+         kernels_vs_plain=res, leaf_rel=leaf_rel, launches=launches, checks=checks)
+    _require("full-width mamba2 gradients, kernels vs plain", checks)
+
+
+def ssm_train_phases(torch, cfg_mod, train_cli, kernels, smi, phases=None):
+    """mamba2-2.7b (64 layers, 4 x 2048 tokens, 4 steps) and hymba-1.5b (32
+    layers, 2 x 2048 tokens + 128 meta, 3 steps) at full width and depth
+    through ``launch/train.py``: bf16, remat "full", AdamW, no checkpoint.
+    Every SSM layer of every step launched the SSD forward kernel twice
+    (forward and recompute) and the backward once; every hymba attention
+    half the flash forward twice and the dK/dV and dQ kernels once. mamba2's
+    step-0 loss must lie within 3 of ln(vocab); hymba's is recorded (at the
+    reference's initialisation full-width hymba amplifies rounding to O(1),
+    ROADMAP §C). Returns each run's launches."""
+    import math
+    out = {}
+    runs = (("ssm_train", "mamba2-2.7b", 4, 2048, 4), ("hybrid_train", "hymba-1.5b", 2, 2048, 3))
+    for phase, arch, B, S, steps in runs:
+        if phases is not None and phase not in phases:
+            continue
+        cfg = cfg_mod.get_config(arch)
+        argv = ["--arch", arch, "--seq-len", str(S), "--batch", str(B),
+                "--steps", str(steps), "--warmup", "1", "--remat", "full",
+                "--log-every", "1"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        hist = train_cli.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        L = cfg.num_layers
+        n_attn = L if cfg.n_heads else 0
+        step_s = [h["dt_s"] for h in hist]
+        steady_s = statistics.median(step_s[1:])
+        checks = {
+            "steps_logged": [h["step"] for h in hist] == list(range(steps)),
+            "finite": all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                          for h in hist),
+            "ssd_fwd_launches": launches["ssd_scan"] == 2 * L * steps,
+            "ssd_bwd_launches": launches["ssd_scan_bwd"] == L * steps,
+            "flash_fwd_launches": launches["flash_attention_fwd"] == 2 * n_attn * steps,
+            "dkdv_launches": launches["flash_attention_bwd_dkdv"] == n_attn * steps,
+            "dq_launches": launches["flash_attention_bwd_dq"] == n_attn * steps,
+        }
+        if phase == "ssm_train":
+            checks["full_width"] = ((L, cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim,
+                                     cfg.ssm_state, cfg.vocab_size, cfg.dtype)
+                                    == (64, 2560, 80, 64, 128, 50280, "bfloat16"))
+            checks["step0_loss_near_ln_vocab"] = (
+                abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 3.0)
+        else:
+            checks["full_width"] = ((L, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim, cfg.ssm_nheads,
+                                     cfg.ssm_state, cfg.n_meta_tokens, cfg.vocab_size,
+                                     cfg.dtype)
+                                    == (32, 1600, 25, 5, 64, 50, 16, 128, 32001,
+                                        "bfloat16"))
+        emit(phase, nvidia_smi=smi, arch=arch, layers=L, d_model=cfg.d_model,
+             vocab=cfg.vocab_size, dtype=cfg.dtype, remat="full", batch=B, seq_len=S,
+             meta_tokens=cfg.n_meta_tokens, history=hist, wall_s=wall_s, step_s=step_s,
+             steady_step_ms=steady_s * 1e3, tokens_per_s=B * S / steady_s,
+             step0_loss=hist[0]["loss"], ln_vocab=math.log(cfg.vocab_size),
+             peak_mem_bytes=torch.cuda.max_memory_allocated(),
+             kernel_launches=launches, checks=checks)
+        _require(f"{arch} train", checks)
+        out[arch] = launches
+    return out
+
+
 def train_phase(torch, cfg_mod, train_cli, kernels, smi):
     """gemma-2b at full width and depth through ``launch/train.py``: 4 steps
     of 4 x 2048 tokens, bf16, remat "full", no checkpoint (the state is
@@ -3072,7 +3422,7 @@ def main() -> int:
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
-    kernels = [ops.ragged_paged_attention, sops.ssd_scan, *flash]
+    kernels = [ops.ragged_paged_attention, sops.ssd_scan, sops.ssd_scan_bwd, *flash]
     seconds = {"build": build_s}    # each phase's wall time, for the budget
 
     def timed(name, fn, *args):
@@ -3087,6 +3437,8 @@ def main() -> int:
     latent_err, latent_timing = timed("latent ring kernel", latent_ring_kernel_phase,
                                       torch, ops, ref, smi)
     ssd_err, ssd_timing = timed("ssd kernel", ssd_kernel_phase, torch, sops, sref, smi)
+    bwd_err, bwd_timing = timed("ssd bwd kernel", ssd_bwd_kernel_phase, torch, sops,
+                                sref, smi)
     fa_err, fa_timing = timed("flash", flash_kernel_phase, torch, fops, fref, smi)
     timed("reduced qwen3", reduced_model_phase, torch, cfg_mod, tfm, param)
     timed("reduced mamba2", reduced_ssm_phase, torch, cfg_mod, tfm, param, serve)
@@ -3107,6 +3459,8 @@ def main() -> int:
           train, data, ckpt)
     timed("full-width grads", full_width_grad_phase, torch, cfg_mod, tfm, param,
           optim, train, data, fops, fref)
+    timed("ssm grads", ssm_grad_phase, torch, cfg_mod, tfm, param, optim, train, data,
+          sops)
     held = {}                        # the serve phase's weights, for the fleet
     rpa_launches = timed("serve", serve_phase, torch, cfg_mod, tfm, serve, param,
                          kernels, smi, held)
@@ -3147,6 +3501,10 @@ def main() -> int:
     gc.collect()                     # the gemma2-27b weights
     torch.cuda.empty_cache()
     fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
+    gc.collect()                     # the gemma-2b state
+    torch.cuda.empty_cache()
+    ssm_train = timed("ssm and hybrid train", ssm_train_phases, torch, cfg_mod, train_cli,
+                      kernels, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
     # each serving path's counts, zeroed before it and read after it; an
@@ -3173,14 +3531,26 @@ def main() -> int:
             "reduced fleet": fleet_launches.get(
                 "ragged_paged_attention_latent_positions", 0)},
         "flash_attention_fwd": {"gemma-2b train": fa_launches["flash_attention_fwd"],
+                                "hymba-1.5b train":
+                                    ssm_train["hymba-1.5b"]["flash_attention_fwd"],
                                 "gemma2-27b ring serve": ring_launches["flash_attention_fwd"],
                                 "hymba-1.5b ring serve": hybrid_ring["flash_attention_fwd"],
                                 "reduced fleet": fleet_launches["flash_attention_fwd"]},
+        "flash_attention_bwd_dkdv": {
+            "gemma-2b train": fa_launches["flash_attention_bwd_dkdv"],
+            "hymba-1.5b train": ssm_train["hymba-1.5b"]["flash_attention_bwd_dkdv"]},
+        "flash_attention_bwd_dq": {
+            "gemma-2b train": fa_launches["flash_attention_bwd_dq"],
+            "hymba-1.5b train": ssm_train["hymba-1.5b"]["flash_attention_bwd_dq"]},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches["ssd_scan"],
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"],
                      "mamba2-2.7b ring serve": ssm_ring["ssd_scan"],
                      "hymba-1.5b ring serve": hybrid_ring["ssd_scan"],
-                     "reduced fleet": fleet_launches["ssd_scan"]}}
+                     "mamba2-2.7b train": ssm_train["mamba2-2.7b"]["ssd_scan"],
+                     "hymba-1.5b train": ssm_train["hymba-1.5b"]["ssd_scan"],
+                     "reduced fleet": fleet_launches["ssd_scan"]},
+        "ssd_scan_bwd": {"mamba2-2.7b train": ssm_train["mamba2-2.7b"]["ssd_scan_bwd"],
+                         "hymba-1.5b train": ssm_train["hymba-1.5b"]["ssd_scan_bwd"]}}
 
     def times(t):
         return {k: t[k] for k in ("ms", "view_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3239,14 +3609,26 @@ def main() -> int:
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None, "device_ms": ssd["device_ms"],
-        "hymba_S32": times(ssd_timing["hymba_S32"])}]
+        "hymba_S32": times(ssd_timing["hymba_S32"])}, {
+        # the backward: no Pallas kernel, the reference differentiates its
+        # jnp ssd_chunked with JAX autodiff; mamba2-2.7b's training shape,
+        # hymba-1.5b's beside it
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": str(sops.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/models/ssm.py:75",
+        "launches": sum(by_path["ssd_scan_bwd"].values()),
+        "launches_by_path": by_path["ssd_scan_bwd"],
+        "max_abs_err": bwd_err["bfloat16"],
+        **times(bwd_timing["mamba2"]),
+        "hymba_train": times(bwd_timing["hymba"])}]
     replaces = {"flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:74",
                 "flash_attention_bwd_dkdv": "src/repro/models/attention.py:126",
                 "flash_attention_bwd_dq": "src/repro/models/attention.py:126"}
     for fn in flash:
         name, t = fn.__name__, fa_timing[fn.__name__]
-        by = by_path.get(name, {"gemma-2b train": fa_launches[name]})
-        extra = {k: times(t[k]) for k in ("gemma2_27b_prefill", "hymba_ring_first_chunk")
+        by = by_path[name]
+        extra = {k: times(t[k]) for k in ("gemma2_27b_prefill", "hymba_ring_first_chunk",
+                                          "hymba_train")
                  if k in t}
         entries.append({
             **extra,

@@ -761,6 +761,496 @@ cudaError_t launch_mma(const Params& prm, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// No TPU kernel computes it: the reference differentiates its jnp chunked
+// SSD (src/repro/models/ssm.py:75, ssd_chunked) with JAX autodiff. Here it
+// is three kernels, each a pure function of its inputs (no atomics, every
+// sum in a fixed order, so two launches are bit-equal):
+//
+// 1. ssd_scan_bwd_states_kernel: one CTA per (batch*head, 16 rows of P),
+//    as the forward's: it walks the forward's 32-token blocks first to last
+//    and writes the state at each block's start, (B, nb, H, P, N) fp32, to
+//    scratch. The backward needs them and cannot carry the state backwards
+//    (that would divide by exp(cs), which underflows under strong decay).
+//    The forward could write them instead, but it runs twice per layer and
+//    step under remat="full"; recomputing costs one state update per block
+//    (2 L P N flops) and the same bytes once.
+// 2. ssd_scan_bwd_kernel: one CTA per (batch, head) over all of P, so that
+//    the sums over P (d(dt), dC, dB) stay inside the CTA. It walks the
+//    blocks last to first, carrying dState (P, N) in shared memory, and per
+//    block of L tokens, with w_ls = exp(cs_l - cs_s) (s <= l) and
+//    tail_s = exp(cs_last - cs_s):
+//      M_ls = (C_l.B_s) w_ls, Q_ls = (dy_l.xdt_s) w_ls, G_ls = M_ls (dy_l.xdt_s)
+//      dxdt_s = sum_{l>=s} M_ls dy_l + tail_s (dState B_s)     -> dx = dt dxdt
+//      dC_l   = sum_{s<=l} Q_ls B_s + exp(cs_l) (dy_l S0)      (per-head partial)
+//      dB_s   = sum_{l>=s} Q_ls C_l + tail_s (xdt_s dState)    (per-head partial)
+//      d(cs_l) = rowsum G - colsum G + exp(cs_l) C_l.(dy_l S0) - T_l
+//                (+ exp(cs_last) <dState, S0> + sum T at the last token),
+//                T_s = tail_s xdt_s.(dState B_s);
+//      d(da) = the reverse cumsum of d(cs) (one warp's shuffle scan),
+//      d(dt) = a d(da) + x.dxdt, d(a) partial += dt d(da);
+//      dState <- exp(cs_last) dState + sum_l exp(cs_l) dy_l (outer) C_l.
+//    Every exponent is <= 0: exp(-cs) is never formed.
+// 3. ssd_scan_bwd_reduce_kernel: db, dc = the sums of the per-head
+//    partials over each group's heads, and d(a) over the batch, in order.
+//
+// What bounds it. At mamba2-2.7b's training shape (B 4, S 2048, H 80, P 64,
+// N 128, bf16) the function needs ~1.3 M FMAs a block per (batch, head),
+// 54 GFLOP in all: 0.055 ms at the bf16 tensor-core rate (bf16 products,
+// fp32 sums), against 0.28 GB of inputs and outputs (0.082 ms at 3.35
+// TB/s). So bytes bound the function. The design adds the states pass
+// (~10 GFLOP more), 0.67 GB of states and 0.67 GB of db/dc partials, each
+// written and read once (0.8 ms). This first version runs fp32 FMAs on the
+// CUDA cores with one CTA an SM (138 KB of shared memory at that shape):
+// each warp owns 4 tokens of a block and keeps 4 independent FMA chains a
+// thread, one operand broadcast from shared memory and the other loaded
+// once for all 4 (an earlier version with one chain a thread was slower:
+// the dependent FMAs and shared-memory latency, not the instruction rate,
+// bound it). It takes 12.1 ms at that shape on an H100 SXM (700 W), under
+// 1% of the bound; a tensor-core version is later work.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kTok = kChunk / kBwdWarps;     // a warp's tokens of a block
+static_assert(kTok * kBwdWarps == kChunk, "the warps split a block's tokens evenly");
+
+struct BwdParams {
+  const void* x;            // (B, S, H, P), strides x_sb, x_ss
+  const float* dt;          // (B, S, H)
+  const float* a;           // (H,)
+  const void* b;            // (B, S, G, N), strides b_sb, b_ss
+  const void* c;            // (B, S, G, N), strides c_sb, c_ss
+  const float* init_state;  // (B, H, P, N) or null
+  const void* dy;           // (B, S, H, P) dense
+  const float* d_final;     // (B, H, P, N) or null
+  float* states;            // (B, nb, H, P, N) scratch
+  void* dx;                 // (B, S, H, P) dense
+  float* d_dt;              // (B, S, H)
+  float* d_a_part;          // (B, H) scratch
+  float* db_part;           // (B, S, H, N) scratch
+  float* dc_part;           // (B, S, H, N) scratch
+  float* d_init;            // (B, H, P, N)
+  void* db;                 // (B, S, G, N) dense
+  void* dc;                 // (B, S, G, N) dense
+  float* d_a;               // (H,)
+  int batch, seqlen, heads, headdim, groups, dstate;
+  long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory of the states kernel, in floats: the B block, the state
+// tile, the block's x tile and the per-token weights dt_s exp(cs_last - cs_s).
+__host__ __device__ inline size_t bwd_states_smem_floats(int dstate) {
+  return (size_t)(kChunk + kRows) * (dstate + 1) + kChunk * kRows + kChunk + 1;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_scan_bwd_states_kernel(const BwdParams prm) {
+  extern __shared__ float smem[];
+  const int N = prm.dstate, ldn = N + 1;
+  float* sB = smem;                     // [32][ldn]
+  float* sState = sB + kChunk * ldn;    // [16][ldn]
+  float* sX = sState + kRows * ldn;     // [32][16]
+  float* sW = sX + kChunk * kRows;      // [32]
+  float* sTotal = sW + kChunk;          // [1]
+  const int tid = threadIdx.x;
+  const int H = prm.heads, P = prm.headdim, S = prm.seqlen;
+  const int bh = blockIdx.y, bi = bh / H, h = bh % H;
+  const int p0 = blockIdx.x * kRows, rows = min(kRows, P - p0);
+  const int g = h / (H / prm.groups);
+  const int nb = (S + kChunk - 1) / kChunk;
+  const float a = prm.a[h];
+  const T* x = static_cast<const T*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
+  const T* b = static_cast<const T*>(prm.b) + bi * prm.b_sb + (long long)g * N;
+  const float* dt = prm.dt + (long long)bi * S * H + h;
+  for (int i = tid; i < kRows * N; i += kThreads) {
+    const int r = i / N, n = i % N;
+    float v = 0.f;
+    if (prm.init_state != nullptr && r < rows)
+      v = prm.init_state[((long long)bh * P + p0 + r) * N + n];
+    sState[r * ldn + n] = v;
+  }
+  for (int k = 0; k < nb; ++k) {
+    const int t0 = k * kChunk, L = min(kChunk, S - t0);
+    float* out = prm.states + (((long long)bi * nb + k) * H + h) * P * N + (long long)p0 * N;
+    // the state at this block's start (each thread its own elements, read
+    // by nobody else until the next barrier)
+    for (int i = tid; i < rows * N; i += kThreads)
+      out[i] = sState[(i / N) * ldn + i % N];
+    if (k + 1 == nb) break;
+    for (int i = tid; i < L * N; i += kThreads) {
+      const int s = i / N, n = i % N;
+      sB[s * ldn + n] = to_f(b[(long long)(t0 + s) * prm.b_ss + n]);
+    }
+    for (int i = tid; i < L * kRows; i += kThreads) {
+      const int s = i / kRows, r = i % kRows;
+      sX[s * kRows + r] = r < rows ? to_f(x[(long long)(t0 + s) * prm.x_ss + r]) : 0.f;
+    }
+    if (tid < 32) {
+      const float d = tid < L ? dt[(long long)(t0 + tid) * H] : 0.f;
+      float cs = d * a;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, cs, o);
+        if (tid >= o) cs += u;
+      }
+      const float last = __shfl_sync(0xffffffffu, cs, L - 1);
+      sW[tid] = tid < L ? d * expf(last - cs) : 0.f;
+      if (tid == 0) *sTotal = expf(last);
+    }
+    __syncthreads();
+    const float total = *sTotal;
+    for (int i = tid; i < kRows * N; i += kThreads) {
+      const int r = i / N, n = i % N;
+      float acc = 0.f;
+      for (int s = 0; s < L; ++s) acc = fmaf(sW[s] * sX[s * kRows + r], sB[s * ldn + n], acc);
+      sState[r * ldn + n] = fmaf(sState[r * ldn + n], total, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of the backward kernel, in floats: B and C blocks, the
+// start state and the carried dState (rows of N+1), x, x*dt and dy (rows of
+// P+1), M, Q and G (rows of 33), eight per-token vectors and the per-warp
+// partials of <dState, S0>.
+__host__ __device__ inline size_t bwd_smem_floats(int headdim, int dstate) {
+  return (size_t)(2 * kChunk + 2 * headdim) * (dstate + 1) + (size_t)3 * kChunk * (headdim + 1)
+         + 3 * kChunk * (kChunk + 1) + 7 * kChunk + kBwdWarps;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdParams prm) {
+  extern __shared__ float smem[];
+  const int N = prm.dstate, P = prm.headdim, S = prm.seqlen, H = prm.heads;
+  const int ldn = N + 1, ldp = P + 1, ldl = kChunk + 1;
+  float* sB = smem;                    // [32][ldn]
+  float* sC = sB + kChunk * ldn;       // [32][ldn]
+  float* sS0 = sC + kChunk * ldn;      // [P][ldn] the state at the block's start
+  float* sDS = sS0 + P * ldn;          // [P][ldn] d(the state at the block's end)
+  float* sX = sDS + P * ldn;           // [32][ldp] x
+  float* sXdt = sX + kChunk * ldp;     // [32][ldp] x dt
+  float* sDy = sXdt + kChunk * ldp;    // [32][ldp] dy
+  float* sM = sDy + kChunk * ldp;      // [32][ldl]
+  float* sQ = sM + kChunk * ldl;       // [32][ldl]
+  float* sG = sQ + kChunk * ldl;       // [32][ldl]
+  float* sDt = sG + kChunk * ldl;      // [32]
+  float* sCs = sDt + kChunk;           // [32] cumsum of dt a in the block
+  float* sE = sCs + kChunk;            // [32] exp(cs_l)
+  float* sTail = sE + kChunk;          // [32] exp(cs_last - cs_s)
+  float* sDxX = sTail + kChunk;        // [32] x_s . dxdt_s
+  float* sT = sDxX + kChunk;           // [32] T_s
+  float* sYoff = sT + kChunk;          // [32] exp(cs_l) C_l.(dy_l S0)
+  float* sRed = sYoff + kChunk;        // [warps]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x, bi = bh / H, h = bh % H;
+  const int g = h / (H / prm.groups);
+  const int nb = (S + kChunk - 1) / kChunk;
+  const float a = prm.a[h];
+  const T* x = static_cast<const T*>(prm.x) + bi * prm.x_sb + (long long)h * P;
+  const T* b = static_cast<const T*>(prm.b) + bi * prm.b_sb + (long long)g * N;
+  const T* c = static_cast<const T*>(prm.c) + bi * prm.c_sb + (long long)g * N;
+  const T* dy = static_cast<const T*>(prm.dy) + ((long long)bi * S * H + h) * P;   // token stride H P
+  T* dx = static_cast<T*>(prm.dx) + ((long long)bi * S * H + h) * P;
+  const float* dt = prm.dt + (long long)bi * S * H + h;                             // token stride H
+  float* d_dt = prm.d_dt + (long long)bi * S * H + h;
+  float* db_part = prm.db_part + ((long long)bi * S * H + h) * N;                   // token stride H N
+  float* dc_part = prm.dc_part + ((long long)bi * S * H + h) * N;
+  const long long state_off = (long long)bh * P * N;
+
+  for (int i = tid; i < P * N; i += kBwdThreads) {
+    const int p = i / N, n = i % N;
+    sDS[p * ldn + n] = prm.d_final != nullptr ? prm.d_final[state_off + i] : 0.f;
+  }
+  float d_a_acc = 0.f;                 // warp 0: this lane's tokens' dt d(da)
+
+  for (int k = nb - 1; k >= 0; --k) {
+    const int t0 = k * kChunk, L = min(kChunk, S - t0);
+    const float* st = prm.states + (((long long)bi * nb + k) * H + h) * P * N;
+    for (int i = tid; i < L * N; i += kBwdThreads) {
+      const int s = i / N, n = i % N;
+      sB[s * ldn + n] = to_f(b[(long long)(t0 + s) * prm.b_ss + n]);
+      sC[s * ldn + n] = to_f(c[(long long)(t0 + s) * prm.c_ss + n]);
+    }
+    for (int i = tid; i < L * P; i += kBwdThreads) {
+      const int s = i / P, p = i % P;
+      const float xv = to_f(x[(long long)(t0 + s) * prm.x_ss + p]);
+      sX[s * ldp + p] = xv;
+      sXdt[s * ldp + p] = xv * dt[(long long)(t0 + s) * H];
+      sDy[s * ldp + p] = to_f(dy[(long long)(t0 + s) * H * P + p]);
+    }
+    for (int i = tid; i < P * N; i += kBwdThreads) sS0[(i / N) * ldn + i % N] = st[i];
+    if (warp == 0) {
+      const float d = lane < L ? dt[(long long)(t0 + lane) * H] : 0.f;
+      float cs = d * a;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, cs, o);
+        if (lane >= o) cs += u;
+      }
+      const float last = __shfl_sync(0xffffffffu, cs, L - 1);
+      sDt[lane] = d;
+      sCs[lane] = cs;
+      sE[lane] = lane < L ? expf(cs) : 0.f;
+      sTail[lane] = lane < L ? expf(last - cs) : 0.f;
+    }
+    __syncthreads();
+
+    // Every warp owns the kTok tokens warp + 8 k of the block and works on
+    // them together: kTok independent FMA chains a thread, each operand
+    // loaded once for all of them. M, Q and G are zero where s > l or l >= L,
+    // so the sums below run over the whole block without a bound per token.
+
+    // M, Q, G: lane = s (B and x*dt rows read at strides of N+1 and P+1
+    // words), the warp's rows l broadcast
+    {
+      const int s = lane;
+      float cb[kTok] = {}, yx[kTok] = {};
+      for (int n = 0; n < N; ++n) {
+        const float bv = sB[s * ldn + n];
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) cb[k] = fmaf(sC[(warp + kBwdWarps * k) * ldn + n], bv, cb[k]);
+      }
+      for (int p = 0; p < P; ++p) {
+        const float xv = sXdt[s * ldp + p];
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) yx[k] = fmaf(sDy[(warp + kBwdWarps * k) * ldp + p], xv, yx[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kTok; ++k) {
+        const int l = warp + kBwdWarps * k;
+        const bool valid = l < L && s <= l;     // rows past L hold stale values
+        const float w = valid ? expf(sCs[l] - sCs[s]) : 0.f;
+        sM[l * ldl + s] = valid ? cb[k] * w : 0.f;
+        sQ[l * ldl + s] = valid ? yx[k] * w : 0.f;
+        sG[l * ldl + s] = valid ? cb[k] * w * yx[k] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // dxdt (and dx), x.dxdt and T for the warp's tokens s: lanes over P
+    {
+      float xd[kTok] = {}, xv[kTok] = {};
+      for (int p = lane; p < P; p += 32) {
+        float acc[kTok] = {}, v[kTok] = {};
+        for (int l = 0; l < L; ++l) {
+          const float dyv = sDy[l * ldp + p];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) acc[k] = fmaf(sM[l * ldl + warp + kBwdWarps * k], dyv, acc[k]);
+        }
+        for (int n = 0; n < N; ++n) {
+          const float ds = sDS[p * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) v[k] = fmaf(ds, sB[(warp + kBwdWarps * k) * ldn + n], v[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) {
+          const int s = warp + kBwdWarps * k;
+          if (s >= L) continue;
+          const float d = fmaf(sTail[s], v[k], acc[k]);
+          dx[(long long)(t0 + s) * H * P + p] = from_f<T>(d * sDt[s]);
+          xd[k] = fmaf(d, sX[s * ldp + p], xd[k]);
+          xv[k] = fmaf(sXdt[s * ldp + p], v[k], xv[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kTok; ++k) {
+        const int s = warp + kBwdWarps * k;
+        const float a_ = warp_sum(xd[k]), b_ = warp_sum(xv[k]);
+        if (lane == 0 && s < L) {
+          sDxX[s] = a_;
+          sT[s] = sTail[s] * b_;
+        }
+      }
+    }
+    // dC (this head's part) and exp(cs_l) C_l.(dy_l S0) for the warp's
+    // tokens l, and dB (this head's part) for its tokens s: lanes over N
+    {
+      float cu[kTok] = {};
+      for (int n = lane; n < N; n += 32) {
+        float acc[kTok] = {}, u[kTok] = {};
+        for (int s = 0; s < L; ++s) {
+          const float bv = sB[s * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) acc[k] = fmaf(sQ[(warp + kBwdWarps * k) * ldl + s], bv, acc[k]);
+        }
+        for (int p = 0; p < P; ++p) {
+          const float s0 = sS0[p * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) u[k] = fmaf(sDy[(warp + kBwdWarps * k) * ldp + p], s0, u[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) {
+          const int l = warp + kBwdWarps * k;
+          if (l >= L) continue;
+          dc_part[(long long)(t0 + l) * H * N + n] = fmaf(sE[l], u[k], acc[k]);
+          cu[k] = fmaf(sC[l * ldn + n], u[k], cu[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kTok; ++k) {
+        const int l = warp + kBwdWarps * k;
+        const float c_ = warp_sum(cu[k]);
+        if (lane == 0 && l < L) sYoff[l] = sE[l] * c_;
+      }
+      for (int n = lane; n < N; n += 32) {
+        float acc[kTok] = {}, z[kTok] = {};
+        for (int l = 0; l < L; ++l) {
+          const float cv = sC[l * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) acc[k] = fmaf(sQ[l * ldl + warp + kBwdWarps * k], cv, acc[k]);
+        }
+        for (int p = 0; p < P; ++p) {
+          const float ds = sDS[p * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) z[k] = fmaf(sXdt[(warp + kBwdWarps * k) * ldp + p], ds, z[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) {
+          const int s = warp + kBwdWarps * k;
+          if (s < L) db_part[(long long)(t0 + s) * H * N + n] = fmaf(sTail[s], z[k], acc[k]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dState <- exp(cs_last) dState + sum_l exp(cs_l) dy_l (outer) C_l, and
+    // <dState, S0> from the old values: thread t owns column n = t % N and
+    // rows t / N + R j (R = the rows a pass covers), kTok rows at once
+    const float total = sE[L - 1];
+    float dot = 0.f;
+    {
+      const int R = kBwdThreads / N, n = tid % N;
+      for (int p0 = tid / N; R > 0 && tid < R * N && p0 < P; p0 += kTok * R) {
+        float acc[kTok] = {};
+        for (int l = 0; l < L; ++l) {
+          const float ec = sE[l] * sC[l * ldn + n];
+#pragma unroll
+          for (int k = 0; k < kTok; ++k) {
+            const int p = min(p0 + R * k, P - 1);   // rows past P: computed, not kept
+            acc[k] = fmaf(sDy[l * ldp + p], ec, acc[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kTok; ++k) {
+          const int p = p0 + R * k;
+          if (p >= P) continue;
+          const float old = sDS[p * ldn + n];
+          dot = fmaf(old, sS0[p * ldn + n], dot);
+          sDS[p * ldn + n] = fmaf(total, old, acc[k]);
+        }
+      }
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) sRed[warp] = dot;
+    __syncthreads();
+
+    // d(cs), its reverse cumsum d(da), d(dt) and d(a): warp 0, lane = token
+    if (warp == 0) {
+      float dcs = 0.f, t = 0.f;
+      if (lane < L) {
+        float row = 0.f, col = 0.f;
+        for (int s = 0; s <= lane; ++s) row += sG[lane * ldl + s];
+        for (int l = lane; l < L; ++l) col += sG[l * ldl + lane];
+        t = sT[lane];
+        dcs = row - col + sYoff[lane] - t;
+      }
+      const float t_sum = warp_sum(t);
+      if (lane == L - 1) {
+        float ds0 = 0.f;
+        for (int w = 0; w < kBwdWarps; ++w) ds0 += sRed[w];
+        dcs += total * ds0 + t_sum;
+      }
+      float dda = dcs;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_down_sync(0xffffffffu, dda, o);
+        if (lane + o < 32) dda += u;
+      }
+      if (lane < L) {
+        d_dt[(long long)(t0 + lane) * H] = fmaf(a, dda, sDxX[lane]);
+        d_a_acc = fmaf(dda, sDt[lane], d_a_acc);
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < P * N; i += kBwdThreads)
+    prm.d_init[state_off + i] = sDS[(i / N) * ldn + i % N];
+  if (warp == 0) {
+    d_a_acc = warp_sum(d_a_acc);
+    if (lane == 0) prm.d_a_part[bh] = d_a_acc;
+  }
+}
+
+// db, dc (B, S, G, N) = the per-head partials summed over each group's
+// heads in order; d(a) (H,) = its per-(batch, head) partials summed over
+// the batch in order.
+template <typename T>
+__global__ void __launch_bounds__(256) ssd_scan_bwd_reduce_kernel(const BwdParams prm) {
+  const int H = prm.heads, G = prm.groups, N = prm.dstate, rep = H / G;
+  const long long total = (long long)prm.batch * prm.seqlen * G * N;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int n = (int)(i % N), g = (int)((i / N) % G);
+    const long long bs = i / ((long long)N * G);
+    const long long base = (bs * H + (long long)g * rep) * N + n;
+    float sb = 0.f, sc = 0.f;
+    for (int r = 0; r < rep; ++r) {
+      sb += prm.db_part[base + (long long)r * N];
+      sc += prm.dc_part[base + (long long)r * N];
+    }
+    static_cast<T*>(prm.db)[i] = from_f<T>(sb);
+    static_cast<T*>(prm.dc)[i] = from_f<T>(sc);
+  }
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < H) {
+    float sa = 0.f;
+    for (int bi = 0; bi < prm.batch; ++bi) sa += prm.d_a_part[(long long)bi * H + j];
+    prm.d_a[j] = sa;
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdParams& prm, cudaStream_t stream) {
+  const size_t smem1 = bwd_states_smem_floats(prm.dstate) * sizeof(float);
+  const size_t smem2 = bwd_smem_floats(prm.headdim, prm.dstate) * sizeof(float);
+  cudaError_t e = set_smem((const void*)ssd_scan_bwd_states_kernel<T>, smem1);
+  if (e != cudaSuccess) return e;
+  e = set_smem((const void*)ssd_scan_bwd_kernel<T>, smem2);
+  if (e != cudaSuccess) return e;
+  const dim3 grid1((prm.headdim + kRows - 1) / kRows, prm.batch * prm.heads);
+  ssd_scan_bwd_states_kernel<T><<<grid1, kThreads, smem1, stream>>>(prm);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_scan_bwd_kernel<T><<<prm.batch * prm.heads, kBwdThreads, smem2, stream>>>(prm);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)prm.batch * prm.seqlen * prm.groups * prm.dstate;
+  long long blocks = (n + 255) / 256;
+  if (blocks < (prm.heads + 255) / 256) blocks = (prm.heads + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  ssd_scan_bwd_reduce_kernel<T><<<(int)blocks, 256, 0, stream>>>(prm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
@@ -804,6 +1294,73 @@ extern "C" int ssd_scan_launch(
     e = launch_fma(prm, st);
   else if (dtype == 1)
     e = launch_mma(prm, st);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// Bytes of shared memory the backward kernel's CTA takes at (headdim,
+// dstate); ssd_scan_bwd_launch refuses more than 232448 (227 KB).
+extern "C" long long ssd_scan_bwd_smem_bytes(int headdim, int dstate) {
+  return (long long)(bwd_smem_floats(headdim, dstate) * sizeof(float));
+}
+
+// The backward: dx (B, S, H, P) and db, dc (B, S, G, N) in x's dtype,
+// d_dt (B, S, H), d_a (H,) and d_init (B, H, P, N) in fp32, from dy (B, S,
+// H, P) dense in x's dtype and d_final (B, H, P, N) fp32 or null (zeros).
+// states (B, ceil(S/32), H, P, N), d_a_part (B, H) and db_part, dc_part
+// (B, S, H, N) are fp32 scratch. dtype 0 = float32, 1 = bfloat16; both run
+// FMAs in fp32. Returns the launches' cudaError_t (0 = success).
+extern "C" int ssd_scan_bwd_launch(
+    const void* x, const void* dt, const void* a, const void* b, const void* c,
+    const void* init_state, const void* dy, const void* d_final, void* states,
+    void* dx, void* d_dt, void* d_a_part, void* db_part, void* dc_part, void* d_init,
+    void* db, void* dc, void* d_a,
+    int batch, int seqlen, int heads, int headdim, int groups, int dstate,
+    long long x_sb, long long x_ss, long long b_sb, long long b_ss,
+    long long c_sb, long long c_ss, int dtype, void* stream) {
+  if (batch <= 0 || seqlen <= 0 || heads <= 0 || headdim <= 0 || groups <= 0
+      || heads % groups != 0 || dstate <= 0 || dstate > kMaxState
+      || (long long)batch * heads > 65535
+      || ssd_scan_bwd_smem_bytes(headdim, dstate) > 232448)
+    return (int)cudaErrorInvalidValue;
+  BwdParams prm;
+  prm.x = x;
+  prm.dt = static_cast<const float*>(dt);
+  prm.a = static_cast<const float*>(a);
+  prm.b = b;
+  prm.c = c;
+  prm.init_state = static_cast<const float*>(init_state);
+  prm.dy = dy;
+  prm.d_final = static_cast<const float*>(d_final);
+  prm.states = static_cast<float*>(states);
+  prm.dx = dx;
+  prm.d_dt = static_cast<float*>(d_dt);
+  prm.d_a_part = static_cast<float*>(d_a_part);
+  prm.db_part = static_cast<float*>(db_part);
+  prm.dc_part = static_cast<float*>(dc_part);
+  prm.d_init = static_cast<float*>(d_init);
+  prm.db = db;
+  prm.dc = dc;
+  prm.d_a = static_cast<float*>(d_a);
+  prm.batch = batch;
+  prm.seqlen = seqlen;
+  prm.heads = heads;
+  prm.headdim = headdim;
+  prm.groups = groups;
+  prm.dstate = dstate;
+  prm.x_sb = x_sb;
+  prm.x_ss = x_ss;
+  prm.b_sb = b_sb;
+  prm.b_ss = b_ss;
+  prm.c_sb = c_sb;
+  prm.c_ss = c_ss;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_bwd<float>(prm, st);
+  else if (dtype == 1)
+    e = launch_bwd<__nv_bfloat16>(prm, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -1,10 +1,13 @@
-"""Wrapper for the Hopper SSD chunk-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers for the Hopper SSD chunk-scan kernels (``csrc/ssd_scan.cu``).
 
 ``ssd_scan`` checks its inputs, allocates y and the final state and
-launches the kernel on the current CUDA stream. Tensors on the CPU take
-the plain version (``ref.ssd_scan_ref``); a CUDA tensor launches the
-kernel or raises — there is no fallback. Each launch adds one to
-``ssd_scan.launches``.
+launches the forward kernel on the current CUDA stream; ``ssd_scan_bwd``
+allocates the gradients and scratch and launches the backward kernels.
+``SSDScan`` is the autograd function of the training path: ``ssd_scan``
+forward, ``ssd_scan_bwd`` backward. Tensors on the CPU take the plain
+versions (``ref.ssd_scan_ref``, ``ref.ssd_scan_bwd_ref``); a CUDA tensor
+launches the kernels or raises — there is no fallback. Each launch adds
+one to the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -14,28 +17,46 @@ from typing import Optional
 
 import torch
 
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STATE = 256
+BLOCK = 32                 # the kernels' token block
 
 
-def _library():
+def _function(name: str, argtypes: list):
+    """``name`` of the kernel library, with its C signature declared."""
     from repro_torch.kernels import _build
-    lib = _build.load(str(SOURCE))
-    fn = lib.ssd_scan_launch
+    fn = getattr(_build.load(str(SOURCE)), name)
     if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, P, P,   # x dt a b c init y final
-                       I, I, I, I, I, I,         # B S H P G N
-                       L, L, L, L, L, L,         # x/b/c batch and seq strides
-                       I, P]                     # dtype stream
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, dt, a, b, c, init_state):
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = ([_P] * 8                # x dt a b c init y final
+             + [_I] * 6              # B S H P G N
+             + [_L] * 6              # x/b/c batch and seq strides
+             + [_I, _P])             # dtype stream
+_BWD_ARGS = ([_P] * 18               # inputs, scratch and gradients
+             + [_I] * 6 + [_L] * 6 + [_I, _P])
+
+
+def bwd_smem_bytes(P: int, N: int) -> int:
+    """Shared memory of the backward kernel's CTA (all of P at once), as
+    the kernel library computes it; its launcher refuses a (P, N) whose CTA
+    would not fit in Hopper's 227 KB."""
+    fn = _function("ssd_scan_bwd_smem_bytes", [_I, _I])
+    fn.restype = ctypes.c_longlong
+    return fn(P, N)
+
+
+def _check(x, dt, a, b, c, init_state, tensor_cores=True):
+    """Device, dtype, shape and layout checks of the scan's inputs;
+    ``tensor_cores`` adds the bf16 forward kernel's tile and alignment
+    rules (the backward kernels read every element by itself)."""
     dev = x.device
     named = (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c))
     if init_state is not None:
@@ -72,8 +93,20 @@ def _check(x, dt, a, b, c, init_state):
     for name, t in (("dt", dt), ("a", a), ("init_state", init_state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.dtype == torch.bfloat16:
+    if tensor_cores and x.dtype == torch.bfloat16:
         _check_tensor_core_tiles(x, b, c, init_state)
+
+
+def _check_bwd(x, dt, a, b, c, dy, init_state, d_final):
+    _check(x, dt, a, b, c, init_state, tensor_cores=False)
+    if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)} in {x.dtype} on "
+                         f"{x.device}, got {tuple(dy.shape)} {dy.dtype} {dy.device}")
+    if d_final is not None:
+        want = (x.shape[0], x.shape[2], x.shape[3], b.shape[3])
+        if (d_final.device != x.device or d_final.dtype != torch.float32
+                or d_final.shape != want or not d_final.is_contiguous()):
+            raise ValueError(f"d_final must be a contiguous float32 {want}")
 
 
 def _check_tensor_core_tiles(x, b, c, init_state):
@@ -119,7 +152,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int,
     G, N = b.shape[2], b.shape[3]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _library()
+    fn = _function("ssd_scan_launch", _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -134,3 +167,88 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int,
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int,
+                 init_state: Optional[torch.Tensor] = None,
+                 d_final: Optional[torch.Tensor] = None):
+    """Gradients of ``ssd_scan`` given the cotangents ``dy`` (x's shape and
+    dtype) of y and ``d_final`` (B, H, P, N) fp32 of the final state (None:
+    zeros). Returns (dx, d_dt, d_a, db, dc, d_init): dx, db, dc dense in
+    x's dtype, d_dt (B, S, H), d_a (H,) and d_init (B, H, P, N) in fp32.
+
+    On CUDA three launches (``csrc/ssd_scan.cu``): the states kernel
+    writes the state at every 32-token block's start (B, ceil(S/32), H, P,
+    N) fp32 to scratch; the backward kernel, one CTA per (batch, head),
+    walks the blocks last to first with FMAs in fp32 and writes dx, d_dt,
+    d_init and per-head fp32 partials of db, dc and d(a); the reduce
+    kernel sums the partials in a fixed order (two launches are
+    bit-equal). x, b and c may be the forward's strided projection views;
+    dy is made dense. The kernels walk 32-token blocks where the plain
+    version walks ``chunk``-token chunks, so they agree within rounding."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, a, b, c, dy, chunk=chunk,
+                                init_state=init_state, d_final=d_final)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan_bwd for device {x.device}")
+    dy = dy.contiguous()
+    _check_bwd(x, dt, a, b, c, dy, init_state, d_final)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    dev, f32 = x.device, torch.float32
+    nb = -(-S // BLOCK)
+    states = torch.empty((B, nb, H, P, N), dtype=f32, device=dev)
+    db_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dc_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    d_a_part = torch.empty((B, H), dtype=f32, device=dev)
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    d_dt = torch.empty((B, S, H), dtype=f32, device=dev)
+    d_init = torch.empty((B, H, P, N), dtype=f32, device=dev)
+    db = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    dc = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    d_a = torch.empty((H,), dtype=f32, device=dev)
+    fn = _function("ssd_scan_bwd_launch", _BWD_ARGS)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(ptr(t) for t in (x, dt, a, b, c, init_state, dy, d_final, states,
+                                   dx, d_dt, d_a_part, db_part, dc_part, d_init,
+                                   db, dc, d_a)),
+                B, S, H, P, G, N, x.stride(0), x.stride(1), b.stride(0),
+                b.stride(1), c.stride(0), c.stride(1), _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {rc}")
+    ssd_scan_bwd.launches += 1
+    return dx, d_dt, d_a, db, dc, d_init
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its backward: ``SSDScan.apply(x, dt, a, b, c,
+    init_state, chunk) -> (y, final_state)``. The forward is ``ssd_scan``
+    and saves its inputs; the backward is ``ssd_scan_bwd``, which
+    recomputes the block-start states. ``init_state`` may be None (zeros;
+    its gradient is then None), and either cotangent may be None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, init_state, chunk):
+        y, final = ssd_scan(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+        ctx.save_for_backward(x, dt, a, b, c, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b, c, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, d_dt, d_a, db, dc, d_init = ssd_scan_bwd(
+            x, dt, a, b, c, dy, chunk=ctx.chunk, init_state=init_state,
+            d_final=None if d_final is None else d_final.contiguous())
+        return dx, d_dt, d_a, db, dc, (None if init_state is None else d_init), None

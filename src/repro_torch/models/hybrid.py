@@ -13,8 +13,9 @@ page table indexes both pools: ``{"attn": {"kv_pages"}, "ssm":
 first chunk through the flash forward and the scan from zeros, later
 chunks and decode through the position-mode kernel and the carried state.
 The meta tokens are prepended by the transformer assembly and sit in both
-halves' caches like any other token.
-Training raises until SSM training lands (ROADMAP A.11).
+halves' caches like any other token. ``train`` runs both halves over the
+whole sequence without caches: the attention half through the flash
+kernels under the layer's window, the SSM half through ``SSDScan``.
 """
 from __future__ import annotations
 
@@ -46,19 +47,24 @@ def hybrid_sublayer(
     positions,
     window: Optional[int],
     cache: Optional[dict] = None,
-    mode: str = "extend",  # extend | decode
+    mode: str = "extend",  # train | prefill | extend | decode
     cur_pos=None,
     decode_active=None,
     page_table=None,
     page_tokens: Optional[int] = None,
-) -> Tuple[torch.Tensor, dict]:
+) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d) -> (out, {"attn": ..., "ssm": ...}), both halves'
     pools or rings written IN PLACE. ``decode_active`` masks both halves'
     writes for inactive rows; ``page_tokens`` is the page size of the
-    state-page slots and of the ring view."""
+    state-page slots and of the ring view. ``train`` takes no cache and
+    returns None for it."""
     if mode == "train":
-        raise NotImplementedError(f"{cfg.name}: hybrid training needs SSM "
-                                  "training (ROADMAP A.11), not ported yet")
+        if cache is not None:
+            raise ValueError("hybrid training takes no cache")
+        a_out, _ = attention_sublayer(cfg, p["attn"], x, positions=positions,
+                                      window=window, mode="train")
+        s_out, _ = ssm_sublayer(cfg, p["ssm"], x, mode="train")
+        return _combine(cfg, p, a_out, s_out), None
     a_out, a_cache = attention_sublayer(
         cfg, p["attn"], x, positions=positions, window=window,
         cache=cache["attn"], mode=mode, cur_pos=cur_pos,
@@ -68,6 +74,10 @@ def hybrid_sublayer(
         cfg, p["ssm"], x, cache=cache["ssm"], mode=mode,
         decode_active=decode_active, positions=positions, cur_pos=cur_pos,
         page_table=page_table, page_tokens=page_tokens)
-    out = 0.5 * (rmsnorm(a_out, p["attn_out_norm"], cfg.norm_eps)
-                 + rmsnorm(s_out, p["ssm_out_norm"], cfg.norm_eps))
-    return out, {"attn": a_cache, "ssm": s_cache}
+    return _combine(cfg, p, a_out, s_out), {"attn": a_cache, "ssm": s_cache}
+
+
+def _combine(cfg: ModelConfig, p: dict, a_out, s_out):
+    """The mean of the two halves, each RMS-normed by its own scale."""
+    return 0.5 * (rmsnorm(a_out, p["attn_out_norm"], cfg.norm_eps)
+                  + rmsnorm(s_out, p["ssm_out_norm"], cfg.norm_eps))

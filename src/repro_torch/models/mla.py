@@ -33,7 +33,7 @@ kernel, on both engines.
 
 ``prefill``, ``extend`` and ``decode`` are the modes, as
 ``attention_sublayer`` names them. Training raises until the flash kernels
-take Dk != Dv (ROADMAP A.4, A.11).
+take Dk != Dv (ROADMAP A.4).
 """
 from __future__ import annotations
 
@@ -148,7 +148,7 @@ def mla_sublayer(
     if mode == "train":
         raise NotImplementedError(
             f"{cfg.name}: MLA training needs Dk != Dv in the flash kernels "
-            "(ROADMAP A.4, A.11), not ported yet")
+            "(ROADMAP A.4), not ported yet")
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
     B, S, d = x.shape

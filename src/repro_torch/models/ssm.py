@@ -4,12 +4,14 @@ compute plane (DESIGN.md §10) and on ring caches.
 The port of ``repro.models.ssm`` carries the parameter definitions, the
 depthwise causal conv, the one-token decode recurrence, the state-page
 pools, the per-slot ring cache (``ssm_cache_init``: the conv left-context
-and the SSD state) and every serving mode of ``ssm_sublayer``. Prefill and
-extend chunks run the SSD chunk scan (``kernels.ssd_scan``: the Hopper
-kernel on CUDA tensors, its plain version on the CPU), continuing from the
-state page they read or from the ring's carried state (a fresh zero ring
-is the empty history); decode runs the O(1) recurrence in plain torch, as
-the JAX package does.
+and the SSD state) and every mode of ``ssm_sublayer``. Prefill and extend
+chunks run the SSD chunk scan (``kernels.ssd_scan``: the Hopper kernel on
+CUDA tensors, its plain version on the CPU), continuing from the state
+page they read or from the ring's carried state (a fresh zero ring is the
+empty history); decode runs the O(1) recurrence in plain torch, as the
+JAX package does. ``train`` runs the whole sequence from the zero state
+through ``SSDScan``: the forward kernel, and the backward kernels in the
+backward pass.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamDef
 
@@ -155,14 +157,19 @@ def ssm_sublayer(
     x,
     *,
     cache: Optional[dict] = None,
-    mode: str = "extend",  # extend | decode
+    mode: str = "extend",  # train | prefill | extend | decode
     decode_active=None,
     positions=None,
     cur_pos=None,
     page_table=None,
     page_tokens: Optional[int] = None,
-) -> Tuple[torch.Tensor, dict]:
+) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d_model) -> (out, the cache), written IN PLACE.
+
+    ``train`` (no cache, returns None for it): the conv from zero left
+    context and the scan from the zero state over the whole sequence
+    through ``SSDScan``, so gradients reach every parameter by autograd —
+    the reference's train mode.
 
     Ring cache ``{"conv", "state"}`` (no ``page_table``): ``prefill`` and
     ``extend`` are one path, the scan from the carried state, whose final
@@ -184,15 +191,15 @@ def ssm_sublayer(
     are the empty-history init, so a cold start and a chunk resumed at a
     page boundary run the same recurrence. Decode rows where ``decode_active``
     is False write nothing."""
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("SSM training takes no cache")
+        return _ssm_mix(cfg, p, x, None, None, "train")[0], None
     if cache is None:
-        raise NotImplementedError(f"mode {mode!r}: SSM training (ROADMAP "
-                                  "A.11) is not ported yet")
+        raise ValueError(f"SSM mode {mode!r} needs a cache")
     ring = "state" in cache
     if mode not in ("decode", "extend") and not (ring and mode == "prefill"):
         raise ValueError(f"no {'ring' if ring else 'paged'} SSM mode {mode!r}")
-    B, S, d = x.shape
-    di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
-    ng, ns = cfg.ssm_ngroups, cfg.ssm_state
     if ring:
         if page_table is not None:
             raise ValueError("a ring cache takes no page table")
@@ -211,6 +218,32 @@ def ssm_sublayer(
         conv_in = conv_pages.index_select(0, pid_read)
         state = state_pages.index_select(0, pid_read)
 
+    out, new_conv, new_state = _ssm_mix(cfg, p, x, conv_in, state, mode)
+    if mode == "decode" and decode_active is not None:
+        act = decode_active.to(device=x.device, dtype=torch.bool)
+        if ring:
+            new_state = torch.where(act[:, None, None, None], new_state, state)
+            new_conv = torch.where(act[:, None, None], new_conv, conv_in)
+        else:
+            ok = ok & act
+    if ring:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+    else:
+        _write_state_pages(conv_pages, pid_write, ok, new_conv)
+        _write_state_pages(state_pages, pid_write, ok, new_state)
+    return out, cache
+
+
+def _ssm_mix(cfg: ModelConfig, p: dict, x, conv_in, state, mode: str):
+    """The SSM block on x (B, S, d) from the conv left context ``conv_in``
+    and the SSD ``state`` (None: zeros): projections, conv, the scan (the
+    one-token recurrence for ``decode``; ``SSDScan`` for ``train``), the
+    skip, the gated norm and the output projection. Returns (out, the new
+    conv context, the new state)."""
+    B, S, _ = x.shape
+    di, nh, hd = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim
+    ng, ns = cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = x @ p["in_proj"]
     z, xi, b, c, dt = _split_proj(cfg, zxbcdt)
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -226,24 +259,12 @@ def ssm_sublayer(
     if mode == "decode":
         y1, new_state = ssd_decode(xh[:, 0], dt[:, 0], a, bg[:, 0], cg[:, 0], state)
         y = y1[:, None]
-        if decode_active is not None:
-            act = decode_active.to(device=x.device, dtype=torch.bool)
-            if ring:
-                new_state = torch.where(act[:, None, None, None], new_state, state)
-                new_conv = torch.where(act[:, None, None], new_conv, conv_in)
-            else:
-                ok = ok & act
+    elif mode == "train":
+        y, new_state = SSDScan.apply(xh, dt, a, bg, cg, state, cfg.ssm_chunk)
     else:
         y, new_state = ssd_scan(xh, dt, a, bg, cg, chunk=cfg.ssm_chunk,
                                 init_state=state)
     y = y + xh.float().to(y.dtype) * p["d_skip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_g"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    if ring:
-        cache["conv"].copy_(new_conv)
-        cache["state"].copy_(new_state)
-    else:
-        _write_state_pages(conv_pages, pid_write, ok, new_conv)
-        _write_state_pages(state_pages, pid_write, ok, new_state)
-    return out, cache
+    return y @ p["out_proj"], new_conv, new_state

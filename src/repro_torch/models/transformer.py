@@ -34,8 +34,9 @@ page; its first chunk may span pages only as far as the meta prefix forces
 layer's aux loss is dropped on the serving path (the paged entry points
 return logits and pools only). The frontends are stubs: multi-codebook
 tokens (summed embeddings, one head per codebook) and image embeds in
-front of the text. Frontend, MLA, MoE, SSM and hybrid training raise
-``NotImplementedError`` naming their ROADMAP item.
+front of the text. Training runs dense attention, SSM and hybrid stacks
+(the meta prefix in front, cut before the loss); frontend, MLA and MoE
+training raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -355,9 +356,6 @@ def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
     if cfg.frontend is not None or cfg.n_codebooks > 1:
         raise NotImplementedError(f"{cfg.name}: frontend training (ROADMAP "
                                   "A.5) is not ported yet")
-    if snapshot_kind(cfg) == "point":
-        raise NotImplementedError(f"{cfg.name}: SSM and hybrid training "
-                                  "(ROADMAP A.11) is not ported yet")
     if any(s.kind == "mla" or s.mlp == "moe" for s in cfg.layer_specs()):
         raise NotImplementedError(f"{cfg.name}: MLA and MoE training (Dk != Dv "
                                   "in the flash kernels, the aux loss; ROADMAP "

@@ -156,15 +156,21 @@ def test_first_chunk_spanning_pages_writes_its_last_page(setup):
 
 
 def test_hybrid_training_raises(setup):
+    """Hybrid training runs (ROADMAP A.11; held against JAX in
+    tests/test_torch_train_ssm.py); its train mode refuses a cache."""
     cfg, params = setup[4], setup[5]
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ttfm.loss_and_metrics(cfg, params, {"tokens": tokens, "labels": tokens})
+    loss, _ = ttfm.loss_and_metrics(cfg, params, {"tokens": tokens, "labels": tokens})
+    assert torch.isfinite(loss)
     p = ttfm._layers(params["groups"][0][0], 1)[0]["mixer"]
-    with pytest.raises(NotImplementedError, match="A.11"):
+    out, cache = thyb.hybrid_sublayer(cfg, p, torch.zeros((1, 4, cfg.d_model)),
+                                      positions=torch.arange(4), window=None,
+                                      mode="train")
+    assert out.shape == (1, 4, cfg.d_model) and cache is None
+    with pytest.raises(ValueError, match="takes no cache"):
         thyb.hybrid_sublayer(cfg, p, torch.zeros((1, 4, cfg.d_model)),
                              positions=torch.arange(4), window=None,
-                             mode="train")
+                             mode="train", cache={"attn": {}, "ssm": {}})
 
 
 # ---------------------------------------------------------------------------

@@ -117,8 +117,8 @@ def test_ssm_ring_refuses_a_page_table_and_training(mamba):
     with pytest.raises(ValueError, match="no page table"):
         tssm.ssm_sublayer(cfg, p, x, cache=ring, mode="extend", positions=torch.arange(2),
                           page_table=torch.zeros(1, 1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tssm.ssm_sublayer(cfg, p, x, cache=None, mode="train")
+    with pytest.raises(ValueError, match="takes no cache"):
+        tssm.ssm_sublayer(cfg, p, x, cache=ring, mode="train")
 
 
 # ---------------------------------------------------------------------------
