@@ -9,9 +9,11 @@ layer), MLA + MoE (deepseek-v2-lite-16b), MoE under a window
 deepseek-v2-lite-16b), the fleet (two engine replicas behind the cluster
 frontend, prefixes migrating between them under the lockstep and the
 event clock) and fault injection into live pages, the training paths
-(gemma-2b; mamba2-2.7b and hymba-1.5b through the SSD backward), and
-their six kernels, ragged paged attention in both its position modes
-(the latent head's too, reading one plane or two).
+(gemma-2b; mamba2-2.7b and hymba-1.5b through the SSD backward;
+deepseek-v2-lite-16b's MLA + MoE through the flash kernels' Dk != Dv mode;
+musicgen-large's codebooks), and their six kernels, ragged paged
+attention in both its position modes (the latent head's too, reading one
+plane or two).
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -25,8 +27,9 @@ Phases, each printing one JSON line:
                  shared memory and spills per kernel and the HGMMA/HMMA
                  count of each (``cuobjdump -sass``), and requires HGMMA in
                  every instantiation of the bf16 flash forward, dK/dV and
-                 dQ kernels and HMMA in the bf16 paged-attention (the
-                 latent-head kernel included) and SSD kernels;
+                 dQ kernels (the (Dk 192, Dv 128) ones included: 30 in all)
+                 and HMMA in the bf16 paged-attention (the latent-head
+                 kernel included) and SSD kernels;
 3. kernel      — holds ragged paged attention against its plain PyTorch
                  version at the qwen3-8b path's geometry (32/8 heads, D
                  128: decode / sparse table / extend / softcap / window, and
@@ -107,14 +110,24 @@ Phases, each printing one JSON line:
                  and D 32, at S 17 (below a tile) and with G = 3, fp32 and
                  bf16 (bf16 through the tensor-core forward, dK/dV and dQ
                  kernels), at hymba-1.5b's ring first chunk (S 160,
-                 25/5 at D 64, window 2048) and at its training shape (B 2,
-                 S 2176, the window binding); checks that repeat launches
-                 are bit-equal; times the
+                 25/5 at D 64, window 2048), at its training shape (B 2,
+                 S 2176, the window binding), and at Dk 192 != Dv 128:
+                 deepseek-v2-lite's un-absorbed MLA training shape (B 4, S
+                 2048, 16/16 heads), a ragged S 1000, S 17, softcap 30 +
+                 window 64, G = 3, and G = 3 at S 1500 (the bf16 dK/dV
+                 kernel cuts key tiles); at musicgen-large's training shape
+                 (B 4, S 2048, 32/32 heads at D 64); checks that repeat
+                 launches are bit-equal, and the cut key tiles at (192, 128)
+                 with 64-row units against the plain version; times the
                  three kernels (achieved TFLOP/s, share of the bound; dK/dV
                  also without its row split), their plain versions and
                  ``scaled_dot_product_attention`` (forward, forward +
-                 backward) at the gemma-2b shape, and records the bf16
-                 kernels and plain versions against float64 there;
+                 backward) at the gemma-2b shape and at the three training
+                 shapes (hymba, deepseek, musicgen: 5 rounds alternating
+                 with the first SDPA backend that takes the inputs, named;
+                 median and range; the SM clock before and after), and
+                 records the bf16 kernels and plain versions against
+                 float64 at the gemma-2b shape;
 6. reduced     — the models' paged prefill / extend / decode on reduced fp32
                  qwen3-8b, mamba2-2.7b and hymba-1.5b (page 16), CUDA (the
                  kernels) against the CPU path (the plain versions), same
@@ -158,7 +171,10 @@ Phases, each printing one JSON line:
                  (wq and wk conditioned, see ``conditioned``): three AdamW
                  steps on CUDA (the flash kernels) against the CPU (the
                  plain versions) within 1e-4, and on CUDA a save / restore
-                 / resume that continues the loss;
+                 / resume that continues the loss; then reduced fp32
+                 mixtral-8x22b (the MoE aux loss), musicgen-large (4
+                 codebooks) and internvl2-76b (patch embeddings in
+                 front), three AdamW steps CUDA against CPU within 1e-4;
 8. full-width grads — gemma-2b at full width, 3 layers, fp32, 1 x 512
                  tokens: loss and every gradient leaf on CUDA (the kernels)
                  against the CPU (the plain versions) within 1e-4, with
@@ -166,7 +182,13 @@ Phases, each printing one JSON line:
                  plain versions against themselves on weights moved by half
                  an ulp, and attention alone at that initialisation's
                  scales, kernels and plain versions against float64;
-8b. ssm grads  — mamba2-2.7b at full width, 2 layers, fp32, 1 x 512
+8b. mla grads  — deepseek-v2-lite-16b at full width, 2 layers (the dense
+                 layer and one MoE layer), fp32, 1 x 512 tokens: the loss
+                 (ce, z_loss, aux), grad norm and every leaf through the
+                 Dk 192 / Dv 128 flash kernels (CUDA) against the plain
+                 versions (CPU) within 1e-5 / 1e-4 / 1e-4, wq and w_uk
+                 conditioned;
+8c. ssm grads  — mamba2-2.7b at full width, 2 layers, fp32, 1 x 512
                  tokens: loss and every gradient leaf through the SSD
                  forward and backward kernels (CUDA) against the plain
                  versions (CPU) within 1e-5 (loss) and 1e-4 (grad norm, each
@@ -252,15 +274,24 @@ Phases, each printing one JSON line:
                  freed; every layer of every step launched the forward
                  kernel twice (forward and recompute) and each backward
                  kernel once;
-17. ssm and hybrid train — mamba2-2.7b (64 layers, 4 steps of 4 x 2048
-                 tokens) and hymba-1.5b (32 layers, 3 steps of 2 x 2048
-                 tokens behind 128 meta tokens) at full width and depth
-                 through ``repro_torch.launch.train``, bf16, ``remat="full"``:
-                 every SSM layer of every step launched the SSD forward twice
-                 and its backward once, every hymba attention half the flash
-                 forward twice and dK/dV and dQ once; finite losses and grad
-                 norms, mamba2's step-0 loss within 3 of ln(vocab); step ms,
-                 tokens/s and peak memory.
+17. ssm, hybrid and audio train — mamba2-2.7b (64 layers, 4 steps of 4 x
+                 2048 tokens), hymba-1.5b (32 layers, 3 steps of 2 x 2048
+                 tokens behind 128 meta tokens) and musicgen-large (48
+                 layers, 4 codebooks of 2048, 3 steps of 4 x 2048) at full
+                 width and depth through ``repro_torch.launch.train``, bf16,
+                 ``remat="full"``: every SSM layer of every step launched
+                 the SSD forward twice and its backward once, every
+                 attention layer the flash forward twice and dK/dV and dQ
+                 once; finite losses and grad norms, mamba2's and
+                 musicgen's step-0 loss within 3 of ln(vocab); step ms,
+                 tokens/s and peak memory;
+18. mla train  — deepseek-v2-lite-16b at full width cut to its first 6 of
+                 27 layers (the dense layer and 5 MoE layers), bf16, 4 AdamW
+                 steps of 4 x 2048 tokens, ``remat="full"``, through
+                 ``train.step.make_train_step``: finite, step-0 loss within
+                 3 of ln(vocab), aux loss positive, the flash forward twice
+                 and dK/dV and dQ once per layer and step at Dk 192 / Dv
+                 128, peak under 72 GB; step ms, tokens/s and peak.
 
 Then a ``phase_seconds`` line with each phase's wall time and the total,
 a line ``{"kernels": [...]}`` with each kernel's launches (summed
@@ -1359,23 +1390,42 @@ def ssd_bwd_kernel_phase(torch, sops, sref, smi):
 # Flash attention at the training path's geometry
 # ---------------------------------------------------------------------------
 
-FA_CASES = [  # name, B, S, H, Hkv, D, cap, window
-    ("gemma2b", 4, 2048, 8, 1, 256, None, None),
-    ("qwen3_8b", 1, 2048, 32, 8, 128, None, None),
-    ("cap50_window64", 2, 1024, 8, 1, 256, 50.0, 64),
-    ("ragged_S1000", 2, 1000, 8, 1, 256, None, None),
-    ("d64_gqa4_S300", 2, 300, 8, 2, 64, None, None),
-    ("d32_mha_cap30", 2, 300, 4, 4, 32, 30.0, None),
-    ("S17", 2, 17, 8, 1, 256, None, None),
-    ("d64_S17_window5", 1, 17, 8, 1, 64, None, 5),
-    ("d128_G3_S200", 2, 200, 6, 2, 128, None, None),   # G does not divide 64
+MLA_TRAIN = (4, 2048, 16, 16, 192, 128)   # deepseek-v2-lite-16b's un-absorbed MLA
+# training: B, S, 16 query heads on 16 KV heads, Dk = dn + dr = 128 + 64, Dv 128
+FA_CASES = [  # name, B, S, H, Hkv, Dk, Dv, cap, window
+    ("gemma2b", 4, 2048, 8, 1, 256, 256, None, None),
+    ("qwen3_8b", 1, 2048, 32, 8, 128, 128, None, None),
+    ("cap50_window64", 2, 1024, 8, 1, 256, 256, 50.0, 64),
+    ("ragged_S1000", 2, 1000, 8, 1, 256, 256, None, None),
+    ("d64_gqa4_S300", 2, 300, 8, 2, 64, 64, None, None),
+    ("d32_mha_cap30", 2, 300, 4, 4, 32, 32, 30.0, None),
+    ("S17", 2, 17, 8, 1, 256, 256, None, None),
+    ("d64_S17_window5", 1, 17, 8, 1, 64, 64, None, 5),
+    ("d128_G3_S200", 2, 200, 6, 2, 128, 128, None, None),   # G does not divide 64
     # gemma2-27b's ring prefill: 32/16 heads, softcap 50, its 4096 window binding
-    ("gemma2_27b_S4400_window4096", 1, 4400, 32, 16, 128, 50.0, 4096),
+    ("gemma2_27b_S4400_window4096", 1, 4400, 32, 16, 128, 128, 50.0, 4096),
     # hymba-1.5b's ring first chunk: 128 meta tokens + 32, 25/5 heads at D 64
-    ("hymba_ring_first_chunk", 1, 160, 25, 5, 64, None, 2048),
+    ("hymba_ring_first_chunk", 1, 160, 25, 5, 64, 64, None, 2048),
     # hymba-1.5b's training: 128 meta tokens + 2048, its window of 2048 binding
-    ("hymba_train", 2, HYMBA_META + 2048, 25, 5, 64, None, 2048),
+    ("hymba_train", 2, HYMBA_META + 2048, 25, 5, 64, 64, None, 2048),
+    # Dk 192 != Dv 128: deepseek-v2-lite's training shape, ragged S 1000 and
+    # S 17 (below a tile), and beside them the general mask paths (softcap +
+    # window) and G = 3 (rows by cp.async), which MLA itself does not take
+    ("mla_train", *MLA_TRAIN, None, None),
+    ("mla_ragged_S1000", 2, 1000, 16, 16, 192, 128, None, None),
+    ("mla_S17", 2, 17, 16, 16, 192, 128, None, None),
+    ("dk192_dv128_cap30_window64", 1, 300, 4, 4, 192, 128, 30.0, 64),
+    ("dk192_dv128_G3_S200", 1, 200, 6, 2, 192, 128, None, None),
+    # G S = 4500 rows > DKDV_UNIT_ROWS: the bf16 dK/dV kernel cuts the first
+    # 22 key tiles at (192, 128) and sums their slot partials
+    ("dk192_dv128_G3_S1500", 1, 1500, 6, 2, 192, 128, None, None),
+    # musicgen-large's training: MHA 32/32 at D 64, a group of 1
+    ("musicgen_train", 4, 2048, *MUSICGEN, MUSICGEN[-1], None, None),
 ]
+# the training shapes timed: B, S, H, Hkv, Dk, Dv, window, seed
+TRAIN_SHAPES = {"hymba_train": (2, HYMBA_META + 2048, *HYMBA, HYMBA[-1], 2048, 10),
+                "mla_train": (*MLA_TRAIN, None, 11),
+                "musicgen_train": (4, 2048, *MUSICGEN, MUSICGEN[-1], None, 12)}
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
 # (HMMA) in paged attention and the SSD scan
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
@@ -1389,26 +1439,70 @@ FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
 # well past 1, and each side rounds its own fp32 result to bf16).
 
 
-def flash_case(torch, B, S, H, Hkv, D, dtype, seed=0):
-    """q, k, v and the output cotangent dO, ~N(0, 1), on the card."""
+def flash_case(torch, B, S, H, Hkv, D, dtype, seed=0, Dv=None):
+    """q, k (head dim D), v and the output cotangent dO (head dim Dv,
+    default D), ~N(0, 1), on the card."""
+    Dv = Dv or D
     g = torch.Generator().manual_seed(seed)
-    shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)]
+    shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv), (B, S, H, Dv)]
     return [torch.randn(s, generator=g).to(dtype).cuda() for s in shapes]
 
 
-def flash_work(B, S, H, Hkv, D, item):
+def split_tile_check(torch, fops, fref):
+    """The bf16 dK/dV kernel's cut key tiles at (192, 128), which the MLA
+    training shapes (a group of 1, S <= 2048) never reach under
+    DKDV_UNIT_ROWS: mla_ragged_S1000 with every key tile cut at 64 rows
+    (its slot partials summed by the reduce launch), against the plain
+    version at the bf16 tolerance, two launches bit-equal. Also requires
+    that dk192_dv128_G3_S1500 cuts tiles at the default unit, so the
+    FA_CASES loop holds that path too."""
+    _, B, S, H, Hkv, D, Dv, _, _ = next(c for c in FA_CASES if c[0] == "mla_ragged_S1000")
+    _, _, S2, H2, Hkv2, _, _, _, _ = next(c for c in FA_CASES
+                                          if c[0] == "dk192_dv128_G3_S1500")
+    default_slots = sum(u[3] >= 0 for u in fops.dkdv_plan(S2, S2, H2 // Hkv2))
+    if not default_slots:
+        raise AssertionError("dk192_dv128_G3_S1500 cuts no key tile")
+    unit_rows = 64
+    slots = sum(u[3] >= 0 for u in fops.dkdv_plan(S, S, H // Hkv, None, unit_rows))
+    q, k, v, do = flash_case(torch, B, S, H, Hkv, D, torch.bfloat16, seed=3, Dv=Dv)
+    scale = D ** -0.5
+    out, m, l = fops.flash_attention_fwd(q, k, v, scale=scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, m, l, do, delta, scale, None, None)
+    got = fops._dkdv_launch(*args, unit_rows=unit_rows)
+    again = fops._dkdv_launch(*args, unit_rows=unit_rows)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("flash split tiles: two launches on the same input differ")
+    plain = fref.flash_bwd_ref(q, k, v, m, l, do, delta, scale=scale)[1:]
+    res = {"case": "mla_ragged_S1000", "unit_rows": unit_rows, "slots": slots,
+           "dk192_dv128_G3_S1500_default_slots": default_slots}
+    for key, a, b in zip(("dk", "dv"), got, plain):
+        err = (a.float() - b.float()).abs().max().item()
+        rel = err / b.float().abs().max().item()
+        res[key] = {"abs": err, "relative": rel}
+        if not rel <= FA_TOL["bfloat16"]:
+            raise AssertionError(f"flash split tiles: {key} vs plain error {res[key]}")
+    return res
+
+
+def flash_work(B, S, H, Hkv, D, item, Dv=None):
     """(flops, bytes) of each kernel's function on these causal shapes:
     every input read once, every output written once; per visible (query,
-    key) pair (S(S+1)/2 per head) and head, 2*D flops per matrix product —
-    the forward does two (QKᵀ, PV), the dK/dV kernel four (QKᵀ, dO Vᵀ,
-    Pᵀ dO, dSᵀ Q), the dQ kernel three (QKᵀ, dO Vᵀ, dS K)."""
+    key) pair (S(S+1)/2 per head) and head, 2 flops per product dim of
+    each matrix product — Dk for QKᵀ, dSᵀ Q and dS K, Dv (default Dk) for
+    PV, dO Vᵀ and Pᵀ dO: the forward does QKᵀ and PV, the dK/dV kernel
+    QKᵀ, dO Vᵀ, Pᵀ dO and dSᵀ Q, the dQ kernel QKᵀ, dO Vᵀ and dS K."""
+    Dv = Dv or D
     pairs = S * (S + 1) // 2 * B * H
-    q = B * S * H * D * item
-    kv = B * S * Hkv * D * item
+    qk, qv = B * S * H * D * item, B * S * H * Dv * item       # q / dq; out / dO
+    kk, kv = B * S * Hkv * D * item, B * S * Hkv * Dv * item   # k / dk; v / dv
     stats = B * H * S * 4
-    return {"flash_attention_fwd": (4 * D * pairs, 2 * q + 2 * kv + 2 * stats),
-            "flash_attention_bwd_dkdv": (8 * D * pairs, 2 * q + 4 * kv + 3 * stats),
-            "flash_attention_bwd_dq": (6 * D * pairs, 3 * q + 2 * kv + 3 * stats)}
+    return {"flash_attention_fwd": (2 * (D + Dv) * pairs, qk + qv + kk + kv + 2 * stats),
+            "flash_attention_bwd_dkdv": (4 * (D + Dv) * pairs,
+                                         qk + qv + 2 * kk + 2 * kv + 3 * stats),
+            "flash_attention_bwd_dq": (2 * (2 * D + Dv) * pairs,
+                                       2 * qk + qv + kk + kv + 3 * stats)}
 
 
 def _bound(flops, n_bytes, dtype_name):
@@ -1425,8 +1519,8 @@ def flash_kernel_phase(torch, fops, fref, smi):
                for k in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                          "flash_attention_bwd_dq")}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for name, B, S, H, Hkv, D, cap, window in FA_CASES:
-            q, k, v, do = flash_case(torch, B, S, H, Hkv, D, dtype)
+        for name, B, S, H, Hkv, D, Dv, cap, window in FA_CASES:
+            q, k, v, do = flash_case(torch, B, S, H, Hkv, D, dtype, Dv=Dv)
             kw = dict(scale=D ** -0.5, cap=cap, window=window)
             out, m, l = fops.flash_attention_fwd(q, k, v, **kw)
             grads = fops.flash_attention_bwd(q, k, v, out, m, l, do, **kw)
@@ -1471,13 +1565,16 @@ def flash_kernel_phase(torch, fops, fref, smi):
                         max_err[kern][dname] = max(max_err[kern][dname], err)
             errs[f"{dname}/{name}"] = case_err
             del q, k, v, do, out, m, l, grads, out2, m2, l2, grads2, want, plain, auto
+    split = errs["bfloat16/split_tiles"] = split_tile_check(torch, fops, fref)
+    max_err["flash_attention_bwd_dkdv"]["bfloat16"] = max(
+        max_err["flash_attention_bwd_dkdv"]["bfloat16"], split["dk"]["abs"], split["dv"]["abs"])
     emit("kernel_check", kernel="flash_attention", max_abs_err=errs,
          tolerance={"float32": FA_TOL["float32"],
                     "bfloat16": "2e-2 of the largest |value|"},
          launches_bit_equal=True)
 
     # -- times at the gemma-2b training shape, bf16 ----------------------
-    _, B, S, H, Hkv, D, _, _ = FA_CASES[0]
+    _, B, S, H, Hkv, D, _, _, _ = FA_CASES[0]
     q, k, v, do = flash_case(torch, B, S, H, Hkv, D, torch.bfloat16, seed=7)
     scale = D ** -0.5
     out, m, l = fops.flash_attention_fwd(q, k, v, scale=scale)
@@ -1567,44 +1664,22 @@ def flash_kernel_phase(torch, fops, fref, smi):
                               flush)}
     hymba["bound_ms"], hymba["bound_by"] = _bound(flops3, bytes3, "bfloat16")
     timing["flash_attention_fwd"]["hymba_ring_first_chunk"] = hymba
-    # hymba-1.5b's training: 2 x (128 meta tokens + 2048), 25/5 heads at D 64,
-    # its window of 2048 binding; the bounds count the causal pairs (the
-    # window drops ~1.3% of them). SDPA has no window: timed causal.
-    B4, S4, H4, Hkv4, D4 = 2, HYMBA_META + 2048, *HYMBA
-    q4, k4, v4, do4 = flash_case(torch, B4, S4, H4, Hkv4, D4, torch.bfloat16, seed=10)
-    kw4 = dict(scale=D4 ** -0.5, window=2048)
-    o4, m4, l4 = fops.flash_attention_fwd(q4, k4, v4, **kw4)
-    delta4 = (do4.float() * o4.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd4 = (q4, k4, v4, m4, l4, do4, delta4)
-    plain_bwd4 = time_ms(torch, lambda: fref.flash_bwd_ref(*bwd4, **kw4), flush,
-                         iters=3, warmup=1)
-    qs4, ks4, vs4 = (t.transpose(1, 2).contiguous() for t in (q4, k4, v4))
-    train4 = {
-        "flash_attention_fwd": {
-            "ms": time_ms(torch, lambda: fops.flash_attention_fwd(q4, k4, v4, **kw4), flush),
-            "plain_ms": time_ms(torch, lambda: fref.flash_fwd_ref(q4, k4, v4, **kw4), flush,
-                                iters=3, warmup=1),
-            "library_ms": time_ms(torch, lambda: sdpa(qs4, ks4, vs4, is_causal=True,
-                                                      scale=kw4["scale"], enable_gqa=True),
-                                  flush)},
-        "flash_attention_bwd_dkdv": {
-            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dkdv(*bwd4, **kw4), flush),
-            "plain_ms": plain_bwd4, "library_ms": None},
-        "flash_attention_bwd_dq": {
-            "ms": time_ms(torch, lambda: fops.flash_attention_bwd_dq(*bwd4, **kw4), flush),
-            "plain_ms": plain_bwd4, "library_ms": None}}
-    for name, (flops4, bytes4) in flash_work(B4, S4, H4, Hkv4, D4, 2).items():
-        t = train4[name]
-        t.update(shape=[B4, S4, H4, Hkv4, D4], window=2048, flops=flops4, bytes=bytes4)
-        t["bound_ms"], t["bound_by"] = _bound(flops4, bytes4, "bfloat16")
-        timing[name]["hymba_train"] = t
-    del q4, k4, v4, do4, o4, bwd4, qs4, ks4, vs4
-    for t in (*timing.values(), gemma2, hymba, *train4.values()):
+    # the training paths' shapes; the bounds count the causal pairs (hymba's
+    # window of 2048 drops ~1.3% of them)
+    train_sdpa = {}
+    for shape, args in TRAIN_SHAPES.items():
+        res = train_shape_times(torch, fops, fref, flush, *args)
+        train_sdpa[shape] = res.pop("sdpa")
+        for name, t in res.items():
+            timing[name][shape] = t
+    for t in (*timing.values(), gemma2, hymba,
+              *(by_shape[shape] for by_shape in timing.values() for shape in TRAIN_SHAPES)):
         t["tflops"] = t["flops"] / t["ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["ms"]
     sdpa_fwd_ms = timing["flash_attention_fwd"]["library_ms"]
     emit("kernel_time", kernel="flash_attention", dtype="bfloat16",
          shape=[B, S, H, Hkv, D], causal=True, nvidia_smi=smi, kernels=timing,
+         train_sdpa=train_sdpa,
          sdpa_forward_ms=sdpa_fwd_ms, sdpa_forward_backward_ms=sdpa_fwd_bwd_ms,
          sdpa_backward_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms, sdpa_device_kernels=backends,
          flash_backward_both_ms=timing["flash_attention_bwd_dkdv"]["ms"]
@@ -1613,6 +1688,78 @@ def flash_kernel_phase(torch, fops, fref, smi):
     emit("kernel_accuracy", kernel="flash_attention", shape=[B, S, H, Hkv, D],
          **bf16_vs_float64(torch, fops, fref, q, k, v, do, scale))
     return max_err, timing
+
+
+def train_shape_times(torch, fops, fref, flush, B, S, H, Hkv, Dk, Dv, window, seed,
+                      rounds=5):
+    """The three kernels at a training shape (bf16, causal, scale Dk^-1/2,
+    ``window`` where given), timed by CUDA events in ``rounds`` rounds that
+    alternate them with the first ``scaled_dot_product_attention`` backend
+    that takes the inputs (forward, and forward + backward: its backward is
+    not split by kernel; it has no window, so it runs causal): each time is
+    the median of the rounds' medians, with their range beside it. The
+    plain versions are timed once; the SM clock is read before and after."""
+    q, k, v, do = flash_case(torch, B, S, H, Hkv, Dk, torch.bfloat16, seed=seed, Dv=Dv)
+    kw = dict(scale=Dk ** -0.5, window=window)
+    out, m, l = fops.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, m, l, do, delta)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = dict(is_causal=True, scale=kw["scale"], enable_gqa=H != Hkv)
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    leaves = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+    fwd_backend, lib_fwd = sdpa_backend(torch, lambda: sdpa(qs, ks, vs, **lib))
+
+    def fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves, **lib), leaves, dos)
+
+    bwd_backend, lib_fwd_bwd = sdpa_backend(torch, fwd_bwd)
+    calls = {"flash_attention_fwd": (lambda: fops.flash_attention_fwd(q, k, v, **kw), 20),
+             "flash_attention_bwd_dkdv":
+                 (lambda: fops.flash_attention_bwd_dkdv(*bwd, **kw), 20),
+             "flash_attention_bwd_dq": (lambda: fops.flash_attention_bwd_dq(*bwd, **kw), 20),
+             "sdpa_forward": (lib_fwd, 20), "sdpa_forward_backward": (lib_fwd_bwd, 10)}
+    clocks = [sm_clock()]
+    runs = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, (fn, iters) in calls.items():
+            runs[name].append(time_ms(torch, fn, flush, iters=iters, warmup=2))
+    clocks.append(sm_clock())
+    med = {name: statistics.median(r) for name, r in runs.items()}
+    plain_bwd = time_ms(torch, lambda: fref.flash_bwd_ref(*bwd, **kw), flush, iters=3,
+                        warmup=1)
+    plain_fwd = time_ms(torch, lambda: fref.flash_fwd_ref(q, k, v, **kw), flush, iters=3,
+                        warmup=1)
+    res = {}
+    for name, (flops, n_bytes) in flash_work(B, S, H, Hkv, Dk, 2, Dv=Dv).items():
+        t = res[name] = {"shape": [B, S, H, Hkv, Dk, Dv], "window": window,
+                         "flops": flops, "bytes": n_bytes, "ms": med[name],
+                         "ms_range": [min(runs[name]), max(runs[name])],
+                         "rounds": rounds,
+                         "plain_ms": plain_fwd if name == "flash_attention_fwd" else plain_bwd,
+                         "library_ms": None}
+        t["bound_ms"], t["bound_by"] = _bound(flops, n_bytes, "bfloat16")
+    res["flash_attention_fwd"].update(library_ms=med["sdpa_forward"],
+                                      library_backend=fwd_backend)
+    res["sdpa"] = {
+        "forward_ms": med["sdpa_forward"], "forward_range": [min(runs["sdpa_forward"]),
+                                                              max(runs["sdpa_forward"])],
+        "forward_backend": fwd_backend,
+        "forward_backward_ms": med["sdpa_forward_backward"],
+        "forward_backward_range": [min(runs["sdpa_forward_backward"]),
+                                   max(runs["sdpa_forward_backward"])],
+        "forward_backward_backend": bwd_backend,
+        "backward_ms": med["sdpa_forward_backward"] - med["sdpa_forward"],
+        "sm_clock_mhz_before_after": clocks}
+    return res
+
+
+def sm_clock():
+    """The card's SM clock in MHz, as ``nvidia-smi`` reads it now."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(res.stdout.strip().splitlines()[0])
 
 
 def bf16_vs_float64(torch, fops, fref, q, k, v, do, scale):
@@ -3032,19 +3179,21 @@ def reliability_phase(torch, cfg_mod, tfm, param, kernels):
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=6)
 
 
-def conditioned(tree, d_model):
-    """``tree`` with every wq and wk rescaled to std d_model^-1/2. The
-    reference's fan-in rule gives gemma-2b's single KV head wk std 1, so
-    its attention scores have std ~sqrt(head_dim) and saturate; there fp32
-    gradients are ill-conditioned and two sound implementations (the same
-    function summed in another order) part after Adam's first step. With
-    scores of std ~1 they agree to ~1e-6."""
+def conditioned(tree, d_model, names=("wq", "wk")):
+    """``tree`` with every leaf named in ``names`` (the score-setting
+    leaves: wq and wk; for MLA also w_uk, k_nope = c W_uk) rescaled to std
+    d_model^-1/2. The reference's fan-in rule gives gemma-2b's single KV
+    head wk std 1 (and MLA's wq and w_uk, fanned in over their 16 heads,
+    std 0.25), so attention scores saturate; there fp32 gradients are
+    ill-conditioned and two sound implementations (the same function
+    summed in another order) part after Adam's first step. With scores of
+    std ~1 they agree to ~1e-6."""
     if isinstance(tree, dict):
         return {k: v * (d_model ** -0.5 / float(v.float().std()))
-                if k in ("wq", "wk") else conditioned(v, d_model)
+                if k in names else conditioned(v, d_model, names)
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(conditioned(v, d_model) for v in tree)
+        return type(tree)(conditioned(v, d_model, names) for v in tree)
     return tree
 
 
@@ -3205,6 +3354,133 @@ def full_width_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops, 
     _require("full-width gemma-2b gradients, kernels vs plain", checks)
 
 
+def reduced_train_multiarch_phase(torch, cfg_mod, tfm, param, optim, train, data,
+                                  frontends, fops):
+    """Reduced fp32 mixtral-8x22b (8 experts top-2, window 64: the MoE aux
+    loss), musicgen-large (4 codebooks: the pipeline's (B, S, 4) batches)
+    and internvl2-76b (8 patch embeddings in front, from ``sample_batch``),
+    wq/wk conditioned: three AdamW steps on CUDA (the flash kernels at D 32,
+    group 1) against the CPU (the plain versions), same weights and
+    batches, losses and grad norms within 1e-4 relative (the tolerance of
+    the CPU tests against JAX); every attention layer of every CUDA step
+    launched the flash forward twice (forward and recompute) and each
+    backward kernel once. Reduced deepseek-v2-lite's MLA heads (Dk 48, Dv
+    32) have no instantiation: its card check is ``mla_grad_phase``."""
+    import math
+    oc = optim.OptConfig(**TRAIN_OPT)
+    flash = (fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
+             fops.flash_attention_bwd_dq)
+    for arch in ("mixtral-8x22b", "musicgen-large", "internvl2-76b"):
+        kw = {"n_experts": 8} if arch == "mixtral-8x22b" else {}
+        cfg = cfg_mod.reduced(cfg_mod.get_config(arch), dtype="float32",
+                              param_dtype="float32", **kw)
+        weights = conditioned(tfm.init_params(cfg, 0, device="cpu"), cfg.d_model)
+        if cfg.frontend == "vision":
+            batches = [frontends.sample_batch(cfg, 2, 64 + cfg.n_frontend_tokens, seed=s)
+                       for s in range(3)]
+        else:
+            pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=64, global_batch=2,
+                                                               seed=3))
+            batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(s).items()}
+                       for s in range(3)]
+
+        def run(dev):
+            p = param.tree_map(lambda a: a.to(dev, copy=True), weights)
+            o = optim.init_opt_state(p)
+            step = train.make_train_step(cfg, oc)
+            res = []
+            for b in batches:
+                p, o, m = step(p, o, {k: v.to(dev) for k, v in b.items()})
+                res.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+            return res
+
+        for fn in flash:
+            fn.launches = 0
+        cuda = run("cuda")
+        launches = {fn.__name__: fn.launches for fn in flash}
+        cpu = run("cpu")
+        rows = [{"step": s, "metric": key, "cuda": cuda[s][key], "cpu": cpu[s][key],
+                 "rel_err": abs(cuda[s][key] - cpu[s][key]) / abs(cpu[s][key])}
+                for s in range(3) for key in ("loss", "grad_norm")]
+        L = cfg.num_layers
+        checks = {"within_1e-4": all(r["rel_err"] <= 1e-4 and math.isfinite(r["cuda"])
+                                     for r in rows),
+                  "aux": all((c["aux"] > 0) == (cfg.n_experts > 0) for c in cuda),
+                  "fwd_launches": launches["flash_attention_fwd"] == 2 * L * 3,
+                  "dkdv_launches": launches["flash_attention_bwd_dkdv"] == L * 3,
+                  "dq_launches": launches["flash_attention_bwd_dq"] == L * 3}
+        emit("reduced_train_check", arch=arch, head_dim=cfg.resolved_head_dim,
+             heads=[cfg.n_heads, cfg.n_kv_heads], codebooks=cfg.n_codebooks,
+             image_embeds=cfg.n_frontend_tokens if cfg.frontend == "vision" else 0,
+             dtype="float32", steps=rows, aux=[c["aux"] for c in cuda],
+             tolerance="1e-4 relative", launches=launches, checks=checks)
+        _require(f"reduced {arch} train, CUDA vs CPU", checks)
+
+
+def mla_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, fops):
+    """deepseek-v2-lite-16b at full width, 2 layers (the dense layer and one
+    MoE layer: MLA at Dk 192 / Dv 128 on 16/16 heads, 64 experts top-6 and 2
+    shared), fp32, one batch of 1 x 512 tokens: the loss (ce, z_loss and
+    aux each), the grad norm and every gradient leaf through the flash
+    kernels' Dk != Dv mode (CUDA) against the plain versions (CPU), same
+    weights, with the score-setting leaves wq and w_uk conditioned (see
+    ``conditioned``); the limits of ``full_width_grad_phase``: 1e-5
+    relative in the loss terms, 1e-4 in the grad norm and 1e-4 of each
+    leaf's largest |grad|. Every layer launched the forward kernel twice
+    (forward and remat recompute) and each backward kernel once."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg_mod.get_config("deepseek-v2-lite-16b"), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=512, global_batch=1,
+                                                       seed=0))
+    batch = pipe.batch_at(0)
+    base = conditioned(param.tree_map(lambda a: a.cpu(), tfm.init_params(cfg, 0,
+                                                                        device="cuda")),
+                       cfg.d_model, names=("wq", "w_uk"))
+
+    def grads(dev):
+        t0 = time.perf_counter()
+        loss, metrics, g = train.step.value_and_grad(
+            cfg, param.tree_map(lambda a: a.to(dev), base),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        g = [x.cpu() for x in param.tree_leaves(g)]
+        return {"loss": float(loss), **{k: float(metrics[k]) for k in ("ce", "z_loss", "aux")},
+                "grad_norm": float(optim.global_norm(g)), "leaves": g,
+                "s": time.perf_counter() - t0}
+
+    flash = (fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
+             fops.flash_attention_bwd_dq)
+    for fn in flash:
+        fn.launches = 0
+    kern = grads("cuda")
+    launches = {fn.__name__: fn.launches for fn in flash}
+    plain = grads("cpu")
+    torch.cuda.empty_cache()
+    leaf_rel = [float((x.double() - y.double()).abs().max() / y.double().abs().max())
+                for x, y in zip(kern["leaves"], plain["leaves"])]
+    res = {f"{k}_rel": abs(kern[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "ce", "z_loss", "aux", "grad_norm")}
+    res["leaf_rel_max"] = max(leaf_rel)
+    L = cfg.num_layers
+    checks = {"loss": all(res[f"{k}_rel"] <= 1e-5 for k in ("loss", "ce", "z_loss", "aux")),
+              "grad_norm": res["grad_norm_rel"] <= 1e-4,
+              "leaves": res["leaf_rel_max"] <= 1e-4,
+              "aux_positive": kern["aux"] > 0,
+              "every_leaf_reached": all(float(y.abs().max()) > 0 for y in plain["leaves"]),
+              "fwd_launches": launches["flash_attention_fwd"] == 2 * L,
+              "dkdv_launches": launches["flash_attention_bwd_dkdv"] == L,
+              "dq_launches": launches["flash_attention_bwd_dq"] == L}
+    emit("mla_grad_check", arch=cfg.name, layers=L, d_model=cfg.d_model,
+         mla=[cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim],
+         experts=[cfg.n_experts, cfg.moe_top_k, cfg.n_shared_experts],
+         vocab=cfg.vocab_size, dtype=cfg.dtype, batch=1, seq_len=512,
+         conditioned=["wq", "w_uk"],
+         kernels={k: kern[k] for k in ("loss", "ce", "z_loss", "aux", "grad_norm", "s")},
+         plain={k: plain[k] for k in ("loss", "ce", "z_loss", "aux", "grad_norm", "s")},
+         kernels_vs_plain=res, leaf_rel=leaf_rel, launches=launches, checks=checks)
+    _require("full-width deepseek-v2-lite gradients, kernels vs plain", checks)
+
+
 def ssm_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, sops):
     """mamba2-2.7b at full width, 2 layers, fp32, one batch of 1 x 512
     tokens: the loss and every gradient leaf through the SSD kernels, the
@@ -3257,19 +3533,95 @@ def ssm_grad_phase(torch, cfg_mod, tfm, param, optim, train, data, sops):
     _require("full-width mamba2 gradients, kernels vs plain", checks)
 
 
-def ssm_train_phases(torch, cfg_mod, train_cli, kernels, smi, phases=None):
-    """mamba2-2.7b (64 layers, 4 x 2048 tokens, 4 steps) and hymba-1.5b (32
-    layers, 2 x 2048 tokens + 128 meta, 3 steps) at full width and depth
-    through ``launch/train.py``: bf16, remat "full", AdamW, no checkpoint.
-    Every SSM layer of every step launched the SSD forward kernel twice
-    (forward and recompute) and the backward once; every hymba attention
-    half the flash forward twice and the dK/dV and dQ kernels once. mamba2's
-    step-0 loss must lie within 3 of ln(vocab); hymba's is recorded (at the
-    reference's initialisation full-width hymba amplifies rounding to O(1),
-    ROADMAP §C). Returns each run's launches."""
+MLA_TRAIN_LAYERS = 6   # deepseek-v2-lite-16b's first 6 of 27: the dense layer, 5 MoE
+
+
+def mla_train_phase(torch, cfg_mod, tfm, param, optim, train, data, kernels, smi):
+    """deepseek-v2-lite-16b at full width cut to its first 6 of 27 layers
+    (the dense layer and 5 MoE layers, 3.35 G parameters), bf16, 4 AdamW
+    steps of 4 x 2048 tokens, ``remat="full"``, through
+    ``train.step.make_train_step`` on ``dataclasses.replace(cfg,
+    num_layers=6)`` (the depth cut ``run_serve`` makes). 12 B a parameter
+    (bf16 weights and gradients, fp32 moments: 40.2 GB) plus AdamW's fp32
+    temporaries on the (5, 64, 2048, 1408) expert leaves, the old and the
+    clipped gradients (6.7 GB) and a CE chunk peak under ~72 GB. Every MLA
+    layer of every step launched the flash forward twice (forward and
+    recompute) at Dk 192 / Dv 128 and each backward kernel once; finite
+    losses, the step-0 loss within 3 of ln(vocab), the aux loss positive.
+    Returns the launches."""
+    import dataclasses
+    import math
+    cfg = dataclasses.replace(cfg_mod.get_config("deepseek-v2-lite-16b"),
+                              num_layers=MLA_TRAIN_LAYERS)
+    B, S, steps = 4, 2048, 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, device="cuda")
+    opt_state = optim.init_opt_state(params)
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in param.tree_leaves(params))
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=S, global_batch=B, seed=0))
+    step_fn = train.make_train_step(cfg, optim.OptConfig(lr=3e-4, warmup_steps=1,
+                                                         total_steps=steps))
+    for fn in kernels:
+        fn.launches = 0
+    hist = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(s).items()}
+        ts = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        hist.append({"step": s, "dt_s": time.perf_counter() - ts,
+                     **{k: float(m[k]) for k in ("loss", "ce", "z_loss", "aux",
+                                                 "grad_norm")}})
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt_state
+    L = cfg.num_layers
+    step_s = [h["dt_s"] for h in hist]
+    steady_s = statistics.median(step_s[1:])
+    checks = {
+        "full_width": (cfg.d_model, cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim,
+                       cfg.qk_rope_dim, cfg.v_head_dim, cfg.n_experts, cfg.moe_top_k,
+                       cfg.n_shared_experts, cfg.expert_d_ff, cfg.d_ff, cfg.vocab_size,
+                       cfg.dtype)
+        == (2048, 16, 512, 128, 64, 128, 64, 6, 2, 1408, 10944, 102400, "bfloat16"),
+        "finite": all(math.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm")),
+        "step0_loss_near_ln_vocab": abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 3.0,
+        "aux_positive": all(h["aux"] > 0 for h in hist),
+        "fwd_launches": launches["flash_attention_fwd"] == 2 * L * steps,
+        "dkdv_launches": launches["flash_attention_bwd_dkdv"] == L * steps,
+        "dq_launches": launches["flash_attention_bwd_dq"] == L * steps,
+        "peak_under_72GB": peak < 72e9,
+    }
+    emit("mla_train", nvidia_smi=smi, arch=cfg.name, layers=L, of_layers=27,
+         parameters=n_params, d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         remat=cfg.remat, batch=B, seq_len=S, weight_draw_s=draw_s, history=hist,
+         step_s=step_s, steady_step_ms=steady_s * 1e3, tokens_per_s=B * S / steady_s,
+         step0_loss=hist[0]["loss"], ln_vocab=math.log(cfg.vocab_size),
+         peak_mem_bytes=peak, kernel_launches=launches, checks=checks)
+    _require("deepseek-v2-lite-16b train", checks)
+    return launches
+
+
+def launcher_train_phases(torch, cfg_mod, train_cli, kernels, smi, phases=None):
+    """mamba2-2.7b (64 layers, 4 x 2048 tokens, 4 steps), hymba-1.5b (32
+    layers, 2 x 2048 tokens + 128 meta, 3 steps) and musicgen-large (48
+    layers, 4 codebooks of 2048, 4 x 2048 tokens, 3 steps) at full width and
+    depth through ``launch/train.py``: bf16, remat "full", AdamW, no
+    checkpoint. Every SSM layer of every step launched the SSD forward
+    kernel twice (forward and recompute) and the backward once; every
+    attention layer (hymba's attention halves, musicgen's MHA at D 64) the
+    flash forward twice and the dK/dV and dQ kernels once. mamba2's and
+    musicgen's step-0 losses must lie within 3 of ln(vocab); hymba's is
+    recorded (at the reference's initialisation full-width hymba amplifies
+    rounding to O(1), ROADMAP §C). Returns each run's launches."""
     import math
     out = {}
-    runs = (("ssm_train", "mamba2-2.7b", 4, 2048, 4), ("hybrid_train", "hymba-1.5b", 2, 2048, 3))
+    runs = (("ssm_train", "mamba2-2.7b", 4, 2048, 4), ("hybrid_train", "hymba-1.5b", 2, 2048, 3),
+            ("audio_train", "musicgen-large", 4, 2048, 3))
     for phase, arch, B, S, steps in runs:
         if phases is not None and phase not in phases:
             continue
@@ -3287,25 +3639,33 @@ def ssm_train_phases(torch, cfg_mod, train_cli, kernels, smi, phases=None):
         wall_s = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in kernels}
         L = cfg.num_layers
-        n_attn = L if cfg.n_heads else 0
+        kinds = [s.kind for s in cfg.layer_specs()]
+        n_attn = sum(k in ("attn", "hybrid") for k in kinds)
+        n_ssm = sum(k in ("ssm", "hybrid") for k in kinds)
         step_s = [h["dt_s"] for h in hist]
         steady_s = statistics.median(step_s[1:])
         checks = {
             "steps_logged": [h["step"] for h in hist] == list(range(steps)),
             "finite": all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                           for h in hist),
-            "ssd_fwd_launches": launches["ssd_scan"] == 2 * L * steps,
-            "ssd_bwd_launches": launches["ssd_scan_bwd"] == L * steps,
+            "ssd_fwd_launches": launches["ssd_scan"] == 2 * n_ssm * steps,
+            "ssd_bwd_launches": launches["ssd_scan_bwd"] == n_ssm * steps,
             "flash_fwd_launches": launches["flash_attention_fwd"] == 2 * n_attn * steps,
             "dkdv_launches": launches["flash_attention_bwd_dkdv"] == n_attn * steps,
             "dq_launches": launches["flash_attention_bwd_dq"] == n_attn * steps,
         }
+        if phase != "hybrid_train":
+            checks["step0_loss_near_ln_vocab"] = (
+                abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 3.0)
         if phase == "ssm_train":
             checks["full_width"] = ((L, cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim,
                                      cfg.ssm_state, cfg.vocab_size, cfg.dtype)
                                     == (64, 2560, 80, 64, 128, 50280, "bfloat16"))
-            checks["step0_loss_near_ln_vocab"] = (
-                abs(hist[0]["loss"] - math.log(cfg.vocab_size)) < 3.0)
+        elif phase == "audio_train":
+            checks["full_width"] = ((L, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim, cfg.d_ff, cfg.n_codebooks,
+                                     cfg.vocab_size, cfg.dtype)
+                                    == (48, 2048, 32, 32, 64, 8192, 4, 2048, "bfloat16"))
         else:
             checks["full_width"] = ((L, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                      cfg.resolved_head_dim, cfg.ssm_nheads,
@@ -3418,7 +3778,7 @@ def main() -> int:
     _require("tensor-core build", {
         name: counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] is None
         or counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] > 0
-        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 27})
+        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 30})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
@@ -3457,8 +3817,11 @@ def main() -> int:
     timed("init device", init_device_phase, torch, cfg_mod, tfm, param)
     timed("reduced train", reduced_train_phase, torch, cfg_mod, tfm, param, optim,
           train, data, ckpt)
+    timed("reduced train multiarch", reduced_train_multiarch_phase, torch, cfg_mod, tfm,
+          param, optim, train, data, frontends, fops)
     timed("full-width grads", full_width_grad_phase, torch, cfg_mod, tfm, param,
           optim, train, data, fops, fref)
+    timed("mla grads", mla_grad_phase, torch, cfg_mod, tfm, param, optim, train, data, fops)
     timed("ssm grads", ssm_grad_phase, torch, cfg_mod, tfm, param, optim, train, data,
           sops)
     held = {}                        # the serve phase's weights, for the fleet
@@ -3503,8 +3866,12 @@ def main() -> int:
     fa_launches = timed("train", train_phase, torch, cfg_mod, train_cli, kernels, smi)
     gc.collect()                     # the gemma-2b state
     torch.cuda.empty_cache()
-    ssm_train = timed("ssm and hybrid train", ssm_train_phases, torch, cfg_mod, train_cli,
-                      kernels, smi)
+    ssm_train = timed("ssm, hybrid and audio train", launcher_train_phases, torch, cfg_mod,
+                      train_cli, kernels, smi)
+    gc.collect()                     # the musicgen-large state
+    torch.cuda.empty_cache()
+    mla_train = timed("mla train", mla_train_phase, torch, cfg_mod, tfm, param, optim,
+                      train, data, kernels, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
     # each serving path's counts, zeroed before it and read after it; an
@@ -3530,18 +3897,21 @@ def main() -> int:
             "deepseek-v2-lite-16b ring serve": mla_ring["ragged_paged_attention"],
             "reduced fleet": fleet_launches.get(
                 "ragged_paged_attention_latent_positions", 0)},
+        **{name: {"gemma-2b train": fa_launches[name],
+                  "hymba-1.5b train": ssm_train["hymba-1.5b"][name],
+                  "musicgen-large train": ssm_train["musicgen-large"][name],
+                  "deepseek-v2-lite-16b train (6 layers)": mla_train[name]}
+           for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")},
         "flash_attention_fwd": {"gemma-2b train": fa_launches["flash_attention_fwd"],
                                 "hymba-1.5b train":
                                     ssm_train["hymba-1.5b"]["flash_attention_fwd"],
+                                "musicgen-large train":
+                                    ssm_train["musicgen-large"]["flash_attention_fwd"],
+                                "deepseek-v2-lite-16b train (6 layers)":
+                                    mla_train["flash_attention_fwd"],
                                 "gemma2-27b ring serve": ring_launches["flash_attention_fwd"],
                                 "hymba-1.5b ring serve": hybrid_ring["flash_attention_fwd"],
                                 "reduced fleet": fleet_launches["flash_attention_fwd"]},
-        "flash_attention_bwd_dkdv": {
-            "gemma-2b train": fa_launches["flash_attention_bwd_dkdv"],
-            "hymba-1.5b train": ssm_train["hymba-1.5b"]["flash_attention_bwd_dkdv"]},
-        "flash_attention_bwd_dq": {
-            "gemma-2b train": fa_launches["flash_attention_bwd_dq"],
-            "hymba-1.5b train": ssm_train["hymba-1.5b"]["flash_attention_bwd_dq"]},
         "ssd_scan": {"mamba2-2.7b serve": ssd_launches["ssd_scan"],
                      "hymba-1.5b serve": hybrid_launches["ssd_scan"],
                      "mamba2-2.7b ring serve": ssm_ring["ssd_scan"],
@@ -3553,8 +3923,8 @@ def main() -> int:
                          "hymba-1.5b train": ssm_train["hymba-1.5b"]["ssd_scan_bwd"]}}
 
     def times(t):
-        return {k: t[k] for k in ("ms", "view_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "device_ms", "library_backend")
+        return {k: t[k] for k in ("ms", "ms_range", "view_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "device_ms", "library_backend")
                 if k in t}
 
     dec, ssd = timing["decode"], ssd_timing["S32"]
@@ -3628,7 +3998,7 @@ def main() -> int:
         name, t = fn.__name__, fa_timing[fn.__name__]
         by = by_path[name]
         extra = {k: times(t[k]) for k in ("gemma2_27b_prefill", "hymba_ring_first_chunk",
-                                          "hymba_train")
+                                          *TRAIN_SHAPES)
                  if k in t}
         entries.append({
             **extra,

@@ -7,10 +7,15 @@
 // the backward, which the JAX package computes in jnp and which has no
 // Pallas kernel.
 //
-// What it computes: causal self-attention of q (B, Sq, H, D) against k/v
-// (B, Skv, Hkv, D), query i at position i and key j at position j, query
-// head h reading KV head h / G (G = H / Hkv; the group repeat the JAX
-// wrapper builds is never materialised). Scores are scaled, then tanh
+// What it computes: causal self-attention of q (B, Sq, H, DK) against k
+// (B, Skv, Hkv, DK) and v (B, Skv, Hkv, DV), query i at position i and key
+// j at position j, query head h reading KV head h / G (G = H / Hkv; the
+// group repeat the JAX wrapper builds is never materialised). Every kernel
+// is a template on (DK, DV): S = Q Kᵀ, dS Kᵀ-type products and dQ, dK run
+// over DK; P V, dP = dO Vᵀ, the output, dO, delta and dV over DV. The
+// instantiations are (D, D) for D in {32, 64, 128, 256} and (192, 128),
+// the un-absorbed MLA training shape of deepseek-v2-lite ([k_nope, k_rope]
+// of 128 + 64 against a value head of 128). Scores are scaled, then tanh
 // softcapped, then masked (causal, optional sliding window, keys < Skv),
 // as in attention.py:75-82. Softmax state, sums and gradients in fp32;
 // q/k/v/out/dq/dk/dv in the input dtype (fp32 or bf16). A row with no
@@ -59,14 +64,17 @@
 // computed by the caller. dS = P (dO Vᵀ - delta), times (1 - tanh²) under
 // a softcap (attention.py:153-156), times the scale. Every thread of an FMA
 // kernel holds a register tile (forward: 4 rows x 4 keys of scores and 4
-// rows x D/16 output columns; backward: 2x2 scores and an 8x4 (D 256) tile
-// of dK/dV or dQ), so each 16-byte shared-memory load feeds 4-16 FMAs.
+// rows x DV/16 output columns; backward: 2x2 scores and a tile of dK, dV
+// or dQ per width, 8x4 at 256, 4x6 at 192), so each 16-byte shared-memory
+// load feeds 4-16 FMAs.
 //
 // Shared memory at D 256: bf16 forward 193 KB (Q 64 KB, 2 stages of K and
 // V), bf16 dK/dV 210 KB (K, V, 2 stages of Q and dO, a 16 KB exchange),
 // bf16 dQ 193 KB (Q and dO of 128 rows, 2 stages of 32 keys of K and V);
-// FMA forward 174 KB (fp32), backward 142 KB. Above 48 KB the launcher
-// raises the kernel's dynamic shared-memory limit.
+// FMA forward 174 KB (fp32), backward 142 KB. At (DK 192, DV 128): bf16
+// forward 129 KB, dK/dV 138 KB, dQ 121 KB (32-key stages, as at D 256);
+// FMA forward 114 KB, backward 90 KB. Above 48 KB the launcher raises the
+// kernel's dynamic shared-memory limit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,7 +90,7 @@ constexpr float kNegInf = -2.0e38f;   // the reference's NEG_INF
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 // N consecutive floats at p (aligned to the vector width used, up to 16
-// bytes): shared or global memory.
+// bytes; 8 for N = 6): shared or global memory.
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   if constexpr (N % 4 == 0) {
@@ -91,9 +99,12 @@ __device__ __forceinline__ void load_vec(const float* p, float* o) {
       const float4 x = *reinterpret_cast<const float4*>(p + i);
       o[i] = x.x; o[i + 1] = x.y; o[i + 2] = x.z; o[i + 3] = x.w;
     }
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    o[0] = x.x; o[1] = x.y;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 x = *reinterpret_cast<const float2*>(p + i);
+      o[i] = x.x; o[i + 1] = x.y;
+    }
   } else {
     static_assert(N == 1, "vector width");
     o[0] = p[0];
@@ -112,17 +123,19 @@ __device__ __forceinline__ float sum16(float v) {
   return v;
 }
 
+// Head dims are template arguments: DK of q, k, dq, dk; DV of v, dout,
+// out, dv.
 struct Params {
-  const void* q;       // (B, Sq, H, D)
-  const void* k;       // (B, Skv, Hkv, D)
-  const void* v;       // (B, Skv, Hkv, D)
-  const void* dout;    // (B, Sq, H, D)       backward only
+  const void* q;       // (B, Sq, H, DK)
+  const void* k;       // (B, Skv, Hkv, DK)
+  const void* v;       // (B, Skv, Hkv, DV)
+  const void* dout;    // (B, Sq, H, DV)      backward only
   const float* delta;  // (B, H, Sq)          backward only
   float* m;            // (B, H, Sq)          forward writes, backward reads
   float* l;            // (B, H, Sq)
-  void* out;           // forward: out (B, Sq, H, D); dQ kernel: dq
-  void* dk;            // (B, Skv, Hkv, D)    dK/dV kernel
-  void* dv;
+  void* out;           // forward: out (B, Sq, H, DV); dQ kernel: dq (B, Sq, H, DK)
+  void* dk;            // (B, Skv, Hkv, DK)   dK/dV kernel
+  void* dv;            // (B, Skv, Hkv, DV)
   int B, Sq, Skv, H, Hkv;
   float scale;
   int has_cap;
@@ -130,7 +143,7 @@ struct Params {
   int has_window, window;
   const int* plan;     // bf16 dK/dV: units (key tile, row begin, row end, slot)
   const int* reduce;   // bf16 dK/dV: split key tiles (key tile, first slot, count)
-  float* scratch;      // bf16 dK/dV: fp32 partials (slot, B, Hkv, 2, 64, D)
+  float* scratch;      // bf16 dK/dV: fp32 partials (slot, B, Hkv, 64 DK + 64 DV)
   int n_units, n_reduce;
   int rows_tma;                 // bf16: Q (and dO) rows by TMA (G divides the row tile)
   CUtensorMap tmap_k, tmap_v;   // bf16: K and V for TMA (swizzled 64-key tiles)
@@ -198,22 +211,22 @@ constexpr int kFwdThreads = 128;
 constexpr int kFwdRows = 32;   // (token, group-head) rows per CTA
 constexpr int kFwdKeys = 64;   // keys per staged tile
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 struct FwdSmem {
-  static constexpr int QS = D + 4;                  // fp32 Q row stride
+  static constexpr int QS = DK + 4;                 // fp32 Q row stride
   static constexpr int KVEC = 16 / sizeof(T);
-  static constexpr int KS = D + KVEC;               // K row stride (+16 bytes)
+  static constexpr int KS = DK + KVEC;              // K row stride (+16 bytes)
   static constexpr size_t bytes = sizeof(float) * (kFwdRows * QS + kFwdKeys * kFwdRows)
-                                  + sizeof(T) * (size_t)kFwdKeys * (KS + D);
+                                  + sizeof(T) * (size_t)kFwdKeys * (KS + DV);
 };
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_kernel(const Params p) {
-  using SM = FwdSmem<T, D>;
+  using SM = FwdSmem<T, DK, DV>;
   constexpr int BR = kFwdRows, BC = kFwdKeys;
   constexpr int QS = SM::QS, KS = SM::KS, KVEC = SM::KVEC;
-  constexpr int CPT = D / 16;                       // output columns per thread
+  constexpr int CPT = DV / 16;                      // output columns per thread
   constexpr int VW = CPT < KVEC ? CPT : KVEC;       // V vector width
   constexpr int NCH = CPT / VW;
 
@@ -232,13 +245,13 @@ flash_fwd_kernel(const Params p) {
   float* q_s = reinterpret_cast<float*>(smem);        // BR x QS
   float* p_s = q_s + BR * QS;                          // BC x BR, row slot rg*4+i
   T* k_s = reinterpret_cast<T*>(p_s + BC * BR);        // BC x KS
-  T* v_s = k_s + BC * KS;                              // BC x D
+  T* v_s = k_s + BC * KS;                              // BC x DV
 
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
-  stage_f32<T, D, kFwdThreads>(q_s, QS, BR, [&](int r) -> const T* {
-    return row0 + r < row_end ? q + q_offset(p, b, hkv, G, row0 + r, D) : nullptr;
+  stage_f32<T, DK, kFwdThreads>(q_s, QS, BR, [&](int r) -> const T* {
+    return row0 + r < row_end ? q + q_offset(p, b, hkv, G, row0 + r, DK) : nullptr;
   });
 
   float m[4], l[4], acc[4][CPT];
@@ -255,17 +268,17 @@ flash_fwd_kernel(const Params p) {
   for (int k0 = lo; k0 < hi; k0 += BC) {
     const int nk = min(BC, hi - k0);
     __syncthreads();   // the previous tile's P.V is done (and Q is staged)
-    constexpr int PER_ROW = D / KVEC;
-    for (int i = tid; i < BC * PER_ROW; i += kFwdThreads) {
-      const int j = i / PER_ROW, c = (i % PER_ROW) * KVEC;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (j < nk) {
-        const size_t off = kv_offset(p, b, hkv, k0 + j, D) + c;
-        kx = *reinterpret_cast<const uint4*>(k + off);
-        vx = *reinterpret_cast<const uint4*>(v + off);
-      }
+    for (int i = tid; i < BC * (DK / KVEC); i += kFwdThreads) {
+      const int j = i / (DK / KVEC), c = (i % (DK / KVEC)) * KVEC;
+      uint4 kx = make_uint4(0, 0, 0, 0);
+      if (j < nk) kx = *reinterpret_cast<const uint4*>(k + kv_offset(p, b, hkv, k0 + j, DK) + c);
       *reinterpret_cast<uint4*>(k_s + j * KS + c) = kx;
-      *reinterpret_cast<uint4*>(v_s + j * D + c) = vx;
+    }
+    for (int i = tid; i < BC * (DV / KVEC); i += kFwdThreads) {
+      const int j = i / (DV / KVEC), c = (i % (DV / KVEC)) * KVEC;
+      uint4 vx = make_uint4(0, 0, 0, 0);
+      if (j < nk) vx = *reinterpret_cast<const uint4*>(v + kv_offset(p, b, hkv, k0 + j, DV) + c);
+      *reinterpret_cast<uint4*>(v_s + j * DV + c) = vx;
     }
     __syncthreads();
 
@@ -276,7 +289,7 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += KVEC) {
+    for (int d = 0; d < DK; d += KVEC) {
       float kf[4][KVEC];
 #pragma unroll
       for (int j = 0; j < 4; ++j) load_vec<KVEC>(k_s + (kg + 16 * j) * KS + d, kf[j]);
@@ -330,7 +343,7 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
       for (int h = 0; h < NCH; ++h) {
         float vf[VW];
-        load_vec<VW>(v_s + kk * D + h * 16 * VW + kg * VW, vf);
+        load_vec<VW>(v_s + kk * DV + h * 16 * VW + kg * VW, vf);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -345,7 +358,7 @@ flash_fwd_kernel(const Params p) {
     const int fr = row0 + rg + 8 * i;
     if (fr >= row_end) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + q_offset(p, b, hkv, G, fr, D);
+    T* orow = out + q_offset(p, b, hkv, G, fr, DV);
 #pragma unroll
     for (int h = 0; h < NCH; ++h)
 #pragma unroll
@@ -367,20 +380,22 @@ constexpr int kBwdThreads = 256;
 constexpr int kBwdRows = 32;   // (token, group-head) rows per tile
 constexpr int kBwdKeys = 32;   // keys per tile
 
-template <int D>
+template <int DK, int DV>
 struct BwdSmem {
-  static constexpr int S = D + 4;   // fp32 row stride of Q, dO, K, V
-  static constexpr size_t bytes = sizeof(float) * (2 * kBwdRows * S + 2 * kBwdKeys * S
+  static constexpr int SK = DK + 4;   // fp32 row stride of Q and K
+  static constexpr int SV = DV + 4;   // of dO and V
+  static constexpr size_t bytes = sizeof(float) * (kBwdRows * (SK + SV) + kBwdKeys * (SK + SV)
                                                    + 2 * kBwdRows * kBwdKeys + 3 * kBwdRows);
 };
 
-// Accumulator tile of phase B: XPT rows (keys for dK/dV, query rows for
-// dQ) x CPT columns per thread, (32 / XPT) x (D / CPT) threads.
-template <int D>
+// Accumulator tile of phase B over W columns (DK for dK and dQ, DV for
+// dV): XPT rows (keys for dK/dV, query rows for dQ) x CPT columns per
+// thread, (32 / XPT) x (W / CPT) threads.
+template <int W>
 struct BwdTile {
-  static constexpr int CPT = D >= 128 ? 4 : (D == 64 ? 2 : 1);
-  static constexpr int XPT = (32 * D) / (kBwdThreads * CPT);
-  static constexpr int NCG = D / CPT;
+  static constexpr int CPT = W == 192 ? 6 : (W >= 128 ? 4 : (W == 64 ? 2 : 1));
+  static constexpr int XPT = (32 * W) / (kBwdThreads * CPT);
+  static constexpr int NCG = W / CPT;
   static_assert((32 / XPT) * NCG == kBwdThreads, "tile covers the block");
 };
 
@@ -388,15 +403,15 @@ struct BwdShared {
   float *q_s, *do_s, *k_s, *v_s, *p_s, *ds_s, *m_s, *l_s, *dl_s;
 };
 
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ BwdShared bwd_shared(unsigned char* smem) {
-  constexpr int S = BwdSmem<D>::S;
+  constexpr int SK = BwdSmem<DK, DV>::SK, SV = BwdSmem<DK, DV>::SV;
   BwdShared sh;
   sh.q_s = reinterpret_cast<float*>(smem);
-  sh.do_s = sh.q_s + kBwdRows * S;
-  sh.k_s = sh.do_s + kBwdRows * S;
-  sh.v_s = sh.k_s + kBwdKeys * S;
-  sh.p_s = sh.v_s + kBwdKeys * S;
+  sh.do_s = sh.q_s + kBwdRows * SK;
+  sh.k_s = sh.do_s + kBwdRows * SV;
+  sh.v_s = sh.k_s + kBwdKeys * SK;
+  sh.p_s = sh.v_s + kBwdKeys * SV;
   sh.ds_s = sh.p_s + kBwdRows * kBwdKeys;
   sh.m_s = sh.ds_s + kBwdRows * kBwdKeys;
   sh.l_s = sh.m_s + kBwdRows;
@@ -406,17 +421,17 @@ __device__ __forceinline__ BwdShared bwd_shared(unsigned char* smem) {
 
 // Stage the Q and dO rows [row0, row0 + 32) of one KV head (zeros past
 // row_end) and their m, l, delta.
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void stage_rows(const Params& p, const BwdShared& sh, int b,
                                            int hkv, int G, int row0, int row_end) {
-  constexpr int S = BwdSmem<D>::S;
+  constexpr int SK = BwdSmem<DK, DV>::SK, SV = BwdSmem<DK, DV>::SV;
   const T* q = static_cast<const T*>(p.q);
   const T* dout = static_cast<const T*>(p.dout);
-  stage_f32<T, D, kBwdThreads>(sh.q_s, S, kBwdRows, [&](int r) -> const T* {
-    return row0 + r < row_end ? q + q_offset(p, b, hkv, G, row0 + r, D) : nullptr;
+  stage_f32<T, DK, kBwdThreads>(sh.q_s, SK, kBwdRows, [&](int r) -> const T* {
+    return row0 + r < row_end ? q + q_offset(p, b, hkv, G, row0 + r, DK) : nullptr;
   });
-  stage_f32<T, D, kBwdThreads>(sh.do_s, S, kBwdRows, [&](int r) -> const T* {
-    return row0 + r < row_end ? dout + q_offset(p, b, hkv, G, row0 + r, D) : nullptr;
+  stage_f32<T, DV, kBwdThreads>(sh.do_s, SV, kBwdRows, [&](int r) -> const T* {
+    return row0 + r < row_end ? dout + q_offset(p, b, hkv, G, row0 + r, DV) : nullptr;
   });
   if (threadIdx.x < kBwdRows) {
     const int fr = row0 + threadIdx.x;
@@ -429,17 +444,17 @@ __device__ __forceinline__ void stage_rows(const Params& p, const BwdShared& sh,
 }
 
 // Stage keys [k0, k0 + 32) of K and V (zeros past Skv).
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void stage_keys(const Params& p, const BwdShared& sh, int b,
                                            int hkv, int k0) {
-  constexpr int S = BwdSmem<D>::S;
+  constexpr int SK = BwdSmem<DK, DV>::SK, SV = BwdSmem<DK, DV>::SV;
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
-  stage_f32<T, D, kBwdThreads>(sh.k_s, S, kBwdKeys, [&](int j) -> const T* {
-    return k0 + j < p.Skv ? k + kv_offset(p, b, hkv, k0 + j, D) : nullptr;
+  stage_f32<T, DK, kBwdThreads>(sh.k_s, SK, kBwdKeys, [&](int j) -> const T* {
+    return k0 + j < p.Skv ? k + kv_offset(p, b, hkv, k0 + j, DK) : nullptr;
   });
-  stage_f32<T, D, kBwdThreads>(sh.v_s, S, kBwdKeys, [&](int j) -> const T* {
-    return k0 + j < p.Skv ? v + kv_offset(p, b, hkv, k0 + j, D) : nullptr;
+  stage_f32<T, DV, kBwdThreads>(sh.v_s, SV, kBwdKeys, [&](int j) -> const T* {
+    return k0 + j < p.Skv ? v + kv_offset(p, b, hkv, k0 + j, DV) : nullptr;
   });
 }
 
@@ -448,33 +463,34 @@ __device__ __forceinline__ void stage_keys(const Params& p, const BwdShared& sh,
 // * scale. Each thread owns rows ra + 16i, keys ka + 16j (i, j < 2).
 // ROW_MAJOR: P and dS stored [row][key] (dK/dV); else dS stored [key][row]
 // and P not stored (dQ).
-template <int D, bool ROW_MAJOR>
+template <int DK, int DV, bool ROW_MAJOR>
 __device__ __forceinline__ void probs_and_dscores(const Params& p, const BwdShared& sh,
                                                   int G, int row0, int row_end, int k0) {
-  constexpr int S = BwdSmem<D>::S;
+  constexpr int SK = BwdSmem<DK, DV>::SK, SV = BwdSmem<DK, DV>::SV;
   const int ra = threadIdx.x / 16, ka = threadIdx.x % 16;
   float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  // s = q . k over DK, dp = dO . v over DV
+  auto dots = [&](float (&acc)[2][2], const float* x_s, const float* y_s, int stride,
+                  int width) {
 #pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float qf[2][4], gf[2][4], kf[2][4], vf[2][4];
+    for (int d = 0; d < width; d += 4) {
+      float xf[2][4], yf[2][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      load_vec<4>(sh.q_s + (ra + 16 * i) * S + d, qf[i]);
-      load_vec<4>(sh.do_s + (ra + 16 * i) * S + d, gf[i]);
-      load_vec<4>(sh.k_s + (ka + 16 * i) * S + d, kf[i]);
-      load_vec<4>(sh.v_s + (ka + 16 * i) * S + d, vf[i]);
+      for (int i = 0; i < 2; ++i) {
+        load_vec<4>(x_s + (ra + 16 * i) * stride + d, xf[i]);
+        load_vec<4>(y_s + (ka + 16 * i) * stride + d, yf[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(xf[i][e], yf[j][e], acc[i][j]);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[i][j] = fmaf(qf[i][e], kf[j][e], s[i][j]);
-          dp[i][j] = fmaf(gf[i][e], vf[j][e], dp[i][j]);
-        }
-  }
+  };
+  dots(s, sh.q_s, sh.k_s, SK, DK);
+  dots(dp, sh.do_s, sh.v_s, SV, DV);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = ra + 16 * i, fr = row0 + r;
@@ -499,14 +515,15 @@ __device__ __forceinline__ void probs_and_dscores(const Params& p, const BwdShar
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkdv_kernel(const Params p) {
-  using TL = BwdTile<D>;
-  constexpr int S = BwdSmem<D>::S, XPT = TL::XPT, CPT = TL::CPT;
+  using TK = BwdTile<DK>;   // dK: keys xk*TK::XPT + i, columns ck*TK::CPT + e
+  using TV = BwdTile<DV>;   // dV: keys xv*TV::XPT + i, columns cv*TV::CPT + e
+  constexpr int SK = BwdSmem<DK, DV>::SK, SV = BwdSmem<DK, DV>::SV;
   const int ktile = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
-  const int xg = threadIdx.x / TL::NCG;   // keys xg*XPT + i
-  const int cg = threadIdx.x % TL::NCG;   // columns cg*CPT + e
+  const int xk = threadIdx.x / TK::NCG, ck = threadIdx.x % TK::NCG;
+  const int xv = threadIdx.x / TV::NCG, cv = threadIdx.x % TV::NCG;
   const int G = p.H / p.Hkv;
   const int k0 = ktile * kBwdKeys;
   const int k1 = min(p.Skv, k0 + kBwdKeys);
@@ -516,58 +533,68 @@ flash_bwd_dkdv_kernel(const Params p) {
   const int row_begin = k0 * G, row_end = t_end * G;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdShared sh = bwd_shared<D>(smem);
-  stage_keys<T, D>(p, sh, b, hkv, k0);
+  const BwdShared sh = bwd_shared<DK, DV>(smem);
+  stage_keys<T, DK, DV>(p, sh, b, hkv, k0);
 
-  float dk[XPT][CPT], dv[XPT][CPT];
+  float dk[TK::XPT][TK::CPT], dv[TV::XPT][TV::CPT];
 #pragma unroll
-  for (int i = 0; i < XPT; ++i)
+  for (int i = 0; i < TK::XPT; ++i)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < TK::CPT; ++c) dk[i][c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TV::XPT; ++i)
+#pragma unroll
+    for (int c = 0; c < TV::CPT; ++c) dv[i][c] = 0.f;
 
   for (int row0 = row_begin; row0 < row_end; row0 += kBwdRows) {
     __syncthreads();   // the previous rows' phase B is done
-    stage_rows<T, D>(p, sh, b, hkv, G, row0, row_end);
+    stage_rows<T, DK, DV>(p, sh, b, hkv, G, row0, row_end);
     __syncthreads();
-    probs_and_dscores<D, true>(p, sh, G, row0, row_end, k0);
+    probs_and_dscores<DK, DV, true>(p, sh, G, row0, row_end, k0);
     __syncthreads();
     const int nr = min(kBwdRows, row_end - row0);
     for (int r = 0; r < nr; ++r) {
-      float pr[XPT], dsr[XPT], qf[CPT], gf[CPT];
-      load_vec<XPT>(sh.p_s + r * kBwdKeys + xg * XPT, pr);
-      load_vec<XPT>(sh.ds_s + r * kBwdKeys + xg * XPT, dsr);
-      load_vec<CPT>(sh.q_s + r * S + cg * CPT, qf);
-      load_vec<CPT>(sh.do_s + r * S + cg * CPT, gf);
+      float pr[TV::XPT], dsr[TK::XPT], qf[TK::CPT], gf[TV::CPT];
+      load_vec<TV::XPT>(sh.p_s + r * kBwdKeys + xv * TV::XPT, pr);
+      load_vec<TK::XPT>(sh.ds_s + r * kBwdKeys + xk * TK::XPT, dsr);
+      load_vec<TK::CPT>(sh.q_s + r * SK + ck * TK::CPT, qf);
+      load_vec<TV::CPT>(sh.do_s + r * SV + cv * TV::CPT, gf);
 #pragma unroll
-      for (int i = 0; i < XPT; ++i)
+      for (int i = 0; i < TV::XPT; ++i)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dv[i][c] = fmaf(pr[i], gf[c], dv[i][c]);
-          dk[i][c] = fmaf(dsr[i], qf[c], dk[i][c]);
-        }
+        for (int c = 0; c < TV::CPT; ++c) dv[i][c] = fmaf(pr[i], gf[c], dv[i][c]);
+#pragma unroll
+      for (int i = 0; i < TK::XPT; ++i)
+#pragma unroll
+        for (int c = 0; c < TK::CPT; ++c) dk[i][c] = fmaf(dsr[i], qf[c], dk[i][c]);
     }
   }
 
   T* dk_out = static_cast<T*>(p.dk);
   T* dv_out = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < XPT; ++i) {
-    const int key = k0 + xg * XPT + i;
+  for (int i = 0; i < TK::XPT; ++i) {
+    const int key = k0 + xk * TK::XPT + i;
     if (key >= k1) continue;
-    const size_t off = kv_offset(p, b, hkv, key, D) + cg * CPT;
+    const size_t off = kv_offset(p, b, hkv, key, DK) + ck * TK::CPT;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      store(dk_out + off + c, dk[i][c]);
-      store(dv_out + off + c, dv[i][c]);
-    }
+    for (int c = 0; c < TK::CPT; ++c) store(dk_out + off + c, dk[i][c]);
+  }
+#pragma unroll
+  for (int i = 0; i < TV::XPT; ++i) {
+    const int key = k0 + xv * TV::XPT + i;
+    if (key >= k1) continue;
+    const size_t off = kv_offset(p, b, hkv, key, DV) + cv * TV::CPT;
+#pragma unroll
+    for (int c = 0; c < TV::CPT; ++c) store(dv_out + off + c, dv[i][c]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_kernel(const Params p) {
-  using TL = BwdTile<D>;
-  constexpr int S = BwdSmem<D>::S, XPT = TL::XPT, CPT = TL::CPT;
+  using TL = BwdTile<DK>;
+  constexpr int S = BwdSmem<DK, DV>::SK, XPT = TL::XPT, CPT = TL::CPT;
   const int tile = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
   const int xg = threadIdx.x / TL::NCG;   // rows xg*XPT + i
   const int cg = threadIdx.x % TL::NCG;
@@ -579,8 +606,8 @@ flash_bwd_dq_kernel(const Params p) {
   const int lo = p.has_window ? max(0, t_first - p.window + 1) : 0;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdShared sh = bwd_shared<D>(smem);
-  stage_rows<T, D>(p, sh, b, hkv, G, row0, row_end);
+  const BwdShared sh = bwd_shared<DK, DV>(smem);
+  stage_rows<T, DK, DV>(p, sh, b, hkv, G, row0, row_end);
 
   float dq[XPT][CPT];
 #pragma unroll
@@ -590,9 +617,9 @@ flash_bwd_dq_kernel(const Params p) {
 
   for (int k0 = lo; k0 < hi; k0 += kBwdKeys) {
     __syncthreads();   // the previous keys' phase B is done (rows staged)
-    stage_keys<T, D>(p, sh, b, hkv, k0);
+    stage_keys<T, DK, DV>(p, sh, b, hkv, k0);
     __syncthreads();
-    probs_and_dscores<D, false>(p, sh, G, row0, row_end, k0);
+    probs_and_dscores<DK, DV, false>(p, sh, G, row0, row_end, k0);
     __syncthreads();
     const int nk = min(kBwdKeys, hi - k0);
     for (int kk = 0; kk < nk; ++kk) {
@@ -611,7 +638,7 @@ flash_bwd_dq_kernel(const Params p) {
   for (int i = 0; i < XPT; ++i) {
     const int fr = row0 + xg * XPT + i;
     if (fr >= row_end) continue;
-    T* orow = dq_out + q_offset(p, b, hkv, G, fr, D) + cg * CPT;
+    T* orow = dq_out + q_offset(p, b, hkv, G, fr, DK) + cg * CPT;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) store(orow + c, dq[i][c]);
   }
@@ -766,10 +793,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wgmma m64nNk16, fp32 += bf16 x bf16. D holds N/2 registers a thread:
 // register r of thread t is row 16 (t / 32 % 4) + (t % 32) / 4 + 8 ((r >> 1) & 1),
 // column 8 (r >> 2) + 2 (t % 4) + (r & 1). wgmma_ss (S = Q Kᵀ and dPᵀ = V
-// dOᵀ, N = 64): A and B K-major from shared memory. wgmma_rs (P V, Pᵀ dO,
-// dSᵀ Q, N = D): A from registers in the accumulator's row layout (a[0]:
-// rows r, k 2(t%4)+{0,1}; a[1]: rows r+8; a[2], a[3]: the same at k+8), B
-// read MN-major. acc = 0 overwrites D.
+// dOᵀ, N = 64): A and B K-major from shared memory. wgmma_rs (P V and Pᵀ
+// dO, N = DV; dSᵀ Q and dS K, N = DK): A from registers in the
+// accumulator's row layout (a[0]: rows r, k 2(t%4)+{0,1}; a[1]: rows r+8;
+// a[2], a[3]: the same at k+8), B read MN-major. acc = 0 overwrites D.
 #define WG_ACC8(o) "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), \
                    "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 #define WG_ACC16(o) WG_ACC8(o), WG_ACC8(o + 8)
@@ -834,6 +861,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_ACC64(0), WG_ACC32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
                                          int acc) {
   asm volatile(
@@ -867,6 +909,19 @@ struct SwizzledTile {
   static constexpr uint64_t swizzle = D < 64 ? 2ull << 62 : 1ull << 62;   // wgmma B64 / B128
 };
 
+// The tiles of a (DK, DV) kernel: Q, K (and dQ, dK) DK columns wide, V, dO
+// (and the output, dV) DV wide, both in atoms of one width, so one swizzle
+// mode and one descriptor layout serve both (DK 192 is three 64-column
+// atoms, DV 128 two).
+template <int DK, int DV>
+struct TcTiles {
+  using TK = SwizzledTile<DK>;
+  using TV = SwizzledTile<DV>;
+  static_assert(TK::kAtom == TV::kAtom, "K and V tiles share one atom width");
+  static constexpr int kAtom = TK::kAtom, row_bytes = TK::row_bytes, atom_bytes = TK::atom_bytes;
+  static constexpr uint64_t swizzle = TK::swizzle;
+};
+
 // Rows [r0, r0 + RT) of one KV head's flattened (token, group-head) axis of
 // a q-shaped tensor x into a swizzled tile at dst (atoms of RT rows), by
 // 16-byte cp.async from threads t of nt; rows at or past r_end read zeros.
@@ -886,13 +941,14 @@ __device__ __forceinline__ void stage_rows_swizzled(unsigned char* dst, const __
   }
 }
 
-template <int D>
-struct FwdTc : SwizzledTile<D> {
-  using T = SwizzledTile<D>;
+template <int DK, int DV>
+struct FwdTc : TcTiles<DK, DV> {
+  using Tiles = TcTiles<DK, DV>;
   static constexpr int kRows = 128;                       // 64 per consumer warpgroup
   static constexpr int kThreads = 384;                    // 2 consumer warpgroups, 1 producer
-  static constexpr int q_bytes = kRows * D * 2;           // Q: atoms of 128 rows
-  static constexpr int bar_off = q_bytes + 4 * T::tile_bytes;   // Q, 2 stages of K and V
+  static constexpr int q_bytes = kRows * DK * 2;          // Q: atoms of 128 rows
+  static constexpr int stage_bytes = Tiles::TK::tile_bytes + Tiles::TV::tile_bytes;   // K, V
+  static constexpr int bar_off = q_bytes + 2 * stage_bytes;   // Q, 2 stages of K and V
   static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);  // + alignment
 };
 
@@ -905,13 +961,14 @@ struct FwdTc : SwizzledTile<D> {
 // 64w..64w+63: S = Q Kᵀ (m64n64, Q and K in shared memory), the online
 // softmax on S's registers (masking only on tiles that need it), P rounded
 // to bf16 (the plain version's rounding point) and used as the register A
-// operand of O += P V (m64nD, V read MN-major). O stays in registers (D/2 a
-// thread). The consumers take turns to issue S (two named barriers), so
+// operand of O += P V (m64nDV, V read MN-major). O stays in registers (DV/2
+// a thread). The consumers take turns to issue S (two named barriers), so
 // one's softmax runs while the other's product holds the tensor cores.
-template <int D>
-__global__ void __launch_bounds__(FwdTc<D>::kThreads, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(FwdTc<DK, DV>::kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ Params p) {
-  using L = FwdTc<D>;
+  using L = FwdTc<DK, DV>;
+  constexpr int KB = L::TK::tile_bytes;   // a stage's K tile; V follows it
   const int tile = gridDim.x - 1 - blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
   const int G = p.H / p.Hkv;
@@ -926,7 +983,7 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
   // swizzled tiles need 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* q_s = smem;
-  unsigned char* kv_s = smem + L::q_bytes;   // stage s: K at s * 2 * tile_bytes, V after it
+  unsigned char* kv_s = smem + L::q_bytes;   // stage s: K at s * stage_bytes, V after it
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
   uint64_t* full = q_full + 1;               // [stage]
   uint64_t* empty = q_full + 3;              // [stage]
@@ -947,28 +1004,29 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
       if (pt == 0) {
         mbar_expect_tx(q_full, L::q_bytes);
 #pragma unroll
-        for (int a = 0; a < D / L::kAtom; ++a)
+        for (int a = 0; a < DK / L::kAtom; ++a)
           tma_load_4d(q_s + a * L::kRows * L::row_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
                       b * p.Sq + row0 / G, q_full);
       }
     } else {
-      stage_rows_swizzled<D, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
-                                       G, row0, row_end, pt, 128);
+      stage_rows_swizzled<DK, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
+                                        G, row0, row_end, pt, 128);
       mbar_arrive_cp_async(q_full);
     }
     if (pt == 0) {   // one thread drives the TMA ring
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * kTcKeys;
-        unsigned char* ks = kv_s + st * 2 * L::tile_bytes;
+        unsigned char* ks = kv_s + st * L::stage_bytes;
         mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * L::tile_bytes);
+        mbar_expect_tx(full + st, L::stage_bytes);
 #pragma unroll
-        for (int a = 0; a < D / L::kAtom; ++a) {
+        for (int a = 0; a < DK / L::kAtom; ++a)
           tma_load_3d(ks + a * L::atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0,
                       full + st);
-          tma_load_3d(ks + L::tile_bytes + a * L::atom_bytes, &p.tmap_v, a * L::kAtom, hkv,
-                      b * p.Skv + k0, full + st);
-        }
+#pragma unroll
+        for (int a = 0; a < DV / L::kAtom; ++a)
+          tma_load_3d(ks + KB + a * L::atom_bytes, &p.tmap_v, a * L::kAtom, hkv, b * p.Skv + k0,
+                      full + st);
       }
     }
     cp_async_wait<0>();
@@ -983,9 +1041,9 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) tpos[h] = (rw0 + 16 * warp + lane / 4 + 8 * h) / G;
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   const unsigned char* q_w = q_s + wg * 64 * L::row_bytes;   // rows 64 wg.. of the Q tile
   mbar_wait(q_full, 0);
   if (wg == 1 && n_tiles > 0) named_arrive(1, kTcThreads);   // warpgroup 0 issues first
@@ -994,14 +1052,14 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
     const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * kTcKeys;
     mbar_wait(full + st, (it >> 1) & 1);
     fence_async_smem();
-    const unsigned char* ks = kv_s + st * 2 * L::tile_bytes;
-    const unsigned char* vs = ks + L::tile_bytes;
+    const unsigned char* ks = kv_s + st * L::stage_bytes;
+    const unsigned char* vs = ks + KB;
 
     float s[32];
     named_sync(1 + wg, kTcThreads);   // this warpgroup's turn on the tensor cores
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;   // atom, column within it
       wgmma_ss(s, gmma_desc(q_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
                       | L::swizzle,
@@ -1057,7 +1115,7 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
     }
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
     }
     uint32_t a[4][4];
 #pragma unroll
@@ -1085,9 +1143,9 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
     const int fr = rw0 + 16 * warp + lane / 4 + 8 * h;
     if (fr >= row_end) continue;
     const float denom = l[h] == 0.f ? 1.f : l[h];
-    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, D) + 2 * (lane % 4);
+    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, DV) + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
           __floats2bfloat162_rn(o[4 * i + 2 * h] / denom, o[4 * i + 2 * h + 1] / denom);
     if (lane % 4 == 0) {
@@ -1098,16 +1156,19 @@ flash_fwd_tc_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <int D>
-struct DkdvTc : SwizzledTile<D> {
-  using T = SwizzledTile<D>;
+template <int DK, int DV>
+struct DkdvTc : TcTiles<DK, DV> {
+  using Tiles = TcTiles<DK, DV>;
   static constexpr int kThreads = 384;                      // 2 consumer warpgroups, 1 producer
-  static constexpr int k_off = 0, v_off = T::tile_bytes;    // resident K, V
-  static constexpr int stage_off = 2 * T::tile_bytes;       // 2 stages of (Q, dO)
-  static constexpr int g_off = stage_off + 4 * T::tile_bytes;   // P (1 - tanh²) scale, fp32
+  static constexpr int kv_bytes = Tiles::TK::tile_bytes + Tiles::TV::tile_bytes;
+  static constexpr int k_off = 0, v_off = Tiles::TK::tile_bytes;   // resident K, V
+  static constexpr int stage_bytes = kv_bytes;              // Q (DK wide), then dO (DV wide)
+  static constexpr int stage_off = kv_bytes;                // 2 stages of (Q, dO)
+  static constexpr int g_off = stage_off + 2 * stage_bytes;   // P (1 - tanh²) scale, fp32
   static constexpr int stat_off = g_off + 64 * 64 * 4;      // 2 stages of m, l, delta
   static constexpr int bar_off = stat_off + 2 * 3 * 64 * 4;
   static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);   // + alignment
+  static constexpr int part = kTcKeys * (DK + DV);          // fp32 partial: dK, then dV
 };
 
 // dK/dV, bf16. One CTA per unit of the plan (ops.dkdv_plan: key tile, row
@@ -1116,18 +1177,20 @@ struct DkdvTc : SwizzledTile<D> {
 // 64 at a time. Warpgroup 2 is the producer: one warp loads K/V once and
 // streams Q/dO (TMA; cp.async where G does not divide 64) and m, l, delta
 // (cp.async) through 2 stages under "full"/"empty" mbarriers. Warpgroup 0
-// computes Sᵀ = K Qᵀ, Pᵀ from it, and dV += Pᵀ dO with Pᵀ as the register
-// A operand; warpgroup 1 computes dPᵀ = V dOᵀ and, once warpgroup 0 has
-// left P (1 - tanh²) scale in shared memory (named barrier 3; barrier 4
-// hands the buffer back), dSᵀ and dK += dSᵀ Q the same way. So one
-// warpgroup's elementwise work runs under the other's products. Each holds
-// one D-wide accumulator (D/2 registers a thread). A unit that covers its
+// computes Sᵀ = K Qᵀ (over DK), Pᵀ from it, and dV += Pᵀ dO with Pᵀ as the
+// register A operand; warpgroup 1 computes dPᵀ = V dOᵀ (over DV) and, once
+// warpgroup 0 has left P (1 - tanh²) scale in shared memory (named barrier
+// 3; barrier 4 hands the buffer back), dSᵀ and dK += dSᵀ Q the same way.
+// So one warpgroup's elementwise work runs under the other's products.
+// Warpgroup 0 holds a DV-wide accumulator (DV/2 registers a thread),
+// warpgroup 1 a DK-wide one (DK/2: 96 at DK 192). A unit that covers its
 // key tile alone writes dK/dV; the others write fp32 partials that
 // flash_bwd_dkdv_reduce_kernel sums in row order.
-template <int D>
-__global__ void __launch_bounds__(DkdvTc<D>::kThreads, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(DkdvTc<DK, DV>::kThreads, 1)
 flash_bwd_dkdv_tc_kernel(const __grid_constant__ Params p) {
-  using L = DkdvTc<D>;
+  using L = DkdvTc<DK, DV>;
+  constexpr int QB = L::TK::tile_bytes;   // a stage's Q tile; dO follows it
   const int* unit = p.plan + 4 * blockIdx.x;
   const int k0 = unit[0] * kTcKeys, r_begin = unit[1], r_end = unit[2], slot = unit[3];
   const int hkv = blockIdx.y, b = blockIdx.z;
@@ -1161,32 +1224,33 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ Params p) {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
     const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout);
     if (lane == 0 && n_blocks > 0) {
-      mbar_expect_tx(kv_full, 2 * L::tile_bytes);
+      mbar_expect_tx(kv_full, L::kv_bytes);
 #pragma unroll
-      for (int a = 0; a < D / L::kAtom; ++a) {
+      for (int a = 0; a < DK / L::kAtom; ++a)
         tma_load_3d(k_s + a * L::atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0, kv_full);
+#pragma unroll
+      for (int a = 0; a < DV / L::kAtom; ++a)
         tma_load_3d(v_s + a * L::atom_bytes, &p.tmap_v, a * L::kAtom, hkv, b * p.Skv + k0, kv_full);
-      }
     }
     for (int it = 0; it < n_blocks; ++it) {
       const int st = it & 1, rb = r_begin + it * 64;
-      unsigned char* base = smem + L::stage_off + st * 2 * L::tile_bytes;
+      unsigned char* base = smem + L::stage_off + st * L::stage_bytes;
       mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
       if (tma) {
         if (lane == 0) {
-          mbar_expect_tx(full + st, 2 * L::tile_bytes);
+          mbar_expect_tx(full + st, L::stage_bytes);
 #pragma unroll
-          for (int a = 0; a < D / L::kAtom; ++a) {
+          for (int a = 0; a < DK / L::kAtom; ++a)
             tma_load_4d(base + a * L::atom_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
                         b * p.Sq + rb / G, full + st);
-            tma_load_4d(base + L::tile_bytes + a * L::atom_bytes, &p.tmap_do, a * L::kAtom, 0,
-                        hkv, b * p.Sq + rb / G, full + st);
-          }
+#pragma unroll
+          for (int a = 0; a < DV / L::kAtom; ++a)
+            tma_load_4d(base + QB + a * L::atom_bytes, &p.tmap_do, a * L::kAtom, 0, hkv,
+                        b * p.Sq + rb / G, full + st);
         }
       } else {   // rows that no box holds
-        stage_rows_swizzled<D, kTcKeys>(base, q, p, b, hkv, G, rb, r_end, lane, 32);
-        stage_rows_swizzled<D, kTcKeys>(base + L::tile_bytes, dout, p, b, hkv, G, rb, r_end,
-                                        lane, 32);
+        stage_rows_swizzled<DK, kTcKeys>(base, q, p, b, hkv, G, rb, r_end, lane, 32);
+        stage_rows_swizzled<DV, kTcKeys>(base + QB, dout, p, b, hkv, G, rb, r_end, lane, 32);
       }
       for (int i = lane; i < 3 * 64; i += 32) {
         const int which = i / 64, r = i % 64;
@@ -1202,163 +1266,178 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ Params p) {
   }
 
   setmaxnreg_inc<232>();
-  float acc[D / 2];   // warpgroup 0: dV; warpgroup 1: dK (64 keys x D)
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   const int kq = 16 * warp + lane / 4;   // this thread's keys: kq and kq + 8
   if (n_blocks > 0) mbar_wait(kv_full, 0);
 
-  for (int it = 0; it < n_blocks; ++it) {
-    const int rb = r_begin + it * 64, st = it & 1;
-    mbar_wait(full + st, (it >> 1) & 1);
-    fence_async_smem();
-    const unsigned char* q_st = smem + L::stage_off + st * 2 * L::tile_bytes;
-    const unsigned char* do_st = q_st + L::tile_bytes;
-    const float* m_s = stat_s + st * 3 * 64;
-    const float* l_s = m_s + 64;
-    const float* dl_s = l_s + 64;
+  // Warpgroup WG's walk over the unit's row blocks: WG 0 (dV, DV wide) and
+  // WG 1 (dK, DK wide); S and dPᵀ run over DEPTH (DK for Sᵀ = K Qᵀ, DV for
+  // dPᵀ = V dOᵀ).
+  auto walk = [&](auto wg_c) {
+    constexpr int WG = decltype(wg_c)::value;
+    constexpr int W = WG == 0 ? DV : DK;          // accumulator columns
+    constexpr int DEPTH = WG == 0 ? DK : DV;      // the S / dPᵀ product's depth
+    float acc[W / 2];   // warpgroup 0: dV; warpgroup 1: dK (64 keys x W)
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 
-    // warpgroup 0: Sᵀ = K Qᵀ; warpgroup 1: dPᵀ = V dOᵀ (64 keys x 64 rows)
-    float s[32];
-    {
-      const unsigned char* a_s = wg == 0 ? k_s : v_s;
-      const unsigned char* b_s = wg == 0 ? q_st : do_st;
+    for (int it = 0; it < n_blocks; ++it) {
+      const int rb = r_begin + it * 64, st = it & 1;
+      mbar_wait(full + st, (it >> 1) & 1);
+      fence_async_smem();
+      const unsigned char* q_st = smem + L::stage_off + st * L::stage_bytes;
+      const unsigned char* do_st = q_st + QB;
+      const float* m_s = stat_s + st * 3 * 64;
+      const float* l_s = m_s + 64;
+      const float* dl_s = l_s + 64;
+
+      // warpgroup 0: Sᵀ = K Qᵀ; warpgroup 1: dPᵀ = V dOᵀ (64 keys x 64 rows)
+      float s[32];
+      {
+        const unsigned char* a_s = WG == 0 ? k_s : v_s;
+        const unsigned char* b_s = WG == 0 ? q_st : do_st;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DEPTH / 16; ++kk) {
+          const int off = kk * 16 / L::kAtom * L::atom_bytes + kk * 16 % L::kAtom * 2;
+          wgmma_ss(s, gmma_desc(a_s + off, 16, 8 * L::row_bytes) | L::swizzle,
+                      gmma_desc(b_s + off, 16, 8 * L::row_bytes) | L::swizzle, kk > 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+      }
+      if constexpr (WG == 0) {
+        // P = exp(x - m) / l = 2^(x log2(e) - log2(e^m l)) on visible pairs (0
+        // elsewhere); this thread's rows (columns) c each serve two keys. The
+        // plain case folds the scale into the exponent.
+        if (it > 0) named_sync(4, kTcThreads);   // warpgroup 1 has read the last block's
+        auto probs = [&](auto general) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = i * 8 + 2 * (lane % 4) + e;   // row within the block
+              const float lse = fmaf(m_s[c], kLog2e, fast_log2(l_s[c]));   // log2(e^m l)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = 4 * i + 2 * h + e;
+                float pr, gr;
+                if constexpr (decltype(general)::value) {
+                  float th = 0.f;
+                  const float x = post_cap(p, s[r], &th);
+                  const bool ok = rb + c < r_end && visible(p, (rb + c) / G, k0 + kq + 8 * h);
+                  pr = ok ? fast_exp2(fmaf(x, kLog2e, -lse)) : 0.f;
+                  gr = pr * (p.has_cap ? 1.f - th * th : 1.f) * p.scale;
+                } else {
+                  pr = fast_exp2(fmaf(s[r], p.scale * kLog2e, -lse));
+                  gr = pr * p.scale;
+                }
+                g_s[r * 128 + wt] = gr;
+                s[r] = pr;
+              }
+            }
+        };
+        if (p.has_cap || !(p.scale > 0.f) || p.has_window || k0 + kTcKeys > p.Skv
+            || rb + 64 > r_end || k0 + kTcKeys - 1 > rb / G)
+          probs(std::true_type{});
+        else
+          probs(std::false_type{});
+        named_arrive(3, kTcThreads);   // P (1 - tanh²) scale is in shared memory
+      } else {
+        named_sync(3, kTcThreads);
+#pragma unroll
+        for (int r = 0; r < 32; ++r)   // dSᵀ = P (dPᵀ - delta) (1 - tanh²) scale
+          s[r] = g_s[r * 128 + wt] * (s[r] - dl_s[(r >> 2) * 8 + 2 * (lane % 4) + (r & 1)]);
+        if (it + 1 < n_blocks) named_arrive(4, kTcThreads);   // the buffer is free again
+      }
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+      // warpgroup 0: dV += Pᵀ dO; warpgroup 1: dK += dSᵀ Q (B read MN-major)
+      const unsigned char* rhs = WG == 0 ? do_st : q_st;
+      fence_regs(acc);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = kk * 16 / L::kAtom * L::atom_bytes + kk * 16 % L::kAtom * 2;
-        wgmma_ss(s, gmma_desc(a_s + off, 16, 8 * L::row_bytes) | L::swizzle,
-                    gmma_desc(b_s + off, 16, 8 * L::row_bytes) | L::swizzle, kk > 0);
-      }
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs(acc, a[j], gmma_desc(rhs + j * 16 * L::row_bytes, L::atom_bytes,
+                                      8 * L::row_bytes) | L::swizzle, 1);
       wg_commit();
       wg_wait_all();
-      fence_regs(s);
+      fence_regs(acc);
+      mbar_arrive(empty + st);   // this warpgroup is done with the stage
     }
-    if (wg == 0) {
-      // P = exp(x - m) / l = 2^(x log2(e) - log2(e^m l)) on visible pairs (0
-      // elsewhere); this thread's rows (columns) c each serve two keys. The
-      // plain case folds the scale into the exponent.
-      if (it > 0) named_sync(4, kTcThreads);   // warpgroup 1 has read the last block's
-      auto probs = [&](auto general) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = i * 8 + 2 * (lane % 4) + e;   // row within the block
-            const float lse = fmaf(m_s[c], kLog2e, fast_log2(l_s[c]));   // log2(e^m l)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = 4 * i + 2 * h + e;
-              float pr, gr;
-              if constexpr (decltype(general)::value) {
-                float th = 0.f;
-                const float x = post_cap(p, s[r], &th);
-                const bool ok = rb + c < r_end && visible(p, (rb + c) / G, k0 + kq + 8 * h);
-                pr = ok ? fast_exp2(fmaf(x, kLog2e, -lse)) : 0.f;
-                gr = pr * (p.has_cap ? 1.f - th * th : 1.f) * p.scale;
-              } else {
-                pr = fast_exp2(fmaf(s[r], p.scale * kLog2e, -lse));
-                gr = pr * p.scale;
-              }
-              g_s[r * 128 + wt] = gr;
-              s[r] = pr;
-            }
-          }
-      };
-      if (p.has_cap || !(p.scale > 0.f) || p.has_window || k0 + kTcKeys > p.Skv
-          || rb + 64 > r_end || k0 + kTcKeys - 1 > rb / G)
-        probs(std::true_type{});
-      else
-        probs(std::false_type{});
-      named_arrive(3, kTcThreads);   // P (1 - tanh²) scale is in shared memory
-    } else {
-      named_sync(3, kTcThreads);
-#pragma unroll
-      for (int r = 0; r < 32; ++r)   // dSᵀ = P (dPᵀ - delta) (1 - tanh²) scale
-        s[r] = g_s[r * 128 + wt] * (s[r] - dl_s[(r >> 2) * 8 + 2 * (lane % 4) + (r & 1)]);
-      if (it + 1 < n_blocks) named_arrive(4, kTcThreads);   // the buffer is free again
-    }
-    uint32_t a[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
-    // warpgroup 0: dV += Pᵀ dO; warpgroup 1: dK += dSᵀ Q (B read MN-major)
-    const unsigned char* rhs = wg == 0 ? do_st : q_st;
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wgmma_rs(acc, a[j], gmma_desc(rhs + j * 16 * L::row_bytes, L::atom_bytes,
-                                    8 * L::row_bytes) | L::swizzle, 1);
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
-    mbar_arrive(empty + st);   // this warpgroup is done with the stage
-  }
 
-  // partial slot layout (slot, B, Hkv, dK / dV, 64, D)
-  const size_t part = (((size_t)slot * p.B + b) * p.Hkv + hkv) * 2 + (wg == 0 ? 1 : 0);
-  float* out_part = slot < 0 ? nullptr : p.scratch + part * kTcKeys * D;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(wg == 0 ? p.dv : p.dk);
+    // partial slot layout (slot, B, Hkv, [dK 64 x DK, dV 64 x DV])
+    const size_t part = (((size_t)slot * p.B + b) * p.Hkv + hkv) * L::part
+                        + (WG == 0 ? kTcKeys * DK : 0);
+    float* out_part = slot < 0 ? nullptr : p.scratch + part;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(WG == 0 ? p.dv : p.dk);
 #pragma unroll
-  for (int r = 0; r < D / 2; r += 2) {
-    const int kk = kq + 8 * ((r >> 1) & 1);
-    const int col = (r >> 2) * 8 + 2 * (lane % 4);
-    if (out_part != nullptr) {
-      *reinterpret_cast<float2*>(out_part + kk * D + col) = make_float2(acc[r], acc[r + 1]);
-    } else if (k0 + kk < p.Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(out + kv_offset(p, b, hkv, k0 + kk, D) + col) =
-          __floats2bfloat162_rn(acc[r], acc[r + 1]);
+    for (int r = 0; r < W / 2; r += 2) {
+      const int kk = kq + 8 * ((r >> 1) & 1);
+      const int col = (r >> 2) * 8 + 2 * (lane % 4);
+      if (out_part != nullptr) {
+        *reinterpret_cast<float2*>(out_part + kk * W + col) = make_float2(acc[r], acc[r + 1]);
+      } else if (k0 + kk < p.Skv) {
+        *reinterpret_cast<__nv_bfloat162*>(out + kv_offset(p, b, hkv, k0 + kk, W) + col) =
+            __floats2bfloat162_rn(acc[r], acc[r + 1]);
+      }
     }
-  }
+  };
+  if (wg == 0)
+    walk(std::integral_constant<int, 0>{});
+  else
+    walk(std::integral_constant<int, 1>{});
 }
 
 // Sums the fp32 partials of each split key tile in slot (row) order and
-// writes dK/dV. Row e of p.reduce: key tile, first slot, slot count. Each
-// CTA takes 1024 of the tile's 64 x D values, 4 a thread.
+// writes dK/dV. Row e of p.reduce: key tile, first slot, slot count. A
+// partial is 64 x DK of dK, then 64 x DV of dV; each CTA takes 1024 of its
+// values, 4 a thread (4 | DK, so no thread's four straddle a row or the
+// dK/dV boundary).
 constexpr int kReduceChunk = 4 * kTcThreads;
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_bwd_dkdv_reduce_kernel(const Params p) {
-  constexpr int kChunks = kTcKeys * D / kReduceChunk;
+  constexpr int kPart = DkdvTc<DK, DV>::part;
+  constexpr int kChunks = kPart / kReduceChunk;
+  static_assert(kPart % kReduceChunk == 0, "whole chunks");
   const int* e = p.reduce + 3 * (blockIdx.x / kChunks);
   const int k0 = e[0] * kTcKeys, first = e[1], n = e[2];
   const int hkv = blockIdx.y, b = blockIdx.z;
-  const int i = (blockIdx.x % kChunks) * kReduceChunk + 4 * threadIdx.x;   // of 64 x D
-  const int kk = i / D, col = i % D;
+  const int i = (blockIdx.x % kChunks) * kReduceChunk + 4 * threadIdx.x;   // of the partial
+  const bool is_k = i < kTcKeys * DK;
+  const int W = is_k ? DK : DV, j = is_k ? i : i - kTcKeys * DK;
+  const int kk = j / W, col = j % W;
   if (k0 + kk >= p.Skv) return;
-  const size_t part = (size_t)2 * kTcKeys * D;
-  const float* src = p.scratch + (((size_t)first * p.B + b) * p.Hkv + hkv) * part + i;
-  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  const float* src = p.scratch + (((size_t)first * p.B + b) * p.Hkv + hkv) * kPart + i;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int u = 0; u < n; ++u) {
-    const float* s = src + (size_t)u * p.B * p.Hkv * part;
-    const float4 a = *reinterpret_cast<const float4*>(s);
-    const float4 c = *reinterpret_cast<const float4*>(s + kTcKeys * D);
-    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
-    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    const float4 a = *reinterpret_cast<const float4*>(src + (size_t)u * p.B * p.Hkv * kPart);
+    sum.x += a.x; sum.y += a.y; sum.z += a.z; sum.w += a.w;
   }
-  const size_t off = kv_offset(p, b, hkv, k0 + kk, D) + col;
-  __nv_bfloat162* dk = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dk) + off);
-  __nv_bfloat162* dv = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.dv) + off);
-  dk[0] = __floats2bfloat162_rn(sk.x, sk.y);
-  dk[1] = __floats2bfloat162_rn(sk.z, sk.w);
-  dv[0] = __floats2bfloat162_rn(sv.x, sv.y);
-  dv[1] = __floats2bfloat162_rn(sv.z, sv.w);
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+      static_cast<__nv_bfloat16*>(is_k ? p.dk : p.dv) + kv_offset(p, b, hkv, k0 + kk, W) + col);
+  dst[0] = __floats2bfloat162_rn(sum.x, sum.y);
+  dst[1] = __floats2bfloat162_rn(sum.z, sum.w);
 }
 
-template <int D>
-struct DqTc : SwizzledTile<D> {
-  using T = SwizzledTile<D>;
+template <int DK, int DV>
+struct DqTc : TcTiles<DK, DV> {
+  using Tiles = TcTiles<DK, DV>;
   static constexpr int kRows = 128;                          // 64 per consumer warpgroup
-  static constexpr int kKeys = D > 128 ? 32 : 64;            // keys per streamed tile
+  static constexpr int kKeys = DK > 128 ? 32 : 64;           // keys per streamed tile
   static constexpr int kThreads = 384;                       // 2 consumer warpgroups, 1 producer
-  static constexpr int q_bytes = kRows * D * 2;              // Q (and dO): atoms of 128 rows
-  static constexpr int kv_atom_bytes = kKeys * T::row_bytes;
-  static constexpr int kv_bytes = kKeys * D * 2;             // one K or V tile
-  static constexpr int stage_off = 2 * q_bytes;              // 2 stages of (K, V)
-  static constexpr int bar_off = stage_off + 4 * kv_bytes;
+  static constexpr int q_bytes = kRows * DK * 2;             // Q: atoms of 128 rows
+  static constexpr int do_bytes = kRows * DV * 2;            // dO: the same
+  static constexpr int kv_atom_bytes = kKeys * Tiles::row_bytes;
+  static constexpr int k_bytes = kKeys * DK * 2;             // one K tile
+  static constexpr int stage_bytes = k_bytes + kKeys * DV * 2;   // K, then V
+  static constexpr int stage_off = q_bytes + do_bytes;       // 2 stages of (K, V)
+  static constexpr int bar_off = stage_off + 2 * stage_bytes;
   static constexpr size_t bytes = 1024 + bar_off + 5 * sizeof(uint64_t);   // + alignment
 };
 
@@ -1373,13 +1452,14 @@ struct DqTc : SwizzledTile<D> {
 // dS = P (dP − delta) (1 − tanh²) scale in the accumulator registers
 // (masking only on tiles that need it), and dQ += dS K with dS rounded to
 // bf16 as the register A operand and K read MN-major. dQ stays in registers
-// (D/2 a thread). Shared memory at D 256: Q 64 KB + dO 64 KB + 2 stages of
+// (DK/2 a thread). Shared memory at D 256: Q 64 KB + dO 64 KB + 2 stages of
 // 32 keys of K and V (2 x 32 KB) = 192 KB; a 64-key stage (64 KB) would
-// need 256 KB. At D <= 128 the key tile is 64 (128 KB at D 128).
-template <int D>
-__global__ void __launch_bounds__(DqTc<D>::kThreads, 1)
+// need 256 KB. At DK <= 128 the key tile is 64 (128 KB at D 128); at (192,
+// 128) it is 32, as at 256 (Q 48 KB + dO 32 KB + 2 x 20 KB = 120 KB).
+template <int DK, int DV>
+__global__ void __launch_bounds__(DqTc<DK, DV>::kThreads, 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
-  using L = DqTc<D>;
+  using L = DqTc<DK, DV>;
   constexpr int KEYS = L::kKeys;
   const int tile = gridDim.x - 1 - blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
@@ -1395,7 +1475,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* q_s = smem;
   unsigned char* do_s = smem + L::q_bytes;
-  unsigned char* kv_s = smem + L::stage_off;   // stage s: K at s * 2 * kv_bytes, V after it
+  unsigned char* kv_s = smem + L::stage_off;   // stage s: K at s * stage_bytes, V after it
   uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
   uint64_t* full = qd_full + 1;                // [stage]
   uint64_t* empty = qd_full + 3;               // [stage]
@@ -1414,35 +1494,37 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
     const int pt = tid - 256;
     if (p.rows_tma) {
       if (pt == 0) {
-        mbar_expect_tx(qd_full, 2 * L::q_bytes);
+        mbar_expect_tx(qd_full, L::q_bytes + L::do_bytes);
 #pragma unroll
-        for (int a = 0; a < D / L::kAtom; ++a) {
+        for (int a = 0; a < DK / L::kAtom; ++a)
           tma_load_4d(q_s + a * L::kRows * L::row_bytes, &p.tmap_q, a * L::kAtom, 0, hkv,
                       b * p.Sq + row0 / G, qd_full);
+#pragma unroll
+        for (int a = 0; a < DV / L::kAtom; ++a)
           tma_load_4d(do_s + a * L::kRows * L::row_bytes, &p.tmap_do, a * L::kAtom, 0, hkv,
                       b * p.Sq + row0 / G, qd_full);
-        }
       }
     } else {   // rows that no box holds
-      stage_rows_swizzled<D, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
-                                       G, row0, row_end, pt, 128);
-      stage_rows_swizzled<D, L::kRows>(do_s, static_cast<const __nv_bfloat16*>(p.dout), p, b,
-                                       hkv, G, row0, row_end, pt, 128);
+      stage_rows_swizzled<DK, L::kRows>(q_s, static_cast<const __nv_bfloat16*>(p.q), p, b, hkv,
+                                        G, row0, row_end, pt, 128);
+      stage_rows_swizzled<DV, L::kRows>(do_s, static_cast<const __nv_bfloat16*>(p.dout), p, b,
+                                        hkv, G, row0, row_end, pt, 128);
       mbar_arrive_cp_async(qd_full);
     }
     if (pt == 0) {   // one thread drives the TMA ring
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * KEYS;
-        unsigned char* ks = kv_s + st * 2 * L::kv_bytes;
+        unsigned char* ks = kv_s + st * L::stage_bytes;
         mbar_wait(empty + st, ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * L::kv_bytes);
+        mbar_expect_tx(full + st, L::stage_bytes);
 #pragma unroll
-        for (int a = 0; a < D / L::kAtom; ++a) {
+        for (int a = 0; a < DK / L::kAtom; ++a)
           tma_load_3d(ks + a * L::kv_atom_bytes, &p.tmap_k, a * L::kAtom, hkv, b * p.Skv + k0,
                       full + st);
-          tma_load_3d(ks + L::kv_bytes + a * L::kv_atom_bytes, &p.tmap_v, a * L::kAtom, hkv,
+#pragma unroll
+        for (int a = 0; a < DV / L::kAtom; ++a)
+          tma_load_3d(ks + L::k_bytes + a * L::kv_atom_bytes, &p.tmap_v, a * L::kAtom, hkv,
                       b * p.Skv + k0, full + st);
-        }
       }
     }
     cp_async_wait<0>();
@@ -1469,9 +1551,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
       dl[h] = 0.f;
     }
   }
-  float dq[D / 2];
+  float dq[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
   const unsigned char* q_w = q_s + wg * 64 * L::row_bytes;    // rows 64 wg.. of Q
   const unsigned char* do_w = do_s + wg * 64 * L::row_bytes;  // and of dO
   mbar_wait(qd_full, 0);
@@ -1480,13 +1562,13 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
     const int st = it & 1, k0 = lo + (n_tiles - 1 - it) * KEYS;
     mbar_wait(full + st, (it >> 1) & 1);
     fence_async_smem();
-    const unsigned char* ks = kv_s + st * 2 * L::kv_bytes;
-    const unsigned char* vs = ks + L::kv_bytes;
+    const unsigned char* ks = kv_s + st * L::stage_bytes;
+    const unsigned char* vs = ks + L::k_bytes;
 
     float s[KEYS / 2], dp[KEYS / 2];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;   // atom, column within it
       wgmma_ss(s, gmma_desc(q_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
                       | L::swizzle,
@@ -1494,7 +1576,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
                kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const int ka = kk * 16 / L::kAtom, kw = kk * 16 % L::kAtom;
       wgmma_ss(dp, gmma_desc(do_w + ka * L::kRows * L::row_bytes + kw * 2, 16, 8 * L::row_bytes)
                        | L::swizzle,
@@ -1551,9 +1633,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ Params p) {
   for (int h = 0; h < 2; ++h) {
     const int fr = rw0 + 16 * warp + lane / 4 + 8 * h;
     if (fr >= row_end) continue;
-    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, D) + 2 * (lane % 4);
+    __nv_bfloat16* orow = out + q_offset(p, b, hkv, G, fr, DK) + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DK / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
           __floats2bfloat162_rn(dq[4 * i + 2 * h], dq[4 * i + 2 * h + 1]);
   }
@@ -1630,101 +1712,111 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* base, int B, int S, int
   return tensor_map(map, base, 4, dims, strides, box, atom);
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_fwd_tc(const Params& p, cudaStream_t stream) {
-  using L = FwdTc<D>;
+  using L = FwdTc<DK, DV>;
   Params tp = p;
   tp.rows_tma = L::kRows % (p.H / p.Hkv) == 0;
-  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, L::kAtom);
-  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, L::kAtom);
+  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, DK, L::kAtom);
+  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, DV, L::kAtom);
   if (e == cudaSuccess && tp.rows_tma)
-    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, DK, L::kAtom, L::kRows);
   if (e != cudaSuccess) return e;
   const int rows = p.Sq * (p.H / p.Hkv);
-  return launch_kernel(flash_fwd_tc_kernel<D>, dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B),
-                       L::kThreads, L::bytes, tp, stream);
+  return launch_kernel(flash_fwd_tc_kernel<DK, DV>,
+                       dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B), L::kThreads, L::bytes,
+                       tp, stream);
 }
 
-template <int D>
+template <int DK, int DV>
+cudaError_t launch_dkdv_tc(const Params& p, cudaStream_t stream) {
+  using L = DkdvTc<DK, DV>;
+  if (p.plan == nullptr || p.n_units <= 0 || (p.n_reduce > 0 && p.scratch == nullptr))
+    return cudaErrorInvalidValue;
+  Params tp = p;
+  tp.rows_tma = kTcKeys % (p.H / p.Hkv) == 0;
+  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, DK, L::kAtom);
+  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, DV, L::kAtom);
+  if (e == cudaSuccess && tp.rows_tma)
+    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, DK, L::kAtom, kTcKeys);
+  if (e == cudaSuccess && tp.rows_tma)
+    e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, DV, L::kAtom, kTcKeys);
+  if (e != cudaSuccess) return e;
+  e = launch_kernel(flash_bwd_dkdv_tc_kernel<DK, DV>, dim3(p.n_units, p.Hkv, p.B), L::kThreads,
+                    L::bytes, tp, stream);
+  if (e != cudaSuccess || p.n_reduce == 0) return e;
+  return launch_kernel(flash_bwd_dkdv_reduce_kernel<DK, DV>,
+                       dim3(p.n_reduce * (L::part / kReduceChunk), p.Hkv, p.B), kTcThreads, 0, p,
+                       stream);
+}
+
+template <int DK, int DV>
 cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
-  using L = DqTc<D>;
+  using L = DqTc<DK, DV>;
   Params tp = p;
   tp.rows_tma = L::kRows % (p.H / p.Hkv) == 0;
-  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, L::kAtom, L::kKeys);
-  if (e == cudaSuccess) e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, L::kAtom, L::kKeys);
+  cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, DK, L::kAtom, L::kKeys);
+  if (e == cudaSuccess)
+    e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, DV, L::kAtom, L::kKeys);
   if (e == cudaSuccess && tp.rows_tma)
-    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+    e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, DK, L::kAtom, L::kRows);
   if (e == cudaSuccess && tp.rows_tma)
-    e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, D, L::kAtom, L::kRows);
+    e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, DV, L::kAtom, L::kRows);
   if (e != cudaSuccess) return e;
   const int rows = p.Sq * (p.H / p.Hkv);
-  return launch_kernel(flash_bwd_dq_tc_kernel<D>, dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B),
-                       L::kThreads, L::bytes, tp, stream);
+  return launch_kernel(flash_bwd_dq_tc_kernel<DK, DV>,
+                       dim3((rows + L::kRows - 1) / L::kRows, p.Hkv, p.B), L::kThreads, L::bytes,
+                       tp, stream);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch(Which which, const Params& p, cudaStream_t stream) {
+  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   const int G = p.H / p.Hkv;
   const int rows = p.Sq * G;
   switch (which) {
     case kForward:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return launch_fwd_tc<D>(p, stream);
+      if constexpr (kTensorCores)
+        return launch_fwd_tc<DK, DV>(p, stream);
       else
-        return launch_kernel(flash_fwd_kernel<T, D>,
+        return launch_kernel(flash_fwd_kernel<T, DK, DV>,
                              dim3((rows + kFwdRows - 1) / kFwdRows, p.Hkv, p.B),
-                             kFwdThreads, FwdSmem<T, D>::bytes, p, stream);
+                             kFwdThreads, FwdSmem<T, DK, DV>::bytes, p, stream);
     case kBackwardDkDv:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        if (p.plan == nullptr || p.n_units <= 0 || (p.n_reduce > 0 && p.scratch == nullptr))
-          return cudaErrorInvalidValue;
-        Params tp = p;
-        tp.rows_tma = kTcKeys % (p.H / p.Hkv) == 0;
-        cudaError_t e = kv_tensor_map(&tp.tmap_k, p.k, p.B, p.Skv, p.Hkv, D, DkdvTc<D>::kAtom);
-        if (e == cudaSuccess)
-          e = kv_tensor_map(&tp.tmap_v, p.v, p.B, p.Skv, p.Hkv, D, DkdvTc<D>::kAtom);
-        if (e != cudaSuccess) return e;
-        if (tp.rows_tma) {
-          e = row_tensor_map(&tp.tmap_q, p.q, p.B, p.Sq, p.H, p.Hkv, D, DkdvTc<D>::kAtom, kTcKeys);
-          if (e == cudaSuccess)
-            e = row_tensor_map(&tp.tmap_do, p.dout, p.B, p.Sq, p.H, p.Hkv, D, DkdvTc<D>::kAtom,
-                               kTcKeys);
-          if (e != cudaSuccess) return e;
-        }
-        e = launch_kernel(flash_bwd_dkdv_tc_kernel<D>, dim3(p.n_units, p.Hkv, p.B),
-                          DkdvTc<D>::kThreads, DkdvTc<D>::bytes, tp, stream);
-        if (e != cudaSuccess || p.n_reduce == 0) return e;
-        return launch_kernel(flash_bwd_dkdv_reduce_kernel<D>,
-                             dim3(p.n_reduce * (kTcKeys * D / kReduceChunk), p.Hkv, p.B),
-                             kTcThreads, 0, p, stream);
-      } else {
-        return launch_kernel(flash_bwd_dkdv_kernel<T, D>,
-                             dim3((p.Skv + kBwdKeys - 1) / kBwdKeys, p.Hkv, p.B),
-                             kBwdThreads, BwdSmem<D>::bytes, p, stream);
-      }
-    case kBackwardDq:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return launch_dq_tc<D>(p, stream);
+      if constexpr (kTensorCores)
+        return launch_dkdv_tc<DK, DV>(p, stream);
       else
-        return launch_kernel(flash_bwd_dq_kernel<T, D>,
+        return launch_kernel(flash_bwd_dkdv_kernel<T, DK, DV>,
+                             dim3((p.Skv + kBwdKeys - 1) / kBwdKeys, p.Hkv, p.B),
+                             kBwdThreads, BwdSmem<DK, DV>::bytes, p, stream);
+    case kBackwardDq:
+      if constexpr (kTensorCores)
+        return launch_dq_tc<DK, DV>(p, stream);
+      else
+        return launch_kernel(flash_bwd_dq_kernel<T, DK, DV>,
                              dim3((rows + kBwdRows - 1) / kBwdRows, p.Hkv, p.B),
-                             kBwdThreads, BwdSmem<D>::bytes, p, stream);
+                             kBwdThreads, BwdSmem<DK, DV>::bytes, p, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+// The instantiated (DK, DV) pairs: (D, D) for D in {32, 64, 128, 256} and
+// (192, 128); any other pair is refused.
 template <typename T>
-cudaError_t dispatch_head_dim(Which which, int head_dim, const Params& p, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return launch<T, 32>(which, p, stream);
-    case 64: return launch<T, 64>(which, p, stream);
-    case 128: return launch<T, 128>(which, p, stream);
-    case 256: return launch<T, 256>(which, p, stream);
+cudaError_t dispatch_head_dims(Which which, int dk, int dv, const Params& p,
+                               cudaStream_t stream) {
+  if (dk == 192 && dv == 128) return launch<T, 192, 128>(which, p, stream);
+  if (dk != dv) return cudaErrorInvalidValue;
+  switch (dk) {
+    case 32: return launch<T, 32, 32>(which, p, stream);
+    case 64: return launch<T, 64, 64>(which, p, stream);
+    case 128: return launch<T, 128, 128>(which, p, stream);
+    case 256: return launch<T, 256, 256>(which, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int run(Which which, Params& p, int B, int Sq, int Skv, int H, int Hkv, int head_dim,
+int run(Which which, Params& p, int B, int Sq, int Skv, int H, int Hkv, int dk, int dv,
         float scale, int has_cap, float cap, int has_window, int window, int dtype,
         void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || Hkv > 65535 || B > 65535
@@ -1736,9 +1828,9 @@ int run(Which which, Params& p, int B, int Sq, int Skv, int H, int Hkv, int head
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_head_dim<float>(which, head_dim, p, st);
+    e = dispatch_head_dims<float>(which, dk, dv, p, st);
   else if (dtype == 1)
-    e = dispatch_head_dim<__nv_bfloat16>(which, head_dim, p, st);
+    e = dispatch_head_dims<__nv_bfloat16>(which, dk, dv, p, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
@@ -1746,24 +1838,25 @@ int run(Which which, Params& p, int B, int Sq, int Skv, int H, int Hkv, int head
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim in {32, 64, 128, 256};
+// dtype: 0 = float32, 1 = bfloat16; (head_dim_k, head_dim_v) the head dims
+// of q/k and of v, one of (32, 32), (64, 64), (128, 128), (256, 256), (192, 128);
 // has_cap / has_window switch the softcap and the sliding window on. Each
 // returns the launch's cudaError_t (0 = success).
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* m, void* l,
-    int B, int Sq, int Skv, int H, int Hkv, int head_dim, float scale,
+    int B, int Sq, int Skv, int H, int Hkv, int head_dim_k, int head_dim_v, float scale,
     int has_cap, float cap, int has_window, int window, int dtype, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.out = out;
   p.m = static_cast<float*>(m); p.l = static_cast<float*>(l);
-  return run(kForward, p, B, Sq, Skv, H, Hkv, head_dim, scale, has_cap, cap,
+  return run(kForward, p, B, Sq, Skv, H, Hkv, head_dim_k, head_dim_v, scale, has_cap, cap,
              has_window, window, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* m,
     const void* l, const void* delta, void* dk, void* dv,
-    int B, int Sq, int Skv, int H, int Hkv, int head_dim, float scale,
+    int B, int Sq, int Skv, int H, int Hkv, int head_dim_k, int head_dim_v, float scale,
     int has_cap, float cap, int has_window, int window, int dtype, void* stream,
     const void* plan, int n_units, const void* reduce, int n_reduce, void* scratch) {
   Params p = {};
@@ -1775,14 +1868,14 @@ extern "C" int flash_attention_bwd_dkdv_launch(
   p.l = const_cast<float*>(static_cast<const float*>(l));
   p.delta = static_cast<const float*>(delta);
   p.dk = dk; p.dv = dv;
-  return run(kBackwardDkDv, p, B, Sq, Skv, H, Hkv, head_dim, scale, has_cap, cap,
+  return run(kBackwardDkDv, p, B, Sq, Skv, H, Hkv, head_dim_k, head_dim_v, scale, has_cap, cap,
              has_window, window, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* m,
     const void* l, const void* delta, void* dq,
-    int B, int Sq, int Skv, int H, int Hkv, int head_dim, float scale,
+    int B, int Sq, int Skv, int H, int Hkv, int head_dim_k, int head_dim_v, float scale,
     int has_cap, float cap, int has_window, int window, int dtype, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -1790,6 +1883,6 @@ extern "C" int flash_attention_bwd_dq_launch(
   p.l = const_cast<float*>(static_cast<const float*>(l));
   p.delta = static_cast<const float*>(delta);
   p.out = dq;
-  return run(kBackwardDq, p, B, Sq, Skv, H, Hkv, head_dim, scale, has_cap, cap,
+  return run(kBackwardDq, p, B, Sq, Skv, H, Hkv, head_dim_k, head_dim_v, scale, has_cap, cap,
              has_window, window, dtype, stream);
 }

@@ -9,11 +9,16 @@
   torch (as the JAX package computes it in jnp), then both kernels;
 - ``FlashAttention``: ``torch.autograd.Function`` saving q, k, v, out, m, l.
 
+q and k share a head dim Dk, v has its own Dv: the kernels take (D, D)
+for D in {32, 64, 128, 256} and (192, 128), deepseek-v2-lite's un-absorbed
+MLA training shape ([k_nope, k_rope] 128 + 64 against v 128); the output and
+dO have Dv columns, dQ and dK Dk.
+
 Tensors on the CPU take the plain versions (``ref.flash_fwd_ref``,
 ``ref.flash_bwd_ref``), chunked by ``q_chunk``/``kv_chunk`` as the JAX
-package chunks; the kernels use tiles of their own. A CUDA tensor launches
-the kernel or raises — there is no fallback. Each kernel wrapper adds one to
-its ``.launches`` where it launches.
+package chunks, at any head dims; the kernels use tiles of their own. A
+CUDA tensor launches the kernel or raises — there is no fallback. Each
+kernel wrapper adds one to its ``.launches`` where it launches.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from .ref import flash_bwd_ref, flash_fwd_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+# (Dk, Dv) pairs the kernels are instantiated for
+_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 _MAX_GRID_YZ = 65535
 DKDV_KEYS = 64            # keys per unit of the bf16 dK/dV kernel
 DKDV_UNIT_ROWS = 4096     # its fixed row boundaries: (token, group-head) rows
@@ -38,7 +44,8 @@ def _library():
     from repro_torch.kernels import _build
     lib = _build.load(str(SOURCE))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [I, I, I, I, I, I, F, I, F, I, I, I, P]   # B Sq Skv H Hkv D scale cap.. win.. dtype stream
+    # B Sq Skv H Hkv Dk Dv, scale, cap (on, value), window (on, size), dtype, stream
+    dims = [I, I, I, I, I, I, I, F, I, F, I, I, I, P]
     plan = [P, I, P, I, P]    # plan, units, reduce table, split tiles, scratch
     for name, n_ptr, tail in (("flash_attention_fwd_launch", 6, []),
                               ("flash_attention_bwd_dkdv_launch", 9, plan),
@@ -104,19 +111,22 @@ def _dkdv_tables(Sq, Skv, G, window, unit_rows, device):
 def _check(q, k, v, extra=()):
     """Device, dtype, shape and contiguity checks of the kernels' inputs;
     ``extra`` are (name, tensor, shape, dtype) of the backward's."""
-    if k.shape[-1] != v.shape[-1]:
-        raise NotImplementedError(
-            f"the flash kernels take one head dim for K and V, got "
-            f"{k.shape[-1]} and {v.shape[-1]}; Dk != Dv comes with MLA "
-            "(ROADMAP A.4)")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("q (B, Sq, H, D), k and v (B, Skv, Hkv, D)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q (B, Sq, H, Dk), k (B, Skv, Hkv, Dk) and v (B, Skv, "
+                         "Hkv, Dv)")
+    if k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in "
+                         "(B, Skv, Hkv)")
     B, Sq, H, D = q.shape
     _, Skv, Hkv, Dk = k.shape
+    Dv = v.shape[-1]
     if k.shape[0] != B or Dk != D or Hkv == 0 or H % Hkv:
-        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    if (Dk, Dv) not in _HEAD_DIMS:
+        if Dk != Dv:
+            raise NotImplementedError(
+                f"the flash kernels take (Dk, Dv) in {_HEAD_DIMS}, not ({Dk}, {Dv})")
+        raise ValueError(f"head_dim {Dk} not in {tuple(d for d, _ in _HEAD_DIMS)}")
     if Sq == 0 or Skv == 0 or B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
         raise ValueError(f"empty or oversized attention: B {B}, Sq {Sq}, "
                          f"Skv {Skv}, Hkv {Hkv}")
@@ -138,10 +148,10 @@ def _check(q, k, v, extra=()):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _common(q, k, scale, cap, window):
+def _common(q, k, v, scale, cap, window):
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    return (B, Sq, Skv, H, Hkv, D, float(scale), cap is not None,
+    return (B, Sq, Skv, H, Hkv, D, v.shape[-1], float(scale), cap is not None,
             float(cap or 0.0), window is not None, int(window or 0),
             _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -152,44 +162,50 @@ def _cuda_only(name, t):
         raise ValueError(f"no {name} for device {t.device}")
 
 
+def _raise_on(rc, name, q, v):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed at (Dk, Dv) = ({q.shape[-1]}, "
+                           f"{v.shape[-1]}): CUDA error {rc}")
+
+
 def flash_attention_fwd(q, k, v, *, scale: float, cap: Optional[float] = None,
                         window: Optional[int] = None, q_chunk: int = 512,
                         kv_chunk: int = 1024):
-    """Causal attention forward. q (B, Sq, H, D), k/v (B, Skv, Hkv, D).
-    Returns (out (B, Sq, H, D) in q's dtype, m (B, H, Sq), l (B, H, Sq)
-    fp32). ``q_chunk``/``kv_chunk`` chunk the plain version only."""
+    """Causal attention forward. q (B, Sq, H, Dk), k (B, Skv, Hkv, Dk), v
+    (B, Skv, Hkv, Dv). Returns (out (B, Sq, H, Dv) in q's dtype, m (B, H,
+    Sq), l (B, H, Sq) fp32). ``q_chunk``/``kv_chunk`` chunk the plain
+    version only."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale=scale, cap=cap, window=window,
                              q_chunk=q_chunk, kv_chunk=kv_chunk)
     _cuda_only("flash_attention_fwd", q)
     _check(q, k, v)
-    B, Sq, H, D = q.shape
-    out = torch.empty_like(q)
+    B, Sq, H, _ = q.shape
+    out = q.new_empty((B, Sq, H, v.shape[-1]))
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
         rc = _library().flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            m.data_ptr(), l.data_ptr(), *_common(q, k, scale, cap, window))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+            m.data_ptr(), l.data_ptr(), *_common(q, k, v, scale, cap, window))
+    _raise_on(rc, "flash_attention_fwd", q, v)
     flash_attention_fwd.launches += 1
     return out, m, l
 
 
-def _bwd_extra(q, k, m, l, dout, delta):
+def _bwd_extra(q, v, m, l, dout, delta):
     B, Sq, H, _ = q.shape
     stat = (B, H, Sq)
     return [("m", m, stat, torch.float32), ("l", l, stat, torch.float32),
             ("delta", delta, stat, torch.float32),
-            ("dout", dout, tuple(q.shape), q.dtype)]
+            ("dout", dout, (B, Sq, H, v.shape[-1]), q.dtype)]
 
 
 def flash_attention_bwd_dkdv(q, k, v, m, l, dout, delta, *, scale: float,
                              cap: Optional[float] = None,
                              window: Optional[int] = None):
     """dK and dV of causal attention (the dK/dV kernel). m, l, delta (B, H,
-    Sq) fp32; dout like q. Returns (dk, dv) in k's dtype."""
+    Sq) fp32; dout (B, Sq, H, Dv). Returns (dk, dv) in k's dtype."""
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
                              window=window)[1:]
@@ -205,7 +221,7 @@ def _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window,
     units of ``dkdv_plan(..., unit_rows)`` and, where a key tile was cut,
     sums the fp32 partials (scratch from ``torch.empty``) in a second
     launch; fp32 runs one CTA per 32-key tile."""
-    _check(q, k, v, _bwd_extra(q, k, m, l, dout, delta))
+    _check(q, k, v, _bwd_extra(q, v, m, l, dout, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -214,8 +230,8 @@ def _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window,
     if q.dtype == torch.bfloat16:
         plan_t, n_units, reduce_t, n_reduce, n_slots = _dkdv_tables(
             Sq, Skv, H // Hkv, window, unit_rows, q.device)
-        if n_slots:
-            scratch = torch.empty((n_slots, B, Hkv, 2, DKDV_KEYS, D),
+        if n_slots:   # per slot: a 64-key plane of dK (Dk wide), then of dV (Dv)
+            scratch = torch.empty((n_slots, B, Hkv, DKDV_KEYS * (D + v.shape[-1])),
                                   dtype=torch.float32, device=q.device)
         tail = [plan_t.data_ptr(), n_units, reduce_t.data_ptr(), n_reduce,
                 None if scratch is None else scratch.data_ptr()]
@@ -223,9 +239,8 @@ def _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window,
         rc = _library().flash_attention_bwd_dkdv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_common(q, k, scale, cap, window), *tail)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkdv launch failed: CUDA error {rc}")
+            dv.data_ptr(), *_common(q, k, v, scale, cap, window), *tail)
+    _raise_on(rc, "flash_attention_bwd_dkdv", q, v)
     return dk, dv
 
 
@@ -237,15 +252,14 @@ def flash_attention_bwd_dq(q, k, v, m, l, dout, delta, *, scale: float,
         return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
                              window=window)[0]
     _cuda_only("flash_attention_bwd_dq", q)
-    _check(q, k, v, _bwd_extra(q, k, m, l, dout, delta))
+    _check(q, k, v, _bwd_extra(q, v, m, l, dout, delta))
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _library().flash_attention_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_common(q, k, scale, cap, window))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {rc}")
+            *_common(q, k, v, scale, cap, window))
+    _raise_on(rc, "flash_attention_bwd_dq", q, v)
     flash_attention_bwd_dq.launches += 1
     return dq
 

@@ -7,9 +7,14 @@ lines and final JSON line as ``repro.launch.train``, plus ``--device``
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
       --reduced --steps 50 --seq-len 128 --batch 8 --ckpt-dir /tmp/ckpt
 
-On the card every attention layer runs the hand-written flash kernels:
-the forward in the forward pass (and again in the rematerialised
-recompute), the dK/dV and dQ kernels in the backward.
+Every architecture of the reference trains: dense, MoE (the aux loss in
+the loss), MLA, SSM, hybrid, multi-codebook audio (the pipeline's (B, S,
+K) batches) and the vision stack, on text batches as the reference's
+launcher trains it (``loss_and_metrics`` takes image embeds from a batch
+that has them). On the card every attention layer runs the hand-written
+flash kernels (MLA's at Dk 192, Dv 128): the forward in the forward pass
+(and again in the rematerialised recompute), the dK/dV and dQ kernels in
+the backward; every SSM layer runs the SSD kernels.
 """
 from __future__ import annotations
 

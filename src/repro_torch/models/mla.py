@@ -2,8 +2,8 @@
 (DESIGN.md §10) and on ring caches — the port of ``repro.models.mla``.
 
 KV is cached compressed: the latent c (kv_lora_rank) and one shared rope
-key kr (qk_rope_dim) per token. Every mode the port serves is absorbed. A
-page row stores one fused latent head of width r + dr:
+key kr (qk_rope_dim) per token. Every mode the port serves is absorbed;
+training is not. A page row stores one fused latent head of width r + dr:
 
     K' = [c, kr]        V' = [c, 0]
 
@@ -31,9 +31,13 @@ mode, whatever ``cfg.mla_absorb`` says — the same function, summed in
 another order (fp32 agreement ~1e-6), and one attention path, the latent
 kernel, on both engines.
 
-``prefill``, ``extend`` and ``decode`` are the modes, as
-``attention_sublayer`` names them. Training raises until the flash kernels
-take Dk != Dv (ROADMAP A.4).
+``prefill``, ``extend`` and ``decode`` are the serving modes, as
+``attention_sublayer`` names them. ``train`` computes as the JAX package
+does, un-absorbed: the latents are expanded per head through W_UK and
+W_UV, k = [k_nope, kr broadcast over the heads] and q = [qn, qr] (Dk = dn
++ dr) attend v (Dv) through ``chunked_attention`` at scale (dn +
+dr)^-1/2 — on CUDA the flash kernels' Dk != Dv mode (deepseek-v2-lite: Dk
+192, Dv 128, 16 query heads on 16 KV heads) — then ``wo``.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.paged_attention import (ragged_paged_attention,
                                                  write_tokens_to_pages)
 from repro_torch.models.attention import (_project, append_row_to_ring,
-                                          paged_rows, write_rows_to_ring)
+                                          chunked_attention, paged_rows,
+                                          write_rows_to_ring)
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef
 
@@ -91,6 +96,18 @@ def _compress_kv(cfg: ModelConfig, p: dict, x, positions):
     return c, kr
 
 
+def _train_attention(cfg: ModelConfig, p: dict, qn, qr, c, kr, scale):
+    """The un-absorbed training path: the latents c (B, S, r) expanded per
+    head (the JAX package's ``_expand``), k = [c W_UK, kr] and v = c W_UV,
+    causal flash attention of q = [qn, qr] -> (B, S, H, dv)."""
+    kn = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])
+    k = torch.cat([kn, kr[:, :, None, :].expand(*kn.shape[:3], kr.shape[-1])], dim=-1)
+    q = torch.cat([qn, qr], dim=-1)
+    return chunked_attention(q, k, v.contiguous(), scale=scale,
+                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+
 def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                    device=None) -> dict:
     """An empty latent ring: ``{"ckr": (B, C, 1, r + dr)`` ([c, kr] stored
@@ -131,7 +148,7 @@ def mla_sublayer(
     *,
     positions,
     cache: Optional[dict] = None,
-    mode: str = "extend",  # extend | decode
+    mode: str = "extend",  # train | prefill | extend | decode
     cur_pos=None,
     decode_active=None,   # (B,) bool: rows whose cache the decode may write
     page_table=None,      # (B, W) int32: the paged plane
@@ -140,22 +157,23 @@ def mla_sublayer(
     """x: (B, S, d) -> (out (B, S, d), the cache), written IN PLACE: the
     pool ``{"kv_pages": (P, ps, 2, r + dr)}`` through ``page_table``, or a
     ring ``{"ckr", "pos"}`` read as pages of ``page_tokens`` slots.
-    Prefill (rings only: the first chunk at positions 0..S-1 into a fresh
-    ring) and extend: every row of the batch is one sequence whose S
-    queries sit at ``positions``; decode: B sequences of one query at
-    ``cur_pos`` (B,), rows where ``decode_active`` is False writing
-    nothing."""
-    if mode == "train":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA training needs Dk != Dv in the flash kernels "
-            "(ROADMAP A.4), not ported yet")
-    if cache is None:
-        raise ValueError(f"mode {mode!r} needs a cache")
+    Train (no cache): causal attention over the whole sequence at
+    ``positions`` 0..S-1, un-absorbed. Prefill (rings only: the first chunk
+    at positions 0..S-1 into a fresh ring) and extend: every row of the
+    batch is one sequence whose S queries sit at ``positions``; decode: B
+    sequences of one query at ``cur_pos`` (B,), rows where
+    ``decode_active`` is False writing nothing."""
     B, S, d = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = (dn + dr) ** -0.5
     qn, qr = _project_q(cfg, p, x, positions)
     c, kr = _compress_kv(cfg, p, x, positions)
+    if mode == "train":
+        o = _train_attention(cfg, p, qn, qr, c, kr, scale)
+        out = o.reshape(B * S, -1) @ p["wo"].reshape(-1, d)
+        return out.reshape(B, S, d), None
+    if cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache")
     k_f = torch.cat([c, kr], dim=-1)                         # (B, S, r + dr)
     qc = torch.einsum("bshk,rhk->bshr", qn, p["w_uk"])
     q_f = torch.cat([qc, qr], dim=-1)                        # (B, S, H, r + dr)

@@ -19,7 +19,11 @@ instead:
   choices in fp32 and rounded once.
 
 The kept set is the reference's; the sums differ from its einsums only in
-order. Shared experts run densely for every token. The reference's
+order. Training differentiates through the same index moves: a kept pair's
+gradient flows back through its scatter and gather, a dropped pair's (the
+spare row, weight 0) is zero, as the reference's one-hot contractions
+give it, and the router's through the kept weights and the Switch aux
+loss. Shared experts run densely for every token. The reference's
 sharding hook ``sh`` is dropped.
 """
 from __future__ import annotations

@@ -15,8 +15,9 @@ place.
 Entry points:
 - ``loss_and_metrics`` — the training forward with seq-chunked CE (each
   chunk recomputed in the backward, so only one chunk's (B, chunk, V)
-  logits are alive at a time) and z-loss; layers rematerialised per
-  ``cfg.remat``;
+  logits, or (B, chunk, K, V) over K codebooks, are alive at a time),
+  z-loss and the MoE aux loss summed over layers; layers rematerialised
+  per ``cfg.remat``;
 - ``paged_prefill`` — the first chunk of a prompt, meta tokens and image
   embeds first, at positions 0..S-1;
 - ``paged_extend``  — a later chunk at ``offset + [0, S)``;
@@ -34,9 +35,11 @@ page; its first chunk may span pages only as far as the meta prefix forces
 layer's aux loss is dropped on the serving path (the paged entry points
 return logits and pools only). The frontends are stubs: multi-codebook
 tokens (summed embeddings, one head per codebook) and image embeds in
-front of the text. Training runs dense attention, SSM and hybrid stacks
-(the meta prefix in front, cut before the loss); frontend, MLA and MoE
-training raise ``NotImplementedError`` naming their ROADMAP item.
+front of the text. Training runs every stack the reference trains: dense
+attention, MLA (un-absorbed, through the flash kernels' Dk != Dv mode),
+MoE (the aux loss summed in layer order and added to the loss), SSM and
+hybrid, with the meta prefix and the image embeds in front, cut before
+the loss, and codebook tokens scored per codebook.
 """
 from __future__ import annotations
 
@@ -116,7 +119,8 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
     """Pre-norm residual block over one layer's parameters and page pool or
     ring (``page_tokens`` is the page size SSM and hybrid layers resolve
     their state-page slots with, and the page size rings are read as).
-    Returns (x, cache)."""
+    Returns (x, cache, aux): aux is an MoE layer's load-balance loss (fp32
+    scalar; the serving modes drop it), None for a dense MLP."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "hybrid":
         h, new_cache = hybrid_sublayer(cfg, p["mixer"], h, positions=positions,
@@ -148,16 +152,17 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
     if cfg.post_norms:
         h = rmsnorm(h, p["post_norm1"], cfg.norm_eps)
     x = x + h
+    aux = None
     if spec.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
         if spec.mlp == "moe":
-            h = moe_sublayer(cfg, p["mlp"], h)[0]      # the aux loss: training only
+            h, aux = moe_sublayer(cfg, p["mlp"], h)
         else:
             h = mlp(cfg, p["mlp"], h)
         if cfg.post_norms:
             h = rmsnorm(h, p["post_norm2"], cfg.norm_eps)
         x = x + h
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -298,38 +303,51 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _train_block(cfg: ModelConfig, spec: LayerSpec, positions, x, p):
-    return apply_block(cfg, spec, p, x, positions=positions, cache=None,
-                       mode="train")[0]
+    """One layer in train mode -> (x, its MoE aux loss or None)."""
+    x, _, aux = apply_block(cfg, spec, p, x, positions=positions, cache=None,
+                            mode="train")
+    return x, aux
 
 
-def apply_groups(cfg: ModelConfig, params, x, *, positions, caches=None,
-                 mode, cur_pos=None, decode_active=None, page_table=None,
-                 page_tokens=None):
-    """Run every layer in order. Paged modes: each layer's pool slice
-    ``pool[i]`` is a contiguous view written in place, so the caches come
-    back as the same tensors. Train (no caches): each layer runs under
-    ``cfg.remat`` (``_remat``). Returns (x, caches)."""
+def train_groups(cfg: ModelConfig, params, x, *, positions):
+    """Every layer in order in train mode, each under ``cfg.remat``
+    (``_remat``). Returns (x, aux): the MoE aux losses summed in layer
+    order, as the JAX package's scan carries them (a zero fp32 scalar for a
+    stack without MoE)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, g in enumerate(cfg.scan_groups()):
         gp = params["groups"][gi]
         layer_params = [_layers(gp[u], g.repeats) for u in range(len(g.unit))]
-        if mode == "train":
-            blocks = [_remat(cfg, functools.partial(_train_block, cfg, spec, positions))
-                      for spec in g.unit]
-            for i in range(g.repeats):
-                for u, block in enumerate(blocks):
-                    x = block(x, layer_params[u][i])
-            continue
+        blocks = [_remat(cfg, functools.partial(_train_block, cfg, spec, positions))
+                  for spec in g.unit]
+        for i in range(g.repeats):
+            for u, block in enumerate(blocks):
+                x, aux = block(x, layer_params[u][i])
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return x, aux_total
+
+
+def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
+                 cur_pos=None, decode_active=None, page_table=None,
+                 page_tokens=None):
+    """Run every layer in order in a serving mode. Paged modes: each
+    layer's pool slice ``pool[i]`` is a contiguous view written in place,
+    so the caches come back as the same tensors. Returns (x, caches)."""
+    for gi, g in enumerate(cfg.scan_groups()):
+        gp = params["groups"][gi]
+        layer_params = [_layers(gp[u], g.repeats) for u in range(len(g.unit))]
         layer_caches = [_layers(caches[gi][u], g.repeats)
                         for u in range(len(g.unit))]
         for i in range(g.repeats):
             for u, spec in enumerate(g.unit):
-                x, _ = apply_block(cfg, spec, layer_params[u][i], x,
-                                   positions=positions,
-                                   cache=layer_caches[u][i], mode=mode,
-                                   cur_pos=cur_pos,
-                                   decode_active=decode_active,
-                                   page_table=page_table,
-                                   page_tokens=page_tokens)
+                x, _, _ = apply_block(cfg, spec, layer_params[u][i], x,
+                                      positions=positions,
+                                      cache=layer_caches[u][i], mode=mode,
+                                      cur_pos=cur_pos,
+                                      decode_active=decode_active,
+                                      page_table=page_table,
+                                      page_tokens=page_tokens)
     return x, caches
 
 
@@ -339,8 +357,9 @@ def apply_groups(cfg: ModelConfig, params, x, *, positions, caches=None,
 
 
 def _ce_chunk(cfg: ModelConfig, xs, labels, embed_params):
-    """(sum of masked NLL, label count, sum of masked lse²) of one chunk;
-    labels < 0 are masked."""
+    """(sum of masked NLL, label count, sum of masked lse²) of one chunk:
+    logits (B, chunk[, K], V) against labels (B, chunk[, K]); labels < 0
+    are masked."""
     logits = lm_logits(cfg, embed_params, xs).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -350,19 +369,15 @@ def _ce_chunk(cfg: ModelConfig, xs, labels, embed_params):
 
 def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
                      loss_chunk: int = 1024) -> Tuple[torch.Tensor, dict]:
-    """Causal-LM loss. batch: tokens (B, S) int, labels (B, S) int with
-    -100 = masked. Returns (loss, {"ce", "z_loss", "aux", "tokens"}) with
-    loss = ce + 1e-4 * mean(lse²) + aux, as the JAX package computes it."""
-    if cfg.frontend is not None or cfg.n_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: frontend training (ROADMAP "
-                                  "A.5) is not ported yet")
-    if any(s.kind == "mla" or s.mlp == "moe" for s in cfg.layer_specs()):
-        raise NotImplementedError(f"{cfg.name}: MLA and MoE training (Dk != Dv "
-                                  "in the flash kernels, the aux loss; ROADMAP "
-                                  "A.4, A.5) is not ported yet")
+    """Causal-LM loss. batch: tokens (B, S[, K]) int, labels (B, S[, K])
+    int with -100 = masked, and for a vision stack optionally
+    ``image_embeds`` (B, n, d), attended in front and never scored. Returns
+    (loss, {"ce", "z_loss", "aux", "tokens"}) with loss = ce + 1e-4 *
+    mean(lse²) + aux (the MoE aux losses summed over layers), as the JAX
+    package computes it; K codebooks are K labels a position."""
     x, prefix = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = apply_groups(cfg, params, x, positions=positions, mode="train")
+    x, aux = train_groups(cfg, params, x, positions=positions)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)[:, prefix:]
     labels = batch["labels"]
 
@@ -381,7 +396,6 @@ def loss_and_metrics(cfg: ModelConfig, params, batch: dict,
     cnt = torch.clamp(cnt, min=1.0)
     ce = tot / cnt
     z_loss = 1e-4 * zsum / cnt
-    aux = zero
     loss = ce + z_loss + aux
     return loss, {"ce": ce, "z_loss": z_loss, "aux": aux, "tokens": cnt}
 

@@ -104,8 +104,17 @@ def test_flash_attention_gradcheck_float64():
 def test_cuda_wrapper_checks_before_launch():
     q = torch.zeros(1, 8, 4, 64)
     k = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ops._check(q, k, torch.zeros(1, 8, 2, 32))        # Dk != Dv: MLA
+    # Dk != Dv: the kernels take (192, 128), MLA's training shape, and
+    # name any other pair they are handed
+    ops._check(torch.zeros(1, 8, 4, 192), torch.zeros(1, 8, 2, 192),
+               torch.zeros(1, 8, 2, 128))
+    with pytest.raises(NotImplementedError, match=r"\(64, 32\)"):
+        ops._check(q, k, torch.zeros(1, 8, 2, 32))
+    with pytest.raises(NotImplementedError, match=r"\(128, 192\)"):
+        ops._check(torch.zeros(1, 8, 4, 128), torch.zeros(1, 8, 2, 128),
+                   torch.zeros(1, 8, 2, 192))
+    with pytest.raises(ValueError, match="differ"):
+        ops._check(q, k, torch.zeros(1, 7, 2, 64))         # v's keys differ
     with pytest.raises(ValueError, match="head_dim"):
         ops._check(q[..., :48], k[..., :48], k[..., :48])
     with pytest.raises(TypeError):

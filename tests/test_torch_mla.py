@@ -13,8 +13,9 @@ initialiser:
   (one dense layer, three MoE layers) within 1e-5, and its latent pools
   within 1e-5 or twice the reference's own drift under a one-ulp weight
   nudge, whichever is more (the fourth layer's pool drifts ~2e-5);
-- the wrapper takes the latent head widths, what is not ported raises, and
-  the ring mode gives the paged extend's output.
+- the wrapper takes the latent head widths; train mode matches the
+  reference's, ``loss_and_metrics`` trains the stack with its aux loss,
+  and the ring mode gives the paged extend's output.
 The engine on this stack: ``tests/test_torch_engine_mla.py``."""
 import jax
 import jax.numpy as jnp
@@ -131,12 +132,21 @@ def test_mla_sublayer_decode_matches_jax_with_inactive_and_null_rows(setup):
 
 
 def test_mla_sublayer_refuses_what_is_not_ported(setup):
+    """What MLA once refused now runs: train mode (ROADMAP A.4, un-absorbed
+    through ``chunked_attention`` at Dk 48 != Dv 32) matches the
+    reference's train-mode sublayer within 1e-5; the ring mode (A.6) gives
+    the paged extend's output; ``loss_and_metrics`` trains the reduced
+    MLA + MoE stack, its MoE aux loss in the loss."""
     jcfg, cfg = setup
     tree, pool, _ = _layer(setup, seed=1)
     p = params_from_numpy(tree, device="cpu")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tmla.mla_sublayer(cfg, p, x, positions=torch.arange(4), mode="train")
+    xs = np.random.default_rng(2).normal(0, 1, (2, 12, cfg.d_model)).astype(np.float32)
+    want, _ = jmla.mla_sublayer(jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(xs),
+                                positions=jnp.arange(12), mode="train")
+    got, cache = tmla.mla_sublayer(cfg, p, torch.from_numpy(xs),
+                                   positions=torch.arange(12), mode="train")
+    assert cache is None
+    _close(got.numpy(), want)
     # the ring mode (once ROADMAP A.6) serves: a chunk into an empty ring
     # gives the paged extend's output on empty pages
     x = torch.from_numpy(np.random.default_rng(1).normal(
@@ -151,10 +161,12 @@ def test_mla_sublayer_refuses_what_is_not_ported(setup):
         page_table=torch.tensor([[1, 2]], dtype=torch.int32))
     _close(ring_out.numpy(), paged_out.numpy())
     assert ring["pos"][0, :4].tolist() == [0, 1, 2, 3]
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ttfm.loss_and_metrics(cfg, ttfm.init_params(cfg, 0, device="cpu"),
-                              {"tokens": torch.zeros(1, 8, dtype=torch.long),
-                               "labels": torch.zeros(1, 8, dtype=torch.long)})
+    loss, metrics = ttfm.loss_and_metrics(
+        cfg, ttfm.init_params(cfg, 0, device="cpu"),
+        {"tokens": torch.zeros(1, 8, dtype=torch.long),
+         "labels": torch.zeros(1, 8, dtype=torch.long)})
+    assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+    assert float(loss) == float(metrics["ce"] + metrics["z_loss"] + metrics["aux"])
 
 
 # ---------------------------------------------------------------------------

@@ -285,6 +285,18 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert "[train] resumed from step 1" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "musicgen-large"])
+def test_train_cli_trains_mla_moe_and_codebooks_on_cpu(arch, capsys):
+    """The launcher trains an MLA + MoE stack and a codebook stack: a
+    finite loss logged at every step."""
+    hist = train_cli.main(["--device", "cpu", "--arch", arch, "--reduced", "--steps",
+                           "3", "--seq-len", "32", "--batch", "2", "--log-every", "1"])
+    final = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
+    assert final["steps"] == 3 and final["final_loss"] == hist[-1]["loss"]
+
+
 def test_train_cli_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
