@@ -89,17 +89,22 @@ Phases, each printing one JSON line:
                  launches are bit-equal; times the kernel (events and the
                  profiler's device time) and its plain version (no single
                  PyTorch call computes an SSD scan);
-4b. ssd bwd kernel — the SSD backward (states, backward and reduce
-                 kernels) against its plain version ``ssd_scan_bwd_ref`` and
-                 against autograd through ``ssd_scan_ref``, both on the
-                 card, at mamba2-2.7b's (H 80, P 64, N 128) and hymba-1.5b's
-                 (H 50, P 64, N 16) geometries: S 256 with an initial state
-                 and a final-state cotangent, a ragged S 40 (B 2) without,
-                 and the training shapes 4 x 2048 / 2 x 2176 with x/b/c as
-                 projection views; fp32 and bf16 (tolerances set from each
+4b. ssd bwd kernel — the SSD backward (fp32: states, backward and
+                 reduce FMA kernels; bf16: states, gradients and d(a)
+                 tensor-core kernels) against its plain version
+                 ``ssd_scan_bwd_ref`` and against autograd through
+                 ``ssd_scan_ref``, both on the card, at mamba2-2.7b's (H 80,
+                 P 64, N 128) and hymba-1.5b's (H 50, P 64, N 16)
+                 geometries: S 256 with an initial state and a final-state
+                 cotangent, a ragged S 40 (B 2) without, and the training
+                 shapes 4 x 2048 / 2 x 2176 with x/b/c as projection views;
+                 and at P 16 / N 256 and P 128 / N 128 (B 2, S 100, a state:
+                 the gradients kernel's other layouts); fp32 and bf16
+                 (tolerances set from each
                  plain version's error against float64); two launches
                  bit-equal; times at the training shapes (device ms, the
-                 states pass alone, the bound, the plain version);
+                 states and gradients passes apart, the bound, the plain
+                 version);
 5. flash       — holds the flash-attention forward and both backward
                  kernels against their plain versions and against autograd
                  through the naive oracle, at the gemma-2b (B 4, S 2048, H 8,
@@ -1221,6 +1226,10 @@ def ssd_kernel_phase(torch, sops, sref, smi):
 
 SSD_BWD_GEOS = {"mamba2": {"H": SSD_H, "P": SSD_P, "N": SSD_N, "G": 1},
                 "hymba": SSD_HYMBA}
+# geometries no config has, for the bf16 gradients kernel's other layouts:
+# N 256 (two column tasks a warp, G 2) and P 128 x N 128 (one state buffer)
+SSD_BWD_EDGE = {"wide": {"H": 4, "P": 16, "N": 256, "G": 2},
+                "tall": {"H": 4, "P": 128, "N": 128, "G": 1}}
 SSD_BWD_SHAPES = {"mamba2": (4, 2048), "hymba": (2, HYMBA_META + 2048)}   # training
 SSD_BWD_REL = 1e-4
 # Each gradient g against the plain version's (same inputs, fp32 sums over
@@ -1274,13 +1283,15 @@ def ssd_bwd_work(case, init, d_final, block=32):
 
 
 def ssd_bwd_kernel_phase(torch, sops, sref, smi):
-    """The backward kernels (states, backward, reduce) against the plain
+    """The backward kernels (fp32: states, backward, reduce on FMAs; bf16:
+    states, gradients, d(a) on the tensor cores) against the plain
     version ``ssd_scan_bwd_ref`` and against autograd through
     ``ssd_scan_ref``, both on the card, at mamba2-2.7b's and hymba-1.5b's
     geometries: S 256 with an initial state and a final-state cotangent, a
     ragged S 40 (B 2) without, and the training shape (4 x 2048, 2 x 2176)
-    with x/b/c as views into one projection, fp32 and bf16; two launches
-    bit-equal; times at the training shapes."""
+    with x/b/c as views into one projection, and at ``SSD_BWD_EDGE``'s (B 2,
+    ragged S 100, a state); fp32 and bf16; two launches bit-equal; times at
+    the training shapes."""
     bwd, plain = sops.ssd_scan_bwd, sref.ssd_scan_bwd_ref
     cases = [(f"{geo}_{name}", geo, B, S, state, views)
              for geo in SSD_BWD_GEOS
@@ -1289,11 +1300,13 @@ def ssd_bwd_kernel_phase(torch, sops, sref, smi):
                  ("B2_S40_zero", 2, 40, False, False),
                  (f"B{SSD_BWD_SHAPES[geo][0]}_S{SSD_BWD_SHAPES[geo][1]}_views",
                   *SSD_BWD_SHAPES[geo], False, True))]
+    cases += [(f"{geo}_B2_S100_state", geo, 2, 100, True, False) for geo in SSD_BWD_EDGE]
     errs = {}
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for i, (name, geo, B, S, state, views) in enumerate(cases):
-            case, init, dy, d_final = ssd_bwd_case(torch, B, S, dtype, geo=SSD_BWD_GEOS[geo],
+            case, init, dy, d_final = ssd_bwd_case(torch, B, S, dtype,
+                                                   geo={**SSD_BWD_GEOS, **SSD_BWD_EDGE}[geo],
                                                    state=state, views=views, seed=40 + i)
             kw = dict(chunk=SSD_CHUNK, init_state=init, d_final=d_final)
             got = bwd(*case, dy, **kw)
@@ -1359,7 +1372,6 @@ def ssd_bwd_kernel_phase(torch, sops, sref, smi):
         P, N = x.shape[3], case[3].shape[3]
         nb = -(-S // sops.BLOCK)
         kernel = lambda: bwd(*case, dy, chunk=SSD_CHUNK)  # noqa: E731
-        states_ms = device_ms(torch, kernel, flush, lambda key: "bwd_states" in key)
         timing[geo] = {
             "shape": [B, S, x.shape[2], P, N], "bytes": n_bytes, "flops": flops,
             "ms": time_ms(torch, kernel, flush, iters=10, warmup=2),
@@ -1367,18 +1379,23 @@ def ssd_bwd_kernel_phase(torch, sops, sref, smi):
                                 iters=3, warmup=1),
             "library_ms": None,   # no single PyTorch call computes an SSD backward
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "device_ms": device_ms(torch, kernel, flush, lambda key: "ssd_scan_bwd" in key),
-            "states_device_ms": states_ms,
-            "reduce_device_ms": device_ms(torch, kernel, flush,
-                                          lambda key: "bwd_reduce" in key),
+            "device_ms": device_ms(torch, kernel, flush, lambda key: "ssd_bwd_" in key),
+            # the three launches apart: S0 and dS, the per-block gradients,
+            # the sum of d(a)'s partials
+            "states_device_ms": device_ms(torch, kernel, flush,
+                                          lambda key: "ssd_bwd_states" in key),
+            "grads_device_ms": device_ms(torch, kernel, flush,
+                                         lambda key: "ssd_bwd_grads" in key),
+            "da_device_ms": device_ms(torch, kernel, flush,
+                                      lambda key: "ssd_bwd_da" in key),
             "forward_device_ms": device_ms(
                 torch, lambda: sops.ssd_scan(*case, chunk=SSD_CHUNK), flush,
                 lambda key: "ssd_scan_mma" in key),
-            # the block-start states: recomputed here (scratch written and
-            # read once) or, the alternative, written by every forward
-            "states_bytes": 4 * B * nb * x.shape[2] * P * N,
-            "partials_bytes": 2 * 4 * B * S * x.shape[2] * N,
-            "smem_bytes": sops.bwd_smem_bytes(P, N)}
+            # the block-start states and their cotangents, written and read
+            # once; no per-head dB/dC partials in bf16
+            "states_bytes": 2 * 4 * B * nb * x.shape[2] * P * N,
+            "partials_bytes": 0,
+            "smem_bytes": sops.bwd_smem_bytes(P, N, torch.bfloat16)}
         timing[geo]["bound_share"] = timing[geo]["bound_ms"] / timing[geo]["device_ms"]
         del case, dy
     emit("kernel_time", kernel="ssd_scan_bwd", dtype="bfloat16", nvidia_smi=smi,
@@ -1427,10 +1444,11 @@ TRAIN_SHAPES = {"hymba_train": (2, HYMBA_META + 2048, *HYMBA, HYMBA[-1], 2048, 1
                 "mla_train": (*MLA_TRAIN, None, 11),
                 "musicgen_train": (4, 2048, *MUSICGEN, MUSICGEN[-1], None, 12)}
 # the redesigned bf16 kernels: wgmma (HGMMA) in the flash kernels, mma.sync
-# (HMMA) in paged attention and the SSD scan
+# (HMMA) in paged attention and the SSD scan and its backward
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+SSD_BWD_MMA_KERNELS = ("ssd_bwd_states_mma_kernel", "ssd_bwd_grads_mma_kernel")
 MMA_KERNELS = ("ragged_paged_attention_mma_kernel", "ragged_paged_attention_latent_kernel",
-               "ssd_scan_mma_kernel")
+               "ssd_scan_mma_kernel", *SSD_BWD_MMA_KERNELS)
 FA_TOL = {"float32": {"values": 3e-5, "grads": 2e-4}, "bfloat16": 2e-2}
 # fp32: the reference's own flash tolerances — values 3e-5 atol and rtol
 # (tests/test_kernels.py), gradients 2e-4 (tests/test_models.py); sums run
@@ -3774,11 +3792,18 @@ def main() -> int:
          libraries=[str(lib.relative_to(ROOT)) for lib in libs], build_s=build_s,
          ptxas=reports, tensor_core_instructions=tensor_core)
     # where the toolkit has cuobjdump, each bf16 instantiation of the
-    # redesigned kernels must run its products on the tensor cores
+    # redesigned kernels must run its products on the tensor cores; the SSD
+    # backward's (the states kernel and the gradients kernel at one and two
+    # column tasks a warp) must not spill
     _require("tensor-core build", {
         name: counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] is None
         or counts["hmma" if name.startswith(MMA_KERNELS) else "hgmma"] > 0
-        for name, counts in tensor_core.items()} | {"found": len(tensor_core) == 30})
+        for name, counts in tensor_core.items()} | {
+        f"{name} spills": r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0
+        for name, r in reports["ssd_scan"].items()
+        if name.startswith(SSD_BWD_MMA_KERNELS)} | {
+        "found": len(tensor_core) == 33,
+        "ssd bwd found": sum(n.startswith(SSD_BWD_MMA_KERNELS) for n in tensor_core) == 3})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]

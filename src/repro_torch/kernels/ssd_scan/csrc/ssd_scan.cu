@@ -762,60 +762,78 @@ cudaError_t launch_mma(const Params& prm, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward: FMAs on the CUDA cores
+// Backward
 // ---------------------------------------------------------------------------
 //
 // No TPU kernel computes it: the reference differentiates its jnp chunked
-// SSD (src/repro/models/ssm.py:75, ssd_chunked) with JAX autodiff. Here it
-// is three kernels, each a pure function of its inputs (no atomics, every
-// sum in a fixed order, so two launches are bit-equal):
+// SSD (src/repro/models/ssm.py:75, ssd_chunked) with JAX autodiff. Per
+// 32-token block of L tokens, with cs the cumsum of dt a in the block,
+// w_ls = exp(cs_l - cs_s) (s <= l), tail_s = exp(cs_last - cs_s), e_l =
+// exp(cs_l), xdt = x dt, S0 the state at the block's start and dS the
+// cotangent of the state at its end:
+//   M_ls = (C_l.B_s) w_ls, Q_ls = (dy_l.xdt_s) w_ls, G_ls = M_ls (dy_l.xdt_s)
+//   dxdt_s = sum_{l>=s} M_ls dy_l + tail_s (dS B_s)        -> dx = dt dxdt
+//   dC_l   = sum_{s<=l} Q_ls B_s + e_l (dy_l S0)           (summed over a group's heads)
+//   dB_s   = sum_{l>=s} Q_ls C_l + tail_s (xdt_s dS)       (the same)
+//   d(cs_l) = rowsum G - colsum G + e_l C_l.(dy_l S0) - T_l
+//             (+ exp(cs_last) <dS, S0> + sum T at the last token),
+//             T_s = tail_s xdt_s.(dS B_s);
+//   d(da) = the reverse cumsum of d(cs), d(dt) = a d(da) + x.dxdt, d(a) =
+//   the sum of dt d(da).
+// Across blocks only two linear recurrences carry, each with a scalar decay:
+//   S0_{k+1} = exp(cs_last) S0_k + (x w)^T . B,  w_s = dt_s tail_s,
+//   dS_{k-1} = exp(cs_last) dS_k + (dy e)^T . C.
+// Every exponent is <= 0: exp(-cs) is never formed (it overflows under
+// strong decay), so the states are not carried backwards but written out.
+// Every kernel below is a pure function of its inputs: no atomics, every
+// sum in a fixed order, so two launches are bit-equal.
 //
-// 1. ssd_scan_bwd_states_kernel: one CTA per (batch*head, 16 rows of P),
-//    as the forward's: it walks the forward's 32-token blocks first to last
-//    and writes the state at each block's start, (B, nb, H, P, N) fp32, to
-//    scratch. The backward needs them and cannot carry the state backwards
-//    (that would divide by exp(cs), which underflows under strong decay).
-//    The forward could write them instead, but it runs twice per layer and
-//    step under remat="full"; recomputing costs one state update per block
-//    (2 L P N flops) and the same bytes once.
-// 2. ssd_scan_bwd_kernel: one CTA per (batch, head) over all of P, so that
-//    the sums over P (d(dt), dC, dB) stay inside the CTA. It walks the
-//    blocks last to first, carrying dState (P, N) in shared memory, and per
-//    block of L tokens, with w_ls = exp(cs_l - cs_s) (s <= l) and
-//    tail_s = exp(cs_last - cs_s):
-//      M_ls = (C_l.B_s) w_ls, Q_ls = (dy_l.xdt_s) w_ls, G_ls = M_ls (dy_l.xdt_s)
-//      dxdt_s = sum_{l>=s} M_ls dy_l + tail_s (dState B_s)     -> dx = dt dxdt
-//      dC_l   = sum_{s<=l} Q_ls B_s + exp(cs_l) (dy_l S0)      (per-head partial)
-//      dB_s   = sum_{l>=s} Q_ls C_l + tail_s (xdt_s dState)    (per-head partial)
-//      d(cs_l) = rowsum G - colsum G + exp(cs_l) C_l.(dy_l S0) - T_l
-//                (+ exp(cs_last) <dState, S0> + sum T at the last token),
-//                T_s = tail_s xdt_s.(dState B_s);
-//      d(da) = the reverse cumsum of d(cs) (one warp's shuffle scan),
-//      d(dt) = a d(da) + x.dxdt, d(a) partial += dt d(da);
-//      dState <- exp(cs_last) dState + sum_l exp(cs_l) dy_l (outer) C_l.
-//    Every exponent is <= 0: exp(-cs) is never formed.
-// 3. ssd_scan_bwd_reduce_kernel: db, dc = the sums of the per-head
-//    partials over each group's heads, and d(a) over the batch, in order.
-//
+// bf16: mma.sync on the tensor cores, three launches.
+// 1. ssd_bwd_states_mma_kernel: both recurrences in one launch, one CTA per
+//    (16 rows of P, batch*head, direction), with the forward kernel's state
+//    update: the products on mma.sync.m16n8k16 with the fp32 operand (x w,
+//    dy e) split into bf16 hi + lo, B (C) rows multicast over the cluster
+//    of a head's P tiles, the (16, N) state in the warps' accumulators. It
+//    writes S0_k and dS_k for every block and d_init. S0_k and dS_k go out
+//    already split into bf16 hi + lo planes, the bytes of fp32: (2, B, nb,
+//    H, 2, P, N) scratch, rows swizzled for the gradients kernel's ldmatrix.
+// 2. ssd_bwd_grads_mma_kernel: every block at once, one CTA per (batch,
+//    block, group) walking the group's heads in order (a cluster of CTAs
+//    splitting them in fixed shares where one CTA a group would leave SMs
+//    idle), a warp per 16 columns of N and a warp per 16 rows of P. A
+//    head's S0 and dS planes arrive by bulk copies behind the previous
+//    head's work, and the next head's 32 x 32 block matrices (M, Q and G's
+//    sums) are formed beside this head's products. Every product runs on
+//    mma.sync with one exact bf16 operand and the fp32 one (M, Q, S0, dS)
+//    split, hi before lo. dx and d(dt) go out per head; dB and dC sum over
+//    the heads in fp32 in registers and go out once (a cluster's CTAs add
+//    theirs through distributed shared memory in rank order); d(a) goes out
+//    as (batch, block, head) partials.
+// 3. ssd_bwd_da_reduce_kernel: d(a) = those partials summed over batch and
+//    block in order.
 // What bounds it. At mamba2-2.7b's training shape (B 4, S 2048, H 80, P 64,
-// N 128, bf16) the function needs ~1.3 M FMAs a block per (batch, head),
-// 54 GFLOP in all: 0.055 ms at the bf16 tensor-core rate (bf16 products,
-// fp32 sums), against 0.28 GB of inputs and outputs (0.082 ms at 3.35
-// TB/s). So bytes bound the function. The design adds the states pass
-// (~10 GFLOP more), 0.67 GB of states and 0.67 GB of db/dc partials, each
-// written and read once (0.8 ms). This first version runs fp32 FMAs on the
-// CUDA cores with one CTA an SM (138 KB of shared memory at that shape):
-// each warp owns 4 tokens of a block and keeps 4 independent FMA chains a
-// thread, one operand broadcast from shared memory and the other loaded
-// once for all 4 (an earlier version with one chain a thread was slower:
-// the dependent FMAs and shared-memory latency, not the instruction rate,
-// bound it). It takes 12.1 ms at that shape on an H100 SXM (700 W), under
-// 1% of the bound; a tensor-core version is later work.
-
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kTok = kChunk / kBwdWarps;     // a warp's tokens of a block
-static_assert(kTok * kBwdWarps == kChunk, "the warps split a block's tokens evenly");
+// N 128) the function reads and writes 0.28 GB (0.082 ms at 3.35 TB/s) and
+// its products are ~54 GFLOP (0.055 ms at the bf16 tensor-core rate). The
+// design adds S0 and dS, 1.34 GB written once and read once (0.8 ms); its
+// products, ~108 GFLOP with the hi + lo passes, were to hide under that
+// traffic. On an H100 SXM at 700 W (chip_smoke.py, PERF.md) it takes 1.58
+// ms there (the FMA design 12.13): states 0.68, gradients 0.87, d(a)
+// 0.03. The gradients pass is bound by its work per head, not by its
+// copies, yet its products run far below the tensor cores' rate (PERF.md
+// §7); the states pass by the chain each CTA walks block after block.
+//
+// fp32: FMAs on the CUDA cores (TF32, or a bf16 split of fp32 inputs, would
+// not hold the fp32 tolerances), three launches:
+// 1. ssd_scan_bwd_states_kernel: one CTA per (batch*head, 16 rows of P), as
+//    the forward's, writes the state at each block's start (B, nb, H, P, N).
+// 2. ssd_scan_bwd_kernel: one CTA per (batch, head) over all of P, so that
+//    the sums over P stay inside the CTA. It walks the blocks last to first,
+//    carrying dS (P, N) in shared memory, and writes dx, d(dt), d_init and
+//    per-head fp32 partials of dB, dC (B, S, H, N) and d(a). Each warp owns 4
+//    tokens of a block and keeps 4 independent FMA chains a thread, one
+//    operand broadcast from shared memory.
+// 3. ssd_scan_bwd_reduce_kernel: db, dc = the partials summed over each
+//    group's heads, d(a) over the batch, in order.
 
 struct BwdParams {
   const void* x;            // (B, S, H, P), strides x_sb, x_ss
@@ -826,12 +844,13 @@ struct BwdParams {
   const float* init_state;  // (B, H, P, N) or null
   const void* dy;           // (B, S, H, P) dense
   const float* d_final;     // (B, H, P, N) or null
-  float* states;            // (B, nb, H, P, N) scratch
+  void* states;             // fp32: (B, nb, H, P, N) fp32; bf16: (2, B, nb, H, 2, P, N) bf16
+                            // (S0 then dS; hi then lo; swizzled rows, swz)
   void* dx;                 // (B, S, H, P) dense
   float* d_dt;              // (B, S, H)
-  float* d_a_part;          // (B, H) scratch
-  float* db_part;           // (B, S, H, N) scratch
-  float* dc_part;           // (B, S, H, N) scratch
+  float* d_a_part;          // fp32: (B, H); bf16: (B, nb, H)
+  float* db_part;           // fp32: (B, S, H, N); bf16: unused
+  float* dc_part;           // fp32: (B, S, H, N); bf16: unused
   float* d_init;            // (B, H, P, N)
   void* db;                 // (B, S, G, N) dense
   void* dc;                 // (B, S, G, N) dense
@@ -840,19 +859,1007 @@ struct BwdParams {
   long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// inclusive scan over the lanes (lane = token); lanes past L hold zeros
+__device__ __forceinline__ float warp_cumsum(float v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// the sum over lanes >= this one (the reverse inclusive scan)
+__device__ __forceinline__ float warp_rcumsum(float v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, v, o);
+    if (lane + o < 32) v += u;
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kStateGroups = kMaxState / 16 / 4;   // 16-column groups of N a warp carries
+constexpr int kGradMaxWarps = 12;                   // the gradients kernel's CTA, at most
+constexpr int kLdL = kChunk + 8;                    // padded row of the 32 x 32 M, Q tiles
+
+// 4 bytes of a peer CTA's shared memory x 4: the same offset as p in the
+// CTA of the given rank in this cluster
+__device__ __forceinline__ float4 ld_cluster_f4(const float* p, int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// Where 16-byte chunk c of row p of a (rows, N) bf16 state plane lies in
+// that row: the chunks are permuted by an XOR with the row, so that
+// ldmatrix's 8 rows at one chunk column hit distinct banks with no padding
+// (the planes are copied whole). The XOR range is the largest power of 2 up
+// to 8 dividing the row's N / 8 chunks; rows narrower than 128 bytes share
+// a bank line, so the XOR takes the row's place among them.
+__host__ __device__ __forceinline__ int swz(int p, int c, int N) {
+  const int C = N / 8;
+  const int R = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2;
+  const int sh = N >= 64 ? 0 : N == 32 ? 1 : 2;
+  return c ^ ((p >> sh) & (R - 1));
+}
+
+constexpr int kStateStages = 4;   // blocks in flight: loads run 3 blocks ahead
+
+// Shared memory of the states kernel, in bytes from the base: an mbarrier a
+// stage, then per stage the R rows (B, or C in reverse), the V tile (16
+// columns of x, or of dy) and dt.
+struct StatesSmem {
+  int ldr;
+  size_t r, v, dt, bytes;
+  __host__ __device__ explicit StatesSmem(int N) : ldr(N + 8) {
+    r = 32;
+    v = r + (size_t)kStateStages * kChunk * ldr * sizeof(__nv_bfloat16);
+    dt = v + (size_t)kStateStages * kChunk * kXS * sizeof(__nv_bfloat16);
+    bytes = dt + (size_t)kStateStages * kChunk * sizeof(float);
+  }
+};
+
+// One CTA per (16 rows of P, batch*head, direction). Direction 0 walks the
+// blocks first to last, S <- exp(cs_last) S + (x w)^T . B, and writes S at
+// each block's start; direction 1 walks them last to first, dS <-
+// exp(cs_last) dS + (dy e)^T . C, writes dS at each block's end and, after
+// block 0, d_init. Warp w carries the 16-column groups j = w + 4 q of N in
+// its accumulators. The CTAs of a cluster (a head's P tiles, and two heads
+// of a group where that fits in 8) share the B (C) rows: each issues a
+// share of the row copies, multicast to all. Four stages: block i + 3's
+// copies go out once block i is computed and every CTA of the cluster has
+// arrived after block i - 1, whose stage they reuse; the arrive and the
+// wait are split so that a CTA waits for its peers one block late. The
+// states go out split into bf16 hi and lo planes with swizzled rows (swz):
+// the same bytes as fp32, in the form the gradients kernel multiplies.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_states_mma_kernel(const BwdParams prm) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int N = prm.dstate, nks = N / 16, H = prm.heads, P = prm.headdim, S = prm.seqlen;
+  const int nb = (S + kChunk - 1) / kChunk;
+  const StatesSmem lay(N);
+  const int ldr = lay.ldr;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);                     // [kStateStages]
+  __nv_bfloat16* sR = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.r);    // [stages][32][ldr]
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.v);    // [stages][32][kXS]
+  float* sDt = reinterpret_cast<float*>(smem_raw + lay.dt);                  // [stages][32]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const int bh = blockIdx.y, bi = bh / H, h = bh % H;
+  const int p0 = blockIdx.x * kRows;
+  const bool rev = blockIdx.z == 1;
+  const int grp = h / (H / prm.groups);
+  const int rank = cluster_rank(), csize = cluster_size();
+  const float a = prm.a[h];
+  const __nv_bfloat16* v = rev
+      ? static_cast<const __nv_bfloat16*>(prm.dy) + ((long long)bi * S * H + h) * P + p0
+      : static_cast<const __nv_bfloat16*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
+  const long long v_ss = rev ? (long long)H * P : prm.x_ss;
+  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(rev ? prm.c : prm.b)
+                           + bi * (rev ? prm.c_sb : prm.b_sb) + (long long)grp * N;
+  const long long r_ss = rev ? prm.c_ss : prm.b_ss;
+  const float* dt = prm.dt + (long long)bi * S * H + h;                      // token stride H
+  // S0 (or dS) of block k at out + k H 2 P N: a hi and a lo (P, N) plane
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(prm.states)
+                       + ((long long)((rev ? prm.batch : 0) + bi) * nb * H + h) * 2 * P * N;
+  const float* start = rev ? prm.d_final : prm.init_state;
+  const long long state_off = ((long long)bh * P + p0) * N;
+  const int steps = rev ? nb : nb - 1;    // the forward needs no state past the last block's start
+  const int row_bytes = N * (int)sizeof(__nv_bfloat16);
+
+  if (tid == 0)
+    for (int st = 0; st < kStateStages; ++st) mbar_init(bar + st, 1);
+  // every CTA's mbarriers must exist before a peer's copy lands in them:
+  // arrive now, wait just before the first multicast
+  cluster_arrive_relaxed();
+
+  float acc[kStateGroups][2][4];
+#pragma unroll
+  for (int q = 0; q < kStateGroups; ++q) {
+    const int j = warp + 4 * q;
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float2 s = make_float2(0.f, 0.f);
+        if (start != nullptr && j < nks)
+          s = *reinterpret_cast<const float2*>(start + state_off + (g8 + 8 * hh) * N + j * 16
+                                               + nn * 8 + 2 * t4);
+        acc[q][nn][2 * hh] = s.x;
+        acc[q][nn][2 * hh + 1] = s.y;
+      }
+  }
+
+  // The i-th block walked, into stage i % kStateStages: R rows s = rank,
+  // rank + csize, ... copied by this CTA into every CTA of the cluster, rows
+  // past S zeroed here; V and dt (this CTA's own) by cp.async, zero-filled
+  // past S, in a commit group of their own (empty past the last block, so
+  // that every block's group sits kStateStages - 1 groups back).
+  auto load_block = [&](int i) {
+    if (i >= steps) {
+      cp_async_commit();
+      return;
+    }
+    const int stage = i % kStateStages, k = rev ? nb - 1 - i : i;
+    const int t0 = k * kChunk, L = min(kChunk, S - t0);
+    __nv_bfloat16* dr = sR + stage * kChunk * ldr;
+    if (tid < 2 * kChunk) {
+      const int s = tid / 2, e = (tid % 2) * 8;
+      const long long t = t0 + (s < L ? s : 0);
+      cp_async16(sV + (stage * kChunk + s) * kXS + e, v + t * v_ss + e, s < L);
+    } else if (tid < 3 * kChunk) {
+      const int s = tid - 2 * kChunk;
+      const long long t = t0 + (s < L ? s : 0);
+      cp_async4(sDt + stage * kChunk + s, dt + t * H, s < L);
+    }
+    cp_async_commit();
+    if (tid == 0) mbar_expect_tx(bar + stage, L * row_bytes);
+    if (warp == 1) {
+      const int s = rank + csize * lane;
+      if (s < L)
+        bulk_load_multicast(dr + s * ldr, r + (long long)(t0 + s) * r_ss, row_bytes, bar + stage,
+                            (uint16_t)((1u << csize) - 1));
+    }
+    for (int z = L * N / 2 + tid; z < kChunk * N / 2; z += kThreads) {
+      const int s = z / (N / 2), e = 2 * (z % (N / 2));
+      *reinterpret_cast<uint32_t*>(dr + s * ldr + e) = 0u;
+    }
+  };
+
+  cluster_wait();
+  for (int i = 0; i + 1 < kStateStages; ++i) load_block(i);
+
+  for (int i = 0; i < nb; ++i) {
+    const int k = rev ? nb - 1 - i : i;
+    // the state entering block k's update, S0_k or dS_k, split into bf16
+    // hi + lo where it is made (the gradients kernel reads it so). Chunks
+    // 2j and 2j + 1 of a row land side by side (swz flips bit 0 at most):
+    // the row's 4 lanes trade words so that lane t4 stores 8 contiguous
+    // bytes of that 32-byte pair, a full sector per quad
+    __nv_bfloat16* o = out + (long long)k * H * 2 * P * N;
+    const int src = (lane & ~3) | (2 * (t4 & 1));
+#pragma unroll
+    for (int q = 0; q < kStateGroups; ++q) {
+      const int j = warp + 4 * q;
+      if (j >= nks) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = p0 + g8 + 8 * hh, pos = swz(p, 2 * j, N);
+        const bool swap = ((t4 >> 1) ^ (pos & 1)) != 0;    // chunk 2j + 1 at this lane's half
+        uint32_t hi[2], lo[2];
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+          split_pair(acc[q][nn][2 * hh], acc[q][nn][2 * hh + 1], hi[nn], lo[nn]);
+        uint32_t w[2][2][2];                                  // [hi, lo][nn][word]
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            w[0][nn][u] = __shfl_sync(0xffffffffu, hi[nn], src + u);
+            w[1][nn][u] = __shfl_sync(0xffffffffu, lo[nn], src + u);
+          }
+        const int off = p * N + (pos & ~1) * 8 + 4 * t4;
+        *reinterpret_cast<uint2*>(o + off) = swap ? make_uint2(w[0][1][0], w[0][1][1])
+                                                  : make_uint2(w[0][0][0], w[0][0][1]);
+        *reinterpret_cast<uint2*>(o + P * N + off) = swap ? make_uint2(w[1][1][0], w[1][1][1])
+                                                          : make_uint2(w[1][0][0], w[1][0][1]);
+      }
+    }
+    if (i == steps) break;
+    const int stage = i % kStateStages, t0 = k * kChunk;
+    const int L = min(kChunk, S - t0);
+    cp_async_wait<kStateStages - 2>();
+    mbar_wait(bar + stage, (i / kStateStages) & 1);
+    __syncthreads();
+
+    const __nv_bfloat16* cR = sR + stage * kChunk * ldr;
+    const __nv_bfloat16* cV = sV + stage * kChunk * kXS;
+    // every warp scans dt*a itself (the same bits in each): lane = token
+    const float dt_l = sDt[stage * kChunk + lane];          // 0 past L
+    const float cs = warp_cumsum(lane < L ? dt_l * a : 0.f, lane);
+    const float cs_last = __shfl_sync(0xffffffffu, cs, L - 1);
+    const float wgt = lane < L ? (rev ? expf(cs) : dt_l * expf(cs_last - cs)) : 0.f;
+    const float total = expf(cs_last);
+    // A = (V wgt)^T: rows r of the tile, k = token s; split hi / lo
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {         // a0..a3: (row g8 | g8+8, s | s+8)
+        const int rr = g8 + 8 * (q % 2), s = kk * 16 + 2 * t4 + 8 * (q / 2);
+        const float w0 = __shfl_sync(0xffffffffu, wgt, s);
+        const float w1 = __shfl_sync(0xffffffffu, wgt, s + 1);
+        split_pair(__bfloat162float(cV[s * kXS + rr]) * w0,
+                   __bfloat162float(cV[(s + 1) * kXS + rr]) * w1, ahi[kk][q], alo[kk][q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kStateGroups; ++q) {
+      const int j = warp + 4 * q;
+      if (j >= nks) continue;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][nn][e] *= total;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (16 * kk >= L) continue;
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, cR + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldr + j * 16 + (mi / 2) * 8);
+        mma_bf16(acc[q][0], ahi[kk], bf[0], bf[1]);
+        mma_bf16(acc[q][0], alo[kk], bf[0], bf[1]);
+        mma_bf16(acc[q][1], ahi[kk], bf[2], bf[3]);
+        mma_bf16(acc[q][1], alo[kk], bf[2], bf[3]);
+      }
+    }
+    // block i + 3's copies reuse block i - 1's stage, which every CTA of
+    // the cluster must have finished reading. This CTA's reads of block i's
+    // stage are done (their values are in the accumulators): the arrival
+    // orders nothing, so it does not wait for the state stores to drain.
+    if (i > 0) cluster_wait();
+    load_block(i + kStateStages - 1);
+    cluster_arrive_relaxed();
+  }
+  if (steps > 0) cluster_wait();   // the last arrival's
+  if (rev) {
+#pragma unroll
+    for (int q = 0; q < kStateGroups; ++q) {
+      const int j = warp + 4 * q;
+      if (j >= nks) continue;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(prm.d_init + state_off + (g8 + 8 * hh) * N + j * 16 + nn * 8
+                                     + 2 * t4) =
+              make_float2(acc[q][nn][2 * hh], acc[q][nn][2 * hh + 1]);
+    }
+  }
+}
+
+// Shared memory of the gradients kernel, in bytes from the base: six
+// mbarriers; nbuf heads' S0 and dS as copied, each a hi and a lo (P, N)
+// bf16 plane with swizzled rows (at the end, the CTA's dC and dB sums in
+// fp32); the block's B and C rows; x and dy, three heads; M and Q hi and
+// lo, two heads; the per-head vectors e, tail, dt and exp(cs_last) and G's
+// row and column sums, three heads each; the task partials, two heads.
+struct GradSmem {
+  int ldn, ldp, partsz;
+  size_t st, b, c, x, dy, m, q, vec, gsum, part, bytes;
+  __host__ __device__ GradSmem(int P, int N, int nbuf) : ldn(N + 8), ldp(P + 8) {
+    const size_t mq = (size_t)kChunk * kLdL * sizeof(__nv_bfloat16);
+    const size_t heads = (size_t)nbuf * 4 * P * N * sizeof(__nv_bfloat16);
+    const size_t sums = (size_t)2 * kChunk * N * sizeof(float);
+    // a head's task partials, floats: dot [16], CU [N/16][32], T and XD
+    // [P/16][32]
+    partsz = 16 + (N / 16 + 2 * (P / 16)) * kChunk;
+    st = 64;                                                          // after 6 mbarriers
+    b = st + (heads > sums ? heads : sums);
+    c = b + (size_t)kChunk * ldn * sizeof(__nv_bfloat16);
+    x = c + (size_t)kChunk * ldn * sizeof(__nv_bfloat16);
+    dy = x + (size_t)3 * kChunk * ldp * sizeof(__nv_bfloat16);
+    m = dy + (size_t)3 * kChunk * ldp * sizeof(__nv_bfloat16);       // [2][hi, lo]
+    q = m + 4 * mq;                                                   // [2][hi, lo]
+    vec = q + 4 * mq;                     // [3][3][32] e, tail, dt; [3] exp(cs_last); pad
+    gsum = vec + (size_t)(3 * 3 * kChunk + 4) * sizeof(float);     // [3][rowG, colG][2][32]
+    part = gsum + (size_t)3 * 4 * kChunk * sizeof(float);
+    bytes = part + (size_t)2 * partsz * sizeof(float);
+  }
+};
+
+// Heads whose S0 and dS planes the gradients kernel holds at once: two
+// (the next head's copies run behind this head's work) where they fit in
+// the 227 KB of shared memory, else one.
+__host__ __device__ inline int grad_bufs(int P, int N) {
+  return GradSmem(P, N, 2).bytes <= 232448 ? 2 : 1;
+}
+
+// Column tasks (below) a warp of the gradients kernel keeps: one up to N
+// 192, two beyond.
+__host__ __device__ inline int grad_kt(int N) { return N / 16 > kGradMaxWarps ? 2 : 1; }
+
+// Warps of the gradients kernel's CTA at (P, N): with one column task a
+// warp, one a column task and one a row task, at least the 4 of phase A and
+// at most 12; with two, 8.
+__host__ __device__ inline int grad_warps(int P, int N) {
+  if (grad_kt(N) == 2) return 8;
+  const int w = N / 16 + P / 16;
+  return w < 4 ? 4 : w > kGradMaxWarps ? kGradMaxWarps : w;
+}
+
+// One CTA per (batch, block, group) and share of the group's heads (the
+// cluster's rank), walking them in order with one CTA barrier a head.
+// Between two barriers, for head i:
+// - column task j (warp j; KT: tasks j = warp + warps q a warp keeps)
+//   takes columns [16 j, 16 j + 16) of N for both l-tiles: U = dy.S0, then
+//   Z = x.dS with <dS, S0> over these columns from the same fragments, one
+//   read of dS and two of S0 there; e U and tail dt Z, then Q.B and Q^T.C
+//   go straight into its dC and dB sums;
+// - row task ip (the warps after the column tasks) takes rows [16 ip, 16
+//   ip + 16) of P for both s-tiles: dxdt = M^T.dy + tail B.dS^T, dx;
+// - then the last four warps (the row tasks' at the model's widths): the
+//   fourth finishes head i - 1 (d(cs) from its partials, d(da), d(dt),
+//   d(a)) and issues the copies of what later heads need into the buffers
+//   head i - 1 has left (x, dy rows two heads ahead, S0 and dS planes one
+//   ahead); the other three run phase A of head i + 1: W = dy.x^T over
+//   their 16 x 16 unit of the (l, s) block (l-tile um, s-tile un; the unit
+//   above the diagonal is zero), then M, Q and G's row and column sums
+//   there. So phase A, a chain on three warps, runs beside the products.
+// The d(cs) terms x.dxdt, T and e C.U go to per-task row partials.
+template <int KT>
+__global__ void __launch_bounds__(KT == 1 ? kGradMaxWarps * 32 : 256)
+    ssd_bwd_grads_mma_kernel(const BwdParams prm) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int N = prm.dstate, P = prm.headdim, S = prm.seqlen, H = prm.heads, G = prm.groups;
+  const int nks = N / 16, pks = P / 16, rep = H / G;
+  const int nw = blockDim.x / 32;
+  const int nb = gridDim.y, k = blockIdx.y, bi = blockIdx.z / G, g = blockIdx.z % G;
+  const int rank = cluster_rank(), hc = cluster_size();
+  const int share = rep / hc, extra = rep % hc;
+  const int nh = share + (rank < extra ? 1 : 0);
+  const int h0 = g * rep + rank * share + min(rank, extra);
+  const int nbuf = grad_bufs(P, N);
+  const GradSmem lay(P, N, nbuf);
+  const int ldn = lay.ldn, ldp = lay.ldp;
+  uint64_t* bar_bc = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* bar_st = bar_bc + 1;                                                  // [2]
+  uint64_t* bar_xy = bar_bc + 3;                                                  // [3]
+  // [nbuf heads][S0 hi, S0 lo, dS hi, dS lo][P * N], rows swizzled
+  __nv_bfloat16* sSt = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.st);
+  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.b);        // [32][ldn]
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.c);        // [32][ldn]
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.x);        // [3][32][ldp]
+  __nv_bfloat16* sDy = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.dy);      // [3][32][ldp]
+  __nv_bfloat16* sM = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.m);        // [2][hi, lo][32][kLdL]
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.q);        // [2][hi, lo][32][kLdL]
+  float* sVec = reinterpret_cast<float*>(smem_raw + lay.vec);     // [3][e, tail, dt][32]
+  float* sTotal = sVec + 3 * 3 * kChunk;                          // [3]
+  float* sGsum = reinterpret_cast<float*>(smem_raw + lay.gsum);   // [3][rowG [un], colG [um]][32]
+  float* sPart = reinterpret_cast<float*>(smem_raw + lay.part);   // [2][partsz]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4, mi = lane / 8;
+  const int t0 = k * kChunk, L = min(kChunk, S - t0);
+  const long long plane = (long long)prm.batch * nb * H * 2 * P * N;
+  const __nv_bfloat16* states = static_cast<const __nv_bfloat16*>(prm.states)
+                                + ((long long)bi * nb + k) * H * 2 * P * N;        // + h 2 P N
+  const __nv_bfloat16* xg = static_cast<const __nv_bfloat16*>(prm.x) + bi * prm.x_sb
+                            + (long long)t0 * prm.x_ss;                           // + s x_ss + h P
+  const __nv_bfloat16* dyg = static_cast<const __nv_bfloat16*>(prm.dy)
+                             + ((long long)bi * S + t0) * H * P;                  // + (s H + h) P
+  __nv_bfloat16* dxg = static_cast<__nv_bfloat16*>(prm.dx) + ((long long)bi * S + t0) * H * P;
+  const float* dtg = prm.dt + ((long long)bi * S + t0) * H;                       // + s H + h
+  const __nv_bfloat16* bg = static_cast<const __nv_bfloat16*>(prm.b) + bi * prm.b_sb
+                            + (long long)t0 * prm.b_ss + (long long)g * N;
+  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(prm.c) + bi * prm.c_sb
+                            + (long long)t0 * prm.c_ss + (long long)g * N;
+  const int xrow = P * (int)sizeof(__nv_bfloat16), nrow = N * (int)sizeof(__nv_bfloat16);
+  const int state_bytes = 2 * P * N * (int)sizeof(__nv_bfloat16);   // hi and lo
+  // the last four warps: phase A units (aw 0-2) and the finishing warp
+  // (aw 3), which also issues the copies
+  const int aw = warp - (nw - 4);
+  const bool unit = aw >= 0 && aw < 3;
+  const int um = aw == 0 ? 0 : 1, un = aw == 2 ? 1 : 0;
+
+  // head i's G sums: rowG [un][32 l], colG [um][32 s]; its task partials:
+  // dot [column task], CU [N/16][32], T and XD [P/16][32]
+  auto gsum = [&](int i) { return sGsum + (i % 3) * 4 * kChunk; };
+  auto part = [&](int i) { return sPart + (i & 1) * lay.partsz; };
+  auto mq = [&](__nv_bfloat16* base, int i, int lo) {
+    return base + ((i & 1) * 2 + lo) * kChunk * kLdL;
+  };
+  // copies of head i (the finishing warp): x, dy rows into stage i % 3,
+  // the S0, dS planes into buffer i % nbuf
+  auto issue_xy = [&](int i) {
+    const int h = h0 + i, s3 = i % 3;
+    if (lane == 0) mbar_expect_tx(bar_xy + s3, 2 * L * xrow);
+    __syncwarp();
+    if (lane < L) {
+      bulk_load(sX + (s3 * kChunk + lane) * ldp, xg + lane * prm.x_ss + (long long)h * P, xrow,
+                bar_xy + s3);
+      bulk_load(sDy + (s3 * kChunk + lane) * ldp, dyg + ((long long)lane * H + h) * P, xrow,
+                bar_xy + s3);
+    }
+  };
+  auto issue_st = [&](int i) {
+    const int h = h0 + i;
+    __nv_bfloat16* dst = sSt + (i % nbuf) * 4 * P * N;
+    if (lane == 0) {
+      mbar_expect_tx(bar_st + (i & 1), 2 * state_bytes);
+      bulk_load(dst, states + (long long)h * 2 * P * N, state_bytes, bar_st + (i & 1));
+      bulk_load(dst + 2 * P * N, states + plane + (long long)h * 2 * P * N, state_bytes,
+                bar_st + (i & 1));
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_bc, 1);
+    for (int s = 0; s < 5; ++s) mbar_init(bar_st + s, 1);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) mbar_expect_tx(bar_bc, 2 * L * nrow);
+    __syncwarp();
+    if (lane < L) {
+      bulk_load(sB + lane * ldn, bg + lane * prm.b_ss, nrow, bar_bc);
+      bulk_load(sC + lane * ldn, cg + lane * prm.c_ss, nrow, bar_bc);
+    }
+  } else if (aw == 3) {
+    issue_xy(0);
+    if (nh > 1) issue_xy(1);
+    issue_st(0);
+    if (nbuf == 2 && nh > 1) issue_st(1);
+  }
+  // rows past L zeroed (a padded row meets zeros in the tensor cores, where
+  // 0 * garbage is not 0), M and Q zeroed (the unit above the diagonal stays
+  // so), and the partials (the zero unit's G sums stay so)
+  for (int i = L * N / 2 + tid; i < kChunk * N / 2; i += blockDim.x) {
+    const int s = i / (N / 2), e = 2 * (i % (N / 2));
+    *reinterpret_cast<uint32_t*>(sB + s * ldn + e) = 0u;
+    *reinterpret_cast<uint32_t*>(sC + s * ldn + e) = 0u;
+  }
+  for (int i = L * P / 2 + tid; i < kChunk * P / 2; i += blockDim.x) {
+    const int s = i / (P / 2), e = 2 * (i % (P / 2));
+    for (int s3 = 0; s3 < 3; ++s3) {
+      *reinterpret_cast<uint32_t*>(sX + (s3 * kChunk + s) * ldp + e) = 0u;
+      *reinterpret_cast<uint32_t*>(sDy + (s3 * kChunk + s) * ldp + e) = 0u;
+    }
+  }
+  for (int i = tid; i < 2 * kChunk * kLdL; i += blockDim.x) {   // pairs: [2][hi, lo]
+    *reinterpret_cast<uint32_t*>(sM + 2 * i) = 0u;
+    *reinterpret_cast<uint32_t*>(sQ + 2 * i) = 0u;
+  }
+  for (int i = tid; i < 3 * 4 * kChunk; i += blockDim.x) sGsum[i] = 0.f;
+  __syncthreads();
+  mbar_wait(bar_bc, 0);
+
+  // the phase A units: C.B^T over the unit once, kept in registers
+  float cb[2][4] = {};
+  if (unit) {
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t ca[4], bf[4];
+      ldmatrix_x4(ca, sC + (um * 16 + (mi % 2) * 8 + lane % 8) * ldn + ks * 16 + (mi / 2) * 8);
+      ldmatrix_x4(bf, sB + (un * 16 + (mi / 2) * 8 + lane % 8) * ldn + ks * 16 + (mi % 2) * 8);
+      mma_bf16(cb[0], ca, bf[0], bf[1]);
+      mma_bf16(cb[1], ca, bf[2], bf[3]);
+    }
+  }
+  // column tasks j = warp + nw q: dC, dB summed over the heads, [q][l or s
+  // tile m][n8]
+  float dC[KT][2][2][4] = {}, dB[KT][2][2][4] = {};
+
+  // phase A of head i (the units): cs, the per-head vectors, W = dy.x^T
+  // over the unit (both exact), then M = C.B^T w, Q = W dt_s w, G = C.B^T Q
+  // for s <= l < L (masked before the exp), and G's row and column sums
+  auto phase_a = [&](int i) {
+    const int h = h0 + i;
+    const float a = prm.a[h];
+    const float d = lane < L ? dtg[(long long)lane * H + h] : 0.f;
+    const __nv_bfloat16* cX = sX + (i % 3) * kChunk * ldp;
+    const __nv_bfloat16* cDy = sDy + (i % 3) * kChunk * ldp;
+    mbar_wait(bar_xy + i % 3, (i / 3) & 1);
+    const float cs = warp_cumsum(d * a, lane);             // d = 0 past L
+    const float cs_last = __shfl_sync(0xffffffffu, cs, L - 1);
+    if (aw == 0) {
+      float* vec = sVec + (i % 3) * 3 * kChunk;
+      vec[lane] = lane < L ? expf(cs) : 0.f;                            // e
+      vec[kChunk + lane] = lane < L ? expf(cs_last - cs) : 0.f;         // tail
+      vec[2 * kChunk + lane] = d;                                       // dt
+      if (lane == 0) sTotal[i % 3] = expf(cs_last);
+    }
+    float wacc[2][4] = {};
+    for (int kp = 0; kp < pks; ++kp) {
+      uint32_t ad[4], bx[4];
+      ldmatrix_x4(ad, cDy + (um * 16 + (mi % 2) * 8 + lane % 8) * ldp + kp * 16 + (mi / 2) * 8);
+      ldmatrix_x4(bx, cX + (un * 16 + (mi / 2) * 8 + lane % 8) * ldp + kp * 16 + (mi % 2) * 8);
+      mma_bf16(wacc[0], ad, bx[0], bx[1]);
+      mma_bf16(wacc[1], ad, bx[2], bx[3]);
+    }
+    __nv_bfloat16 *mhi = mq(sM, i, 0), *mlo = mq(sM, i, 1), *qhi = mq(sQ, i, 0), *qlo = mq(sQ, i, 1);
+    float rowp[2] = {}, colp[2][2] = {};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int l = um * 16 + g8 + 8 * hh;
+      const float cs_l = __shfl_sync(0xffffffffu, cs, l);
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        float mv[2], qv[2];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int s = un * 16 + nn * 8 + 2 * t4 + e2;
+          const float cs_s = __shfl_sync(0xffffffffu, cs, s);
+          const float dt_s = __shfl_sync(0xffffffffu, d, s);
+          const bool valid = s <= l && l < L;
+          const float w = valid ? expf(cs_l - cs_s) : 0.f;
+          const float c_b = cb[nn][2 * hh + e2];
+          mv[e2] = c_b * w;
+          qv[e2] = wacc[nn][2 * hh + e2] * dt_s * w;
+          const float gv = c_b * qv[e2];
+          rowp[hh] += gv;
+          colp[nn][e2] += gv;
+        }
+        const int off = l * kLdL + un * 16 + nn * 8 + 2 * t4;
+        uint32_t hi, lo;
+        split_pair(mv[0], mv[1], hi, lo);
+        *reinterpret_cast<uint32_t*>(mhi + off) = hi;
+        *reinterpret_cast<uint32_t*>(mlo + off) = lo;
+        split_pair(qv[0], qv[1], hi, lo);
+        *reinterpret_cast<uint32_t*>(qhi + off) = hi;
+        *reinterpret_cast<uint32_t*>(qlo + off) = lo;
+      }
+    }
+    // row sums over the unit's 16 columns (across t4), column sums over
+    // its 16 rows (across g8)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rowp[hh] += __shfl_xor_sync(0xffffffffu, rowp[hh], 1);
+      rowp[hh] += __shfl_xor_sync(0xffffffffu, rowp[hh], 2);
+    }
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          colp[nn][e2] += __shfl_xor_sync(0xffffffffu, colp[nn][e2], o);
+    float* pa = gsum(i);
+    if (t4 == 0)
+      for (int hh = 0; hh < 2; ++hh) pa[un * kChunk + um * 16 + g8 + 8 * hh] = rowp[hh];
+    if (g8 == 0)
+      for (int nn = 0; nn < 2; ++nn)
+        for (int e2 = 0; e2 < 2; ++e2)
+          pa[(2 + um) * kChunk + un * 16 + nn * 8 + 2 * t4 + e2] = colp[nn][e2];
+  };
+
+  // head j's d(cs) from its partials, then d(da), d(dt), d(a) (aw 3)
+  auto finish = [&](int j) {
+    const int h = h0 + j;
+    const float* pj = gsum(j);
+    const float* sDot = part(j);
+    const float* sCU = sDot + 16;
+    const float* sT = sCU + nks * kChunk;
+    const float* sXD = sT + pks * kChunk;
+    float dcs = 0.f, tt = 0.f, xd = 0.f;
+    if (lane < L) {
+      float cu = 0.f;
+      for (int jj = 0; jj < nks; ++jj) cu += sCU[jj * kChunk + lane];
+      for (int ip = 0; ip < pks; ++ip) {
+        tt += sT[ip * kChunk + lane];
+        xd += sXD[ip * kChunk + lane];
+      }
+      dcs = (pj[lane] + pj[kChunk + lane]) - (pj[2 * kChunk + lane] + pj[3 * kChunk + lane])
+            + cu - tt;
+    }
+    const float t_sum = warp_sum(tt);
+    if (lane == L - 1) {
+      float dot = 0.f;
+      for (int jj = 0; jj < nks; ++jj) dot += sDot[jj];
+      dcs += sTotal[j % 3] * dot + t_sum;
+    }
+    const float dda = warp_rcumsum(dcs, lane);
+    if (lane < L) prm.d_dt[((long long)bi * S + t0 + lane) * H + h] = fmaf(prm.a[h], dda, xd);
+    const float da = warp_sum(lane < L ? dda * sVec[(j % 3) * 3 * kChunk + 2 * kChunk + lane] : 0.f);
+    if (lane == 0) prm.d_a_part[((long long)bi * nb + k) * H + h] = da;
+  };
+
+  if (unit) phase_a(0);
+  __syncthreads();
+
+  for (int i = 0; i < nh; ++i) {
+    const int h = h0 + i;
+    const __nv_bfloat16* cX = sX + (i % 3) * kChunk * ldp;
+    const __nv_bfloat16* cDy = sDy + (i % 3) * kChunk * ldp;
+    const __nv_bfloat16* cS0hi = sSt + (i % nbuf) * 4 * P * N;
+    const __nv_bfloat16* cS0lo = cS0hi + P * N;
+    const __nv_bfloat16* cDShi = cS0hi + 2 * P * N;
+    const __nv_bfloat16* cDSlo = cS0hi + 3 * P * N;
+    const __nv_bfloat16 *cMhi = mq(sM, i, 0), *cMlo = mq(sM, i, 1);
+    const __nv_bfloat16 *cQhi = mq(sQ, i, 0), *cQlo = mq(sQ, i, 1);
+    const float* vec = sVec + (i % 3) * 3 * kChunk;
+    float* sDot = part(i);
+    float* sCU = sDot + 16;
+    float* sT = sCU + nks * kChunk;
+    float* sXD = sT + pks * kChunk;
+    // copies into what head i - 1 has left (stage 2 is fresh at i = 0): x,
+    // dy of head i + 2, and the S0, dS planes of head i + 1 (of head i with
+    // one buffer)
+    if (aw == 3) {
+      fence_async_smem();
+      if (i + 2 < nh) issue_xy(i + 2);
+      if (i > 0 && (nbuf == 2 ? i + 1 < nh : true)) issue_st(nbuf == 2 ? i + 1 : i);
+    }
+    mbar_wait(bar_st + (i & 1), (i >> 1) & 1);
+
+#pragma unroll
+    for (int q = 0; q < KT; ++q) {
+      // column task j, in two passes (one set of accumulators)
+      const int j = warp + nw * q;
+      if (j >= nks) break;
+      // U = dy.S0 (S0 split, one read for both tiles); dC += e_l U and the
+      // row partials e_l C_l.U_l
+      float acc[2][2][4] = {};
+      for (int kp = 0; kp < pks; ++kp) {
+        const int pr = kp * 16 + (mi % 2) * 8 + lane % 8;
+        const int off = pr * N + swz(pr, 2 * j + mi / 2, N) * 8;
+        uint32_t sh[4], sl[4];
+        ldmatrix_x4_trans(sh, cS0hi + off);
+        ldmatrix_x4_trans(sl, cS0lo + off);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ad[4];
+          ldmatrix_x4(ad, cDy + (m * 16 + (mi % 2) * 8 + lane % 8) * ldp + kp * 16 + (mi / 2) * 8);
+#pragma unroll
+          for (int n8 = 0; n8 < 2; ++n8) {
+            mma_bf16(acc[m][n8], ad, sh[2 * n8], sh[2 * n8 + 1]);
+            mma_bf16(acc[m][n8], ad, sl[2 * n8], sl[2 * n8 + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int l = m * 16 + g8 + 8 * hh;
+          const float e_l = vec[l];
+          float cu = 0.f;
+#pragma unroll
+          for (int n8 = 0; n8 < 2; ++n8) {
+            const float2 cv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(sC + l * ldn + j * 16 + n8 * 8 + 2 * t4));
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const float uu = acc[m][n8][2 * hh + e2];
+              dC[q][m][n8][2 * hh + e2] = fmaf(e_l, uu, dC[q][m][n8][2 * hh + e2]);
+              cu = fmaf(e2 ? cv.y : cv.x, uu, cu);
+            }
+          }
+          cu += __shfl_xor_sync(0xffffffffu, cu, 1);
+          cu += __shfl_xor_sync(0xffffffffu, cu, 2);
+          if (t4 == 0) sCU[j * kChunk + l] = e_l * cu;
+        }
+      // Z = x.dS (dS split, one read for both tiles) and <dS, S0> over these
+      // columns from the same fragments (S0's read again); dB += tail_s dt_s Z
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n8][e] = 0.f;
+      float dot = 0.f;
+      for (int kp = 0; kp < pks; ++kp) {
+        const int pr = kp * 16 + (mi % 2) * 8 + lane % 8;
+        const int off = pr * N + swz(pr, 2 * j + mi / 2, N) * 8;
+        uint32_t sh[4], sl[4], dh[4], dl[4];
+        ldmatrix_x4_trans(dh, cDShi + off);
+        ldmatrix_x4_trans(dl, cDSlo + off);
+        ldmatrix_x4_trans(sh, cS0hi + off);
+        ldmatrix_x4_trans(sl, cS0lo + off);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ax[4];
+          ldmatrix_x4(ax, cX + (m * 16 + (mi % 2) * 8 + lane % 8) * ldp + kp * 16 + (mi / 2) * 8);
+#pragma unroll
+          for (int n8 = 0; n8 < 2; ++n8) {
+            mma_bf16(acc[m][n8], ax, dh[2 * n8], dh[2 * n8 + 1]);
+            mma_bf16(acc[m][n8], ax, dl[2 * n8], dl[2 * n8 + 1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 s_h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sh[r]));
+          const float2 s_l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sl[r]));
+          const float2 d_h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dh[r]));
+          const float2 d_l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dl[r]));
+          dot = fmaf(d_h.x + d_l.x, s_h.x + s_l.x, dot);
+          dot = fmaf(d_h.y + d_l.y, s_h.y + s_l.y, dot);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int s = m * 16 + g8 + 8 * hh;
+          const float wz = vec[kChunk + s] * vec[2 * kChunk + s];
+#pragma unroll
+          for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2)
+              dB[q][m][n8][2 * hh + e2] = fmaf(wz, acc[m][n8][2 * hh + e2], dB[q][m][n8][2 * hh + e2]);
+        }
+      dot = warp_sum(dot);
+      if (lane == 0) sDot[j] = dot;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (16 * kk >= L) break;
+        uint32_t bb[4], cc[4];
+        ldmatrix_x4_trans(bb, sB + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldn + j * 16 + (mi / 2) * 8);
+        ldmatrix_x4_trans(cc, sC + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldn + j * 16 + (mi / 2) * 8);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t qh[4], ql[4];
+          if (kk <= m) {          // Q.B: rows l of tile m, s <= l
+            ldmatrix_x4(qh, cQhi + (m * 16 + (mi % 2) * 8 + lane % 8) * kLdL + kk * 16 + (mi / 2) * 8);
+            ldmatrix_x4(ql, cQlo + (m * 16 + (mi % 2) * 8 + lane % 8) * kLdL + kk * 16 + (mi / 2) * 8);
+#pragma unroll
+            for (int n8 = 0; n8 < 2; ++n8) {
+              mma_bf16(dC[q][m][n8], qh, bb[2 * n8], bb[2 * n8 + 1]);
+              mma_bf16(dC[q][m][n8], ql, bb[2 * n8], bb[2 * n8 + 1]);
+            }
+          }
+          if (kk >= m) {          // Q^T.C: rows s of tile m, l >= s
+            ldmatrix_x4_trans(qh, cQhi + (kk * 16 + (mi >> 1) * 8 + lane % 8) * kLdL + m * 16 + (mi & 1) * 8);
+            ldmatrix_x4_trans(ql, cQlo + (kk * 16 + (mi >> 1) * 8 + lane % 8) * kLdL + m * 16 + (mi & 1) * 8);
+#pragma unroll
+            for (int n8 = 0; n8 < 2; ++n8) {
+              mma_bf16(dB[q][m][n8], qh, cc[2 * n8], cc[2 * n8 + 1]);
+              mma_bf16(dB[q][m][n8], ql, cc[2 * n8], cc[2 * n8 + 1]);
+            }
+          }
+        }
+      }
+    }
+    // row tasks: dxdt over (s-tile m, p-tile ip) for both s-tiles: M^T.dy
+    // (M split) + tail_s B.dS^T (dS split, one read for both tiles); dx =
+    // dt dxdt; row partials of x.dxdt and T
+    for (int ip = ((warp - nks) % nw + nw) % nw; ip < pks; ip += nw) {
+      float md[2][2][4] = {}, bd[2][2][4] = {};
+      for (int ks = 0; ks < nks; ++ks) {
+        const int pr = ip * 16 + (mi / 2) * 8 + lane % 8;
+        const int off = pr * N + swz(pr, 2 * ks + mi % 2, N) * 8;
+        uint32_t dh[4], dl[4];
+        ldmatrix_x4(dh, cDShi + off);
+        ldmatrix_x4(dl, cDSlo + off);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ab[4];
+          ldmatrix_x4(ab, sB + (m * 16 + (mi % 2) * 8 + lane % 8) * ldn + ks * 16 + (mi / 2) * 8);
+          mma_bf16(bd[m][0], ab, dh[0], dh[1]);
+          mma_bf16(bd[m][0], ab, dl[0], dl[1]);
+          mma_bf16(bd[m][1], ab, dh[2], dh[3]);
+          mma_bf16(bd[m][1], ab, dl[2], dl[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (16 * kk >= L) break;
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, cDy + (kk * 16 + (mi % 2) * 8 + lane % 8) * ldp + ip * 16 + (mi / 2) * 8);
+#pragma unroll
+        for (int m = 0; m <= kk; ++m) {      // l >= s
+          uint32_t mh[4], ml[4];
+          ldmatrix_x4_trans(mh, cMhi + (kk * 16 + (mi >> 1) * 8 + lane % 8) * kLdL + m * 16 + (mi & 1) * 8);
+          ldmatrix_x4_trans(ml, cMlo + (kk * 16 + (mi >> 1) * 8 + lane % 8) * kLdL + m * 16 + (mi & 1) * 8);
+          mma_bf16(md[m][0], mh, bf[0], bf[1]);
+          mma_bf16(md[m][0], ml, bf[0], bf[1]);
+          mma_bf16(md[m][1], mh, bf[2], bf[3]);
+          mma_bf16(md[m][1], ml, bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int s = m * 16 + g8 + 8 * hh;
+          const float tail = vec[kChunk + s], dts = vec[2 * kChunk + s];
+          float xd = 0.f, tv = 0.f;
+#pragma unroll
+          for (int n8 = 0; n8 < 2; ++n8) {
+            const int p = ip * 16 + n8 * 8 + 2 * t4;
+            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cX + s * ldp + p));
+            const float d0 = fmaf(tail, bd[m][n8][2 * hh], md[m][n8][2 * hh]);
+            const float d1 = fmaf(tail, bd[m][n8][2 * hh + 1], md[m][n8][2 * hh + 1]);
+            if (s < L)
+              *reinterpret_cast<__nv_bfloat162*>(dxg + (long long)s * H * P + (long long)h * P + p) =
+                  __floats2bfloat162_rn(d0 * dts, d1 * dts);
+            xd = fmaf(xv.x, d0, xd);
+            xd = fmaf(xv.y, d1, xd);
+            tv = fmaf(xv.x, bd[m][n8][2 * hh], tv);
+            tv = fmaf(xv.y, bd[m][n8][2 * hh + 1], tv);
+          }
+          xd += __shfl_xor_sync(0xffffffffu, xd, 1);
+          xd += __shfl_xor_sync(0xffffffffu, xd, 2);
+          tv += __shfl_xor_sync(0xffffffffu, tv, 1);
+          tv += __shfl_xor_sync(0xffffffffu, tv, 2);
+          if (t4 == 0) {
+            sXD[ip * kChunk + s] = xd;
+            sT[ip * kChunk + s] = tail * dts * tv;
+          }
+        }
+    }
+    // beside the products: head i - 1 finished, phase A of head i + 1
+    if (aw == 3 && i > 0) finish(i - 1);
+    if (unit && i + 1 < nh) phase_a(i + 1);
+    __syncthreads();
+  }
+  if (aw == 3) finish(nh - 1);
+
+  // dC, dB: this CTA's sums into the state buffers, then every CTA of the
+  // cluster sums its share of the elements over the ranks in order
+  float* sRed = reinterpret_cast<float*>(sSt);   // dC [32][N], dB [32][N]
+#pragma unroll
+  for (int q = 0; q < KT; ++q) {
+    const int j = warp + nw * q;
+    if (j >= nks) break;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int off = (m * 16 + g8 + 8 * hh) * N + j * 16 + n8 * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(sRed + off) =
+              make_float2(dC[q][m][n8][2 * hh], dC[q][m][n8][2 * hh + 1]);
+          *reinterpret_cast<float2*>(sRed + kChunk * N + off) =
+              make_float2(dB[q][m][n8][2 * hh], dB[q][m][n8][2 * hh + 1]);
+        }
+  }
+  cluster_sync();
+  for (int e = rank + hc * tid; e < 2 * kChunk * N / 4; e += hc * blockDim.x) {
+    float4 sum = ld_cluster_f4(sRed + 4 * e, 0);
+    for (int rr = 1; rr < hc; ++rr) {
+      const float4 v = ld_cluster_f4(sRed + 4 * e, rr);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int which = 4 * e / (kChunk * N), l = (4 * e / N) % kChunk, n = 4 * e % N;
+    if (l < L) {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(which ? prm.db : prm.dc)
+                           + (((long long)bi * S + t0 + l) * G + g) * N + n;
+      uint2 packed;
+      packed.x = pack_bf16(sum.x, sum.y);
+      packed.y = pack_bf16(sum.z, sum.w);
+      *reinterpret_cast<uint2*>(dst) = packed;
+    }
+  }
+  // a peer's shared memory stays until every CTA has read it
+  cluster_sync();
+}
+
+// d(a) (H,): the (batch, block, head) partials summed over batch and block
+// in order
+__global__ void __launch_bounds__(128) ssd_bwd_da_reduce_kernel(const BwdParams prm) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= prm.heads) return;
+  const long long n = (long long)prm.batch * ((prm.seqlen + kChunk - 1) / kChunk);
+  float s = 0.f;
+  for (long long i = 0; i < n; ++i) s += prm.d_a_part[i * prm.heads + h];
+  prm.d_a[h] = s;
+}
+
+// A kernel's dynamic shared memory, with all of the SM's 228 KB preferred
+// as shared memory (more CTAs resident).
+cudaError_t prefer_smem(const void* kernel, size_t smem) {
+  const cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// kernel(prm) over grid, in clusters of (cx, cy) CTAs.
+template <typename Kernel>
+cudaError_t launch_clustered(Kernel kernel, dim3 grid, int threads, size_t smem, int cx, int cy,
+                             const BwdParams& prm, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cx;
+  attr[0].val.clusterDim.y = cy;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, prm);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_grads(const BwdParams& prm, int nb, cudaStream_t stream) {
+  const auto kernel = ssd_bwd_grads_mma_kernel<KT>;
+  const int P = prm.headdim, N = prm.dstate;
+  const size_t smem = GradSmem(P, N, grad_bufs(P, N)).bytes;
+  const int threads = 32 * grad_warps(P, N);
+  cudaError_t e = prefer_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
+  // a cluster of hc CTAs splits a group's heads where one CTA per (batch,
+  // block, group) would leave resident slots empty
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem))
+      != cudaSuccess)
+    return e;
+  const long long ctas = (long long)prm.batch * nb * prm.groups;
+  const int rep = prm.heads / prm.groups;
+  int hc = 1;
+  while (2 * hc <= 8 && 2 * hc <= rep && ctas * hc < (long long)per_sm * sms) hc *= 2;
+  return launch_clustered(kernel, dim3(hc, nb, prm.batch * prm.groups), threads, smem, hc, 1,
+                          prm, stream);
+}
+
+size_t bwd_mma_smem_bytes(int headdim, int dstate) {
+  return GradSmem(headdim, dstate, grad_bufs(headdim, dstate)).bytes;
+}
+
+cudaError_t launch_bwd_mma(const BwdParams& prm, cudaStream_t stream) {
+  // 16-row P tiles and 16-deep k-steps over N and P; 16-byte copies of
+  // every row and state
+  if (prm.headdim % 16 || prm.dstate % 16 || !aligned16(prm.x) || !aligned16(prm.b)
+      || !aligned16(prm.c) || !aligned16(prm.dy) || !aligned16(prm.states)
+      || (prm.init_state && !aligned16(prm.init_state))
+      || (prm.d_final && !aligned16(prm.d_final)) || !aligned16(prm.d_init)
+      || !aligned16(prm.dx) || !aligned16(prm.db) || !aligned16(prm.dc) || prm.x_sb % 8
+      || prm.x_ss % 8 || prm.b_sb % 8 || prm.b_ss % 8 || prm.c_sb % 8 || prm.c_ss % 8)
+    return cudaErrorInvalidValue;
+  const int nb = (prm.seqlen + kChunk - 1) / kChunk;
+  if (nb > 65535 || (long long)prm.batch * prm.groups > 65535) return cudaErrorInvalidValue;
+  // 1. S0 and dS: both directions, clusters of a head's P tiles (and of
+  // two heads of a group where that fits in 8), as the forward
+  const size_t smem = StatesSmem(prm.dstate).bytes;
+  cudaError_t e = prefer_smem((const void*)ssd_bwd_states_mma_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = prm.headdim / kRows;
+  int cluster = 1;
+  while (cluster < 8 && tiles % (2 * cluster) == 0) cluster *= 2;
+  const int heads_per_cluster = cluster <= 4 && (prm.heads / prm.groups) % 2 == 0 ? 2 : 1;
+  e = launch_clustered(ssd_bwd_states_mma_kernel, dim3(tiles, prm.batch * prm.heads, 2),
+                       kThreads, smem, cluster, heads_per_cluster, prm, stream);
+  if (e != cudaSuccess) return e;
+  // 2. the per-block gradients
+  e = grad_kt(prm.dstate) == 1 ? launch_grads<1>(prm, nb, stream)
+                                : launch_grads<2>(prm, nb, stream);
+  if (e != cudaSuccess) return e;
+  // 3. d(a)
+  ssd_bwd_da_reduce_kernel<<<(prm.heads + 127) / 128, 128, 0, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward, fp32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kTok = kChunk / kBwdWarps;     // a warp's tokens of a block
+static_assert(kTok * kBwdWarps == kChunk, "the warps split a block's tokens evenly");
 
 // Shared memory of the states kernel, in floats: the B block, the state
 // tile, the block's x tile and the per-token weights dt_s exp(cs_last - cs_s).
@@ -860,7 +1867,6 @@ __host__ __device__ inline size_t bwd_states_smem_floats(int dstate) {
   return (size_t)(kChunk + kRows) * (dstate + 1) + kChunk * kRows + kChunk + 1;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_scan_bwd_states_kernel(const BwdParams prm) {
   extern __shared__ float smem[];
   const int N = prm.dstate, ldn = N + 1;
@@ -876,8 +1882,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_bwd_states_kernel(const Bwd
   const int g = h / (H / prm.groups);
   const int nb = (S + kChunk - 1) / kChunk;
   const float a = prm.a[h];
-  const T* x = static_cast<const T*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
-  const T* b = static_cast<const T*>(prm.b) + bi * prm.b_sb + (long long)g * N;
+  const float* x = static_cast<const float*>(prm.x) + bi * prm.x_sb + (long long)h * P + p0;
+  const float* b = static_cast<const float*>(prm.b) + bi * prm.b_sb + (long long)g * N;
   const float* dt = prm.dt + (long long)bi * S * H + h;
   for (int i = tid; i < kRows * N; i += kThreads) {
     const int r = i / N, n = i % N;
@@ -888,7 +1894,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_bwd_states_kernel(const Bwd
   }
   for (int k = 0; k < nb; ++k) {
     const int t0 = k * kChunk, L = min(kChunk, S - t0);
-    float* out = prm.states + (((long long)bi * nb + k) * H + h) * P * N + (long long)p0 * N;
+    float* out = static_cast<float*>(prm.states) + (((long long)bi * nb + k) * H + h) * P * N
+                 + (long long)p0 * N;
     // the state at this block's start (each thread its own elements, read
     // by nobody else until the next barrier)
     for (int i = tid; i < rows * N; i += kThreads)
@@ -896,20 +1903,15 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_bwd_states_kernel(const Bwd
     if (k + 1 == nb) break;
     for (int i = tid; i < L * N; i += kThreads) {
       const int s = i / N, n = i % N;
-      sB[s * ldn + n] = to_f(b[(long long)(t0 + s) * prm.b_ss + n]);
+      sB[s * ldn + n] = b[(long long)(t0 + s) * prm.b_ss + n];
     }
     for (int i = tid; i < L * kRows; i += kThreads) {
       const int s = i / kRows, r = i % kRows;
-      sX[s * kRows + r] = r < rows ? to_f(x[(long long)(t0 + s) * prm.x_ss + r]) : 0.f;
+      sX[s * kRows + r] = r < rows ? x[(long long)(t0 + s) * prm.x_ss + r] : 0.f;
     }
     if (tid < 32) {
       const float d = tid < L ? dt[(long long)(t0 + tid) * H] : 0.f;
-      float cs = d * a;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, cs, o);
-        if (tid >= o) cs += u;
-      }
+      const float cs = warp_cumsum(d * a, tid);
       const float last = __shfl_sync(0xffffffffu, cs, L - 1);
       sW[tid] = tid < L ? d * expf(last - cs) : 0.f;
       if (tid == 0) *sTotal = expf(last);
@@ -935,7 +1937,6 @@ __host__ __device__ inline size_t bwd_smem_floats(int headdim, int dstate) {
          + 3 * kChunk * (kChunk + 1) + 7 * kChunk + kBwdWarps;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdParams prm) {
   extern __shared__ float smem[];
   const int N = prm.dstate, P = prm.headdim, S = prm.seqlen, H = prm.heads;
@@ -964,12 +1965,12 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdPara
   const int g = h / (H / prm.groups);
   const int nb = (S + kChunk - 1) / kChunk;
   const float a = prm.a[h];
-  const T* x = static_cast<const T*>(prm.x) + bi * prm.x_sb + (long long)h * P;
-  const T* b = static_cast<const T*>(prm.b) + bi * prm.b_sb + (long long)g * N;
-  const T* c = static_cast<const T*>(prm.c) + bi * prm.c_sb + (long long)g * N;
-  const T* dy = static_cast<const T*>(prm.dy) + ((long long)bi * S * H + h) * P;   // token stride H P
-  T* dx = static_cast<T*>(prm.dx) + ((long long)bi * S * H + h) * P;
-  const float* dt = prm.dt + (long long)bi * S * H + h;                             // token stride H
+  const float* x = static_cast<const float*>(prm.x) + bi * prm.x_sb + (long long)h * P;
+  const float* b = static_cast<const float*>(prm.b) + bi * prm.b_sb + (long long)g * N;
+  const float* c = static_cast<const float*>(prm.c) + bi * prm.c_sb + (long long)g * N;
+  const float* dy = static_cast<const float*>(prm.dy) + ((long long)bi * S * H + h) * P;   // token stride H P
+  float* dx = static_cast<float*>(prm.dx) + ((long long)bi * S * H + h) * P;
+  const float* dt = prm.dt + (long long)bi * S * H + h;                                     // token stride H
   float* d_dt = prm.d_dt + (long long)bi * S * H + h;
   float* db_part = prm.db_part + ((long long)bi * S * H + h) * N;                   // token stride H N
   float* dc_part = prm.dc_part + ((long long)bi * S * H + h) * N;
@@ -983,28 +1984,23 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdPara
 
   for (int k = nb - 1; k >= 0; --k) {
     const int t0 = k * kChunk, L = min(kChunk, S - t0);
-    const float* st = prm.states + (((long long)bi * nb + k) * H + h) * P * N;
+    const float* st = static_cast<const float*>(prm.states) + (((long long)bi * nb + k) * H + h) * P * N;
     for (int i = tid; i < L * N; i += kBwdThreads) {
       const int s = i / N, n = i % N;
-      sB[s * ldn + n] = to_f(b[(long long)(t0 + s) * prm.b_ss + n]);
-      sC[s * ldn + n] = to_f(c[(long long)(t0 + s) * prm.c_ss + n]);
+      sB[s * ldn + n] = b[(long long)(t0 + s) * prm.b_ss + n];
+      sC[s * ldn + n] = c[(long long)(t0 + s) * prm.c_ss + n];
     }
     for (int i = tid; i < L * P; i += kBwdThreads) {
       const int s = i / P, p = i % P;
-      const float xv = to_f(x[(long long)(t0 + s) * prm.x_ss + p]);
+      const float xv = x[(long long)(t0 + s) * prm.x_ss + p];
       sX[s * ldp + p] = xv;
       sXdt[s * ldp + p] = xv * dt[(long long)(t0 + s) * H];
-      sDy[s * ldp + p] = to_f(dy[(long long)(t0 + s) * H * P + p]);
+      sDy[s * ldp + p] = dy[(long long)(t0 + s) * H * P + p];
     }
     for (int i = tid; i < P * N; i += kBwdThreads) sS0[(i / N) * ldn + i % N] = st[i];
     if (warp == 0) {
       const float d = lane < L ? dt[(long long)(t0 + lane) * H] : 0.f;
-      float cs = d * a;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, cs, o);
-        if (lane >= o) cs += u;
-      }
+      const float cs = warp_cumsum(d * a, lane);
       const float last = __shfl_sync(0xffffffffu, cs, L - 1);
       sDt[lane] = d;
       sCs[lane] = cs;
@@ -1065,7 +2061,7 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdPara
           const int s = warp + kBwdWarps * k;
           if (s >= L) continue;
           const float d = fmaf(sTail[s], v[k], acc[k]);
-          dx[(long long)(t0 + s) * H * P + p] = from_f<T>(d * sDt[s]);
+          dx[(long long)(t0 + s) * H * P + p] = d * sDt[s];
           xd[k] = fmaf(d, sX[s * ldp + p], xd[k]);
           xv[k] = fmaf(sXdt[s * ldp + p], v[k], xv[k]);
         }
@@ -1178,12 +2174,7 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdPara
         for (int w = 0; w < kBwdWarps; ++w) ds0 += sRed[w];
         dcs += total * ds0 + t_sum;
       }
-      float dda = dcs;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_down_sync(0xffffffffu, dda, o);
-        if (lane + o < 32) dda += u;
-      }
+      const float dda = warp_rcumsum(dcs, lane);
       if (lane < L) {
         d_dt[(long long)(t0 + lane) * H] = fmaf(a, dda, sDxX[lane]);
         d_a_acc = fmaf(dda, sDt[lane], d_a_acc);
@@ -1203,7 +2194,6 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_scan_bwd_kernel(const BwdPara
 // db, dc (B, S, G, N) = the per-head partials summed over each group's
 // heads in order; d(a) (H,) = its per-(batch, head) partials summed over
 // the batch in order.
-template <typename T>
 __global__ void __launch_bounds__(256) ssd_scan_bwd_reduce_kernel(const BwdParams prm) {
   const int H = prm.heads, G = prm.groups, N = prm.dstate, rep = H / G;
   const long long total = (long long)prm.batch * prm.seqlen * G * N;
@@ -1217,8 +2207,8 @@ __global__ void __launch_bounds__(256) ssd_scan_bwd_reduce_kernel(const BwdParam
       sb += prm.db_part[base + (long long)r * N];
       sc += prm.dc_part[base + (long long)r * N];
     }
-    static_cast<T*>(prm.db)[i] = from_f<T>(sb);
-    static_cast<T*>(prm.dc)[i] = from_f<T>(sc);
+    static_cast<float*>(prm.db)[i] = sb;
+    static_cast<float*>(prm.dc)[i] = sc;
   }
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j < H) {
@@ -1228,29 +2218,27 @@ __global__ void __launch_bounds__(256) ssd_scan_bwd_reduce_kernel(const BwdParam
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const BwdParams& prm, cudaStream_t stream) {
+cudaError_t launch_bwd_fma(const BwdParams& prm, cudaStream_t stream) {
   const size_t smem1 = bwd_states_smem_floats(prm.dstate) * sizeof(float);
   const size_t smem2 = bwd_smem_floats(prm.headdim, prm.dstate) * sizeof(float);
-  cudaError_t e = set_smem((const void*)ssd_scan_bwd_states_kernel<T>, smem1);
+  cudaError_t e = set_smem((const void*)ssd_scan_bwd_states_kernel, smem1);
   if (e != cudaSuccess) return e;
-  e = set_smem((const void*)ssd_scan_bwd_kernel<T>, smem2);
+  e = set_smem((const void*)ssd_scan_bwd_kernel, smem2);
   if (e != cudaSuccess) return e;
   const dim3 grid1((prm.headdim + kRows - 1) / kRows, prm.batch * prm.heads);
-  ssd_scan_bwd_states_kernel<T><<<grid1, kThreads, smem1, stream>>>(prm);
+  ssd_scan_bwd_states_kernel<<<grid1, kThreads, smem1, stream>>>(prm);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_scan_bwd_kernel<T><<<prm.batch * prm.heads, kBwdThreads, smem2, stream>>>(prm);
+  ssd_scan_bwd_kernel<<<prm.batch * prm.heads, kBwdThreads, smem2, stream>>>(prm);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long n = (long long)prm.batch * prm.seqlen * prm.groups * prm.dstate;
   long long blocks = (n + 255) / 256;
   if (blocks < (prm.heads + 255) / 256) blocks = (prm.heads + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
-  ssd_scan_bwd_reduce_kernel<T><<<(int)blocks, 256, 0, stream>>>(prm);
+  ssd_scan_bwd_reduce_kernel<<<(int)blocks, 256, 0, stream>>>(prm);
   return cudaGetLastError();
 }
-
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
@@ -1299,18 +2287,24 @@ extern "C" int ssd_scan_launch(
   return (int)e;
 }
 
-// Bytes of shared memory the backward kernel's CTA takes at (headdim,
-// dstate); ssd_scan_bwd_launch refuses more than 232448 (227 KB).
-extern "C" long long ssd_scan_bwd_smem_bytes(int headdim, int dstate) {
+// Bytes of shared memory a backward CTA takes at (headdim, dstate): the
+// fp32 backward kernel's (dtype 0, all of P at once) or the bf16 gradients
+// kernel's (dtype 1); ssd_scan_bwd_launch refuses more than 232448 (227 KB).
+extern "C" long long ssd_scan_bwd_smem_bytes(int headdim, int dstate, int dtype) {
+  if (dtype == 1) return (long long)bwd_mma_smem_bytes(headdim, dstate);
   return (long long)(bwd_smem_floats(headdim, dstate) * sizeof(float));
 }
 
 // The backward: dx (B, S, H, P) and db, dc (B, S, G, N) in x's dtype,
 // d_dt (B, S, H), d_a (H,) and d_init (B, H, P, N) in fp32, from dy (B, S,
 // H, P) dense in x's dtype and d_final (B, H, P, N) fp32 or null (zeros).
-// states (B, ceil(S/32), H, P, N), d_a_part (B, H) and db_part, dc_part
-// (B, S, H, N) are fp32 scratch. dtype 0 = float32, 1 = bfloat16; both run
-// FMAs in fp32. Returns the launches' cudaError_t (0 = success).
+// Scratch: dtype 0 (float32, FMAs) takes states (B, ceil(S/32), H, P, N)
+// fp32, d_a_part (B, H) and db_part, dc_part (B, S, H, N) fp32; dtype 1
+// (bfloat16, the tensor cores; P and N multiples of 16, rows and states
+// 16-byte aligned) takes states (2, B, ceil(S/32), H, 2, P, N) bf16 (S0 and
+// dS split into hi and lo) and d_a_part (B, ceil(S/32), H) fp32, and
+// db_part, dc_part null. Returns the launches'
+// cudaError_t (0 = success).
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const void* dt, const void* a, const void* b, const void* c,
     const void* init_state, const void* dy, const void* d_final, void* states,
@@ -1321,8 +2315,8 @@ extern "C" int ssd_scan_bwd_launch(
     long long c_sb, long long c_ss, int dtype, void* stream) {
   if (batch <= 0 || seqlen <= 0 || heads <= 0 || headdim <= 0 || groups <= 0
       || heads % groups != 0 || dstate <= 0 || dstate > kMaxState
-      || (long long)batch * heads > 65535
-      || ssd_scan_bwd_smem_bytes(headdim, dstate) > 232448)
+      || (long long)batch * heads > 65535 || (dtype != 0 && dtype != 1)
+      || ssd_scan_bwd_smem_bytes(headdim, dstate, dtype) > 232448)
     return (int)cudaErrorInvalidValue;
   BwdParams prm;
   prm.x = x;
@@ -1333,7 +2327,7 @@ extern "C" int ssd_scan_bwd_launch(
   prm.init_state = static_cast<const float*>(init_state);
   prm.dy = dy;
   prm.d_final = static_cast<const float*>(d_final);
-  prm.states = static_cast<float*>(states);
+  prm.states = states;
   prm.dx = dx;
   prm.d_dt = static_cast<float*>(d_dt);
   prm.d_a_part = static_cast<float*>(d_a_part);
@@ -1356,12 +2350,5 @@ extern "C" int ssd_scan_bwd_launch(
   prm.c_sb = c_sb;
   prm.c_ss = c_ss;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch_bwd<float>(prm, st);
-  else if (dtype == 1)
-    e = launch_bwd<__nv_bfloat16>(prm, st);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  return (int)(dtype == 0 ? launch_bwd_fma(prm, st) : launch_bwd_mma(prm, st));
 }

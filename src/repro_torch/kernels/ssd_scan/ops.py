@@ -2,7 +2,8 @@
 
 ``ssd_scan`` checks its inputs, allocates y and the final state and
 launches the forward kernel on the current CUDA stream; ``ssd_scan_bwd``
-allocates the gradients and scratch and launches the backward kernels.
+allocates the gradients and scratch and launches the backward kernels
+(three launches in either dtype).
 ``SSDScan`` is the autograd function of the training path: ``ssd_scan``
 forward, ``ssd_scan_bwd`` backward. Tensors on the CPU take the plain
 versions (``ref.ssd_scan_ref``, ``ref.ssd_scan_bwd_ref``); a CUDA tensor
@@ -44,19 +45,20 @@ _BWD_ARGS = ([_P] * 18               # inputs, scratch and gradients
              + [_I] * 6 + [_L] * 6 + [_I, _P])
 
 
-def bwd_smem_bytes(P: int, N: int) -> int:
-    """Shared memory of the backward kernel's CTA (all of P at once), as
-    the kernel library computes it; its launcher refuses a (P, N) whose CTA
-    would not fit in Hopper's 227 KB."""
-    fn = _function("ssd_scan_bwd_smem_bytes", [_I, _I])
+def bwd_smem_bytes(P: int, N: int, dtype: torch.dtype) -> int:
+    """Shared memory of the backward's largest CTA at (P, N) for x's
+    ``dtype``, as the kernel library computes it: the fp32 backward
+    kernel's (all of P at once) or the bf16 gradients kernel's (the S0 and
+    dS hi / lo planes of two heads, or of one where two do not fit). Its
+    launcher refuses a (P, N) whose CTA would not fit in Hopper's 227 KB."""
+    fn = _function("ssd_scan_bwd_smem_bytes", [_I, _I, _I])
     fn.restype = ctypes.c_longlong
-    return fn(P, N)
+    return fn(P, N, _DTYPES[dtype])
 
 
-def _check(x, dt, a, b, c, init_state, tensor_cores=True):
-    """Device, dtype, shape and layout checks of the scan's inputs;
-    ``tensor_cores`` adds the bf16 forward kernel's tile and alignment
-    rules (the backward kernels read every element by itself)."""
+def _check(x, dt, a, b, c, init_state):
+    """Device, dtype, shape and layout checks of the scan's inputs, and
+    for bf16 the tensor-core kernels' tile and alignment rules."""
     dev = x.device
     named = (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c))
     if init_state is not None:
@@ -93,12 +95,14 @@ def _check(x, dt, a, b, c, init_state, tensor_cores=True):
     for name, t in (("dt", dt), ("a", a), ("init_state", init_state)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tensor_cores and x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16:
         _check_tensor_core_tiles(x, b, c, init_state)
 
 
 def _check_bwd(x, dt, a, b, c, dy, init_state, d_final):
-    _check(x, dt, a, b, c, init_state, tensor_cores=False)
+    """``_check``, and dy and d_final; the bf16 backward takes the
+    forward's tiles, and copies dy's rows and d_final whole."""
+    _check(x, dt, a, b, c, init_state)
     if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
         raise ValueError(f"dy must be {tuple(x.shape)} in {x.dtype} on "
                          f"{x.device}, got {tuple(dy.shape)} {dy.dtype} {dy.device}")
@@ -107,12 +111,16 @@ def _check_bwd(x, dt, a, b, c, dy, init_state, d_final):
         if (d_final.device != x.device or d_final.dtype != torch.float32
                 or d_final.shape != want or not d_final.is_contiguous()):
             raise ValueError(f"d_final must be a contiguous float32 {want}")
+    if x.dtype == torch.bfloat16:
+        for name, t in (("dy", dy), ("d_final", d_final)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"bf16: {name} must start 16-byte aligned")
 
 
 def _check_tensor_core_tiles(x, b, c, init_state):
-    """What the bf16 kernel adds: 16-row P tiles and 16-deep k-steps over
-    N, and every row it copies (x, b, c by 16-byte cp.async, the state by
-    bulk copies) starting on a 16-byte boundary."""
+    """What the bf16 kernels add: 16-row P tiles and 16-deep k-steps over
+    N and P, and every row they copy (x, b, c by 16-byte cp.async or bulk
+    copies, the state by bulk copies) starting on a 16-byte boundary."""
     P, N = x.shape[3], b.shape[3]
     if P % 16 or N % 16:
         raise ValueError(f"bf16: P {P} and N {N} must be multiples of 16")
@@ -177,15 +185,23 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int,
     zeros). Returns (dx, d_dt, d_a, db, dc, d_init): dx, db, dc dense in
     x's dtype, d_dt (B, S, H), d_a (H,) and d_init (B, H, P, N) in fp32.
 
-    On CUDA three launches (``csrc/ssd_scan.cu``): the states kernel
-    writes the state at every 32-token block's start (B, ceil(S/32), H, P,
-    N) fp32 to scratch; the backward kernel, one CTA per (batch, head),
-    walks the blocks last to first with FMAs in fp32 and writes dx, d_dt,
-    d_init and per-head fp32 partials of db, dc and d(a); the reduce
-    kernel sums the partials in a fixed order (two launches are
-    bit-equal). x, b and c may be the forward's strided projection views;
-    dy is made dense. The kernels walk 32-token blocks where the plain
-    version walks ``chunk``-token chunks, so they agree within rounding."""
+    On CUDA three launches (``csrc/ssd_scan.cu``), every sum in a fixed
+    order (two launches are bit-equal). bf16, on the tensor cores (the
+    forward's tile rules, ``_check_tensor_core_tiles``): the states kernel
+    runs both block-to-block recurrences at once and writes the state at
+    every 32-token block's start and its cotangent at the block's end, each
+    split into bf16 hi + lo, (2, B, ceil(S/32), H, 2, P, N) scratch (the
+    bytes of fp32), and d_init; the gradients kernel, one CTA per (batch,
+    block, group) over the group's heads, writes dx, d_dt, db and dc
+    (summed over the heads in fp32, no per-head copies) and (batch, block,
+    head) partials of d(a), which the last launch sums. fp32, FMAs on the CUDA cores: the states kernel writes the
+    block-start states (B, ceil(S/32), H, P, N); the backward kernel, one
+    CTA per (batch, head), walks the blocks last to first and writes dx,
+    d_dt, d_init and per-head fp32 partials of db, dc (B, S, H, N) and
+    d(a), which the reduce kernel sums. x, b and c may be the forward's
+    strided projection views; dy is made dense. The kernels walk 32-token
+    blocks where the plain version walks ``chunk``-token chunks, so they
+    agree within rounding."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, a, b, c, dy, chunk=chunk,
                                 init_state=init_state, d_final=d_final)
@@ -197,10 +213,15 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int,
     G, N = b.shape[2], b.shape[3]
     dev, f32 = x.device, torch.float32
     nb = -(-S // BLOCK)
-    states = torch.empty((B, nb, H, P, N), dtype=f32, device=dev)
-    db_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
-    dc_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
-    d_a_part = torch.empty((B, H), dtype=f32, device=dev)
+    if x.dtype == torch.bfloat16:     # S0 and dS as hi, lo; d(a) per (batch, block, head)
+        states = torch.empty((2, B, nb, H, 2, P, N), dtype=x.dtype, device=dev)
+        d_a_part = torch.empty((B, nb, H), dtype=f32, device=dev)
+        db_part = dc_part = None
+    else:
+        states = torch.empty((B, nb, H, P, N), dtype=f32, device=dev)
+        d_a_part = torch.empty((B, H), dtype=f32, device=dev)
+        db_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
+        dc_part = torch.empty((B, S, H, N), dtype=f32, device=dev)
     dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     d_dt = torch.empty((B, S, H), dtype=f32, device=dev)
     d_init = torch.empty((B, H, P, N), dtype=f32, device=dev)
@@ -232,8 +253,9 @@ class SSDScan(torch.autograd.Function):
     """The SSD scan with its backward: ``SSDScan.apply(x, dt, a, b, c,
     init_state, chunk) -> (y, final_state)``. The forward is ``ssd_scan``
     and saves its inputs; the backward is ``ssd_scan_bwd``, which
-    recomputes the block-start states. ``init_state`` may be None (zeros;
-    its gradient is then None), and either cotangent may be None."""
+    recomputes the block-start states (and, in bf16, their cotangents)
+    into scratch. ``init_state`` may be None (zeros; its gradient is then
+    None), and either cotangent may be None."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, init_state, chunk):

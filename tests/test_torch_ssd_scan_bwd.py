@@ -3,10 +3,11 @@
 of the reference's ``ssd_chunked`` and against ``torch.autograd`` through
 ``ssd_scan_ref``, with a carried initial state and a final-state
 cotangent, at S spanning several chunks and at an S whose chunk halves;
-``SSDScan`` on CPU tensors routing to the plain versions; and the backward
-wrapper's input checks. Inputs are made with numpy and handed to both
-packages. Tolerance: 1e-5 of each gradient's largest |value| (both sides
-sum in fp32, in other orders)."""
+a float64 transcription of the bf16 kernels' two-phase decomposition
+against ``jax.vjp``; ``SSDScan`` on CPU tensors routing to the plain
+versions; and the backward wrapper's input checks. Inputs are made with
+numpy and handed to both packages. Tolerance: 1e-5 of each gradient's
+largest |value| (both sides sum in fp32, in other orders)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +87,86 @@ def test_plain_backward_matches_torch_autograd(S, chunk):
                            d_final=torch.from_numpy(d_final))
     for name, g, w in zip(NAMES, got, want):
         _close(g.numpy(), w.numpy(), name)
+
+
+def _two_phase_bwd(x, dt, a, b, c, dy, init, d_final, block=32):
+    """The bf16 kernels' decomposition, in float64 (numpy). Phase 1: per
+    (batch, head) the state at each ``block``-token block's start, walked
+    first to last, and the cotangent of the state at each block's end,
+    walked last to first (its last value is d_init). Phase 2: per (batch,
+    block, group) every head's gradients from those two alone, dB and dC
+    summed over the group's heads in head order."""
+    x, dt, a, b, c, dy, init, d_final = (np.asarray(v, np.float64) for v in
+                                         (x, dt, a, b, c, dy, init, d_final))
+    B, S, H, P = x.shape
+    G, N = b.shape[2:]
+    rep = H // G
+    spans = [(t0, min(S, t0 + block)) for t0 in range(0, S, block)]
+    s0 = np.zeros((B, len(spans), H, P, N))
+    ds = np.zeros_like(s0)
+    d_init = np.zeros((B, H, P, N))
+    for bi in range(B):
+        for h in range(H):
+            g = h // rep
+            state, dstate = init[bi, h], d_final[bi, h]
+            for k, (t0, t1) in enumerate(spans):
+                s0[bi, k, h] = state
+                cs = np.cumsum(dt[bi, t0:t1, h] * a[h])
+                w = dt[bi, t0:t1, h] * np.exp(cs[-1] - cs)
+                state = (np.exp(cs[-1]) * state
+                         + (x[bi, t0:t1, h] * w[:, None]).T @ b[bi, t0:t1, g])
+            for k, (t0, t1) in reversed(list(enumerate(spans))):
+                ds[bi, k, h] = dstate
+                cs = np.cumsum(dt[bi, t0:t1, h] * a[h])
+                dstate = (np.exp(cs[-1]) * dstate
+                          + (dy[bi, t0:t1, h] * np.exp(cs)[:, None]).T @ c[bi, t0:t1, g])
+            d_init[bi, h] = dstate
+    dx, d_dt = np.zeros_like(x), np.zeros_like(dt)
+    db, dc, d_a = np.zeros_like(b), np.zeros_like(c), np.zeros_like(a)
+    for bi in range(B):
+        for k, (t0, t1) in enumerate(spans):
+            for g in range(G):
+                bb, cc = b[bi, t0:t1, g], c[bi, t0:t1, g]
+                dbg, dcg = np.zeros_like(bb), np.zeros_like(cc)
+                for h in range(g * rep, (g + 1) * rep):
+                    xx, yy, d = x[bi, t0:t1, h], dy[bi, t0:t1, h], dt[bi, t0:t1, h]
+                    S0, dS = s0[bi, k, h], ds[bi, k, h]
+                    cs = np.cumsum(d * a[h])
+                    w = np.tril(np.exp(np.tril(cs[:, None] - cs[None, :])))
+                    tail, e = np.exp(cs[-1] - cs), np.exp(cs)
+                    m = (cc @ bb.T) * w
+                    q = (yy @ xx.T) * d[None, :] * w
+                    gm = (cc @ bb.T) * q
+                    v = bb @ dS.T
+                    u = yy @ S0
+                    dxdt = m.T @ yy + tail[:, None] * v
+                    dcg += q @ bb + e[:, None] * u
+                    dbg += q.T @ cc + (tail * d)[:, None] * (xx @ dS)
+                    t = tail * d * (xx * v).sum(1)
+                    dcs = gm.sum(1) - gm.sum(0) + e * (cc * u).sum(1) - t
+                    dcs[-1] += np.exp(cs[-1]) * (dS * S0).sum() + t.sum()
+                    dda = np.cumsum(dcs[::-1])[::-1]
+                    dx[bi, t0:t1, h] = d[:, None] * dxdt
+                    d_dt[bi, t0:t1, h] = a[h] * dda + (xx * dxdt).sum(1)
+                    d_a[h] += (dda * d).sum()
+                db[bi, t0:t1, g], dc[bi, t0:t1, g] = dbg, dcg
+    return dx, d_dt, d_a, db, dc, d_init
+
+
+def test_two_phase_decomposition_matches_jax_vjp():
+    """The algebra of the bf16 kernels (block-start states S0_k, block-end
+    cotangents dS_k, the last token's d(cs) terms, dB and dC summed over a
+    group's heads) against the reference's autodiff: a ragged S 40 (a
+    32-token block and an 8-token one), G 2 of two heads each, an initial
+    state and a final-state cotangent."""
+    x, dt, a, b, c, init, dy, d_final = _inputs(2, 40, 4, 2, 8, 16, seed=31)
+    _, vjp = jax.vjp(lambda *v: jax_ssd_chunked(*v[:5], 16, init_state=v[5]),
+                     *(jnp.asarray(v) for v in (x, dt, a, b, c, init)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(d_final)))
+    got = _two_phase_bwd(x, dt, a, b, c, dy, init, d_final)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        _close(g, w, name)
 
 
 def test_bf16_inputs_give_grads_in_their_dtype():
@@ -176,11 +257,19 @@ def test_bwd_wrapper_checks_refuse_what_the_kernel_does_not_take(bad, match):
 
 
 def test_bwd_wrapper_checks_take_bf16_tiles_the_forward_refuses():
-    """The backward kernels read every element by itself: bf16 P and N
-    off the 16-multiples the tensor-core forward needs are taken."""
+    """The bf16 backward runs on the tensor cores under the forward's tile
+    rules: P 8 / N 24 are refused in bf16, as by the forward, and taken in
+    fp32, whose FMA kernels read every element by itself; the forward's
+    16-multiples are taken in bf16."""
     v = _bwd_args(P=8, N=24)
+    ssd_ops._check_bwd(**v)
+    for k in ("x", "b", "c", "dy"):
+        v[k] = v[k].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_ops._check_bwd(**v)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_ops._check(v["x"], v["dt"], v["a"], v["b"], v["c"], v["init_state"])
+    v = _bwd_args(P=16, N=16)
     for k in ("x", "b", "c", "dy"):
         v[k] = v[k].to(torch.bfloat16)
     ssd_ops._check_bwd(**v)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        ssd_ops._check(v["x"], v["dt"], v["a"], v["b"], v["c"], v["init_state"])
