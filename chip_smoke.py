@@ -48,13 +48,21 @@ Phases, each printing one JSON line:
                  internvl2-76b's (64/8 at D 128, a group of 8: the 320-row
                  first chunk over ten pages, the 64-row chunk after it,
                  decode) and at musicgen-large's (MHA 32/32 at D 64, a group
-                 of 1: decode, a 32-row chunk), fp32 and bf16;
-                 checks bit-equality under trailing null table slots and
-                 between a row's decode and extend launches, and times the
-                 kernel, its plain version and one PyTorch library call
-                 (CUDA events, L2 flushed; the kernel and the library call
-                 also by the profiler's device time) at the main paths'
-                 decodes, extends and long decodes (4 x 4096), naming the
+                 of 1: decode, a 32-row chunk), fp32 and bf16; at the latent
+                 head also 32 decodes of 4096, a 64-token chunk (1,024 rows)
+                 at kv 4096 (and under a window of 1000), and pages of 8,
+                 16, 24 and 64 tokens (decode, extend, long decode, a sparse
+                 table under a window; 8 and 24 take the latent kernel's
+                 hand copies instead of its TMA boxes);
+                 checks bit-equality under trailing null table slots,
+                 between a row's decode and extend launches, and between a
+                 latent sequence decoded alone and as one of a batch of 32
+                 (kv 96-4033), and times the kernel, its plain version and
+                 one PyTorch library call (CUDA events, L2 flushed; the
+                 kernel and the library call also by the profiler's device
+                 time) at the main paths' decodes, extends and long decodes
+                 (4 x 4096; at the latent head also 32 x 4096, the 64-token
+                 chunk and pages of 16 and 64), naming the
                  ``scaled_dot_product_attention`` backend that takes D 576;
 3b. ring kernel — ragged paged attention in its explicit-position mode
                  (the ring path's) at gemma2-27b's geometry (32/16 heads, D
@@ -69,15 +77,18 @@ Phases, each printing one JSON line:
 3c. latent ring kernel — the same mode at deepseek-v2-lite-16b's latent
                  head (16/1 at D 576: the bf16 latent kernel, the fp32
                  kernel) and its reduced D 80, on 128-slot rings (empty
-                 slots, wrapped, decodes of 4, 48-row extends), reading one
+                 slots, wrapped, decodes of 4, 48-row extends) and (D 576)
+                 on four wrapped 4096-slot rings (full, and 2% empty),
+                 reading one
                  plane (V from K: the MLA ring) and two ([c, kr] / [c, 0]),
                  lanes [0, r) bit-equal between them, slot-derived
                  positions bit-equal to the slot mode in both layouts; and
                  at hymba-1.5b's 25/5 at D 64 on 256-slot rings under
                  windows 2048 and 64; fp32 and bf16, repeat launches
-                 bit-equal; times the latent decode and extend (one plane
-                 and two) and hymba's decode against their bounds, plain
-                 versions and SDPA with the positions' mask;
+                 bit-equal; times the latent decode (128 and 4096 slots)
+                 and extend (one plane and two) and hymba's decode against
+                 their bounds, plain versions and SDPA with the positions'
+                 mask;
 4. ssd kernel  — holds the SSD chunk scan against its plain version (y and
                  final state) at the mamba2-2.7b path's geometry (H 80, P
                  64, N 128) for S 1/9/32, a multi-chunk S 512, a G > 1
@@ -368,15 +379,15 @@ def nvidia_smi() -> str:
 
 
 def make_case(torch, q_lens, kv_lens, dtype, *, geo=(HQ, HKV, D),
-              extra_null=0, sparse=False, seed=0):
-    """A ragged batch on a shuffled page pool at the attention geometry
-    ``geo`` = (query heads, KV heads, head_dim): sequence s owns
-    ceil(kv_lens[s] / PAGE) pages at random pool ids; page 0 stays the
-    null page. ``extra_null`` pads every table row with trailing null
-    slots; ``sparse`` nulls every other slot."""
+              extra_null=0, sparse=False, seed=0, page=PAGE):
+    """A ragged batch on a shuffled pool of pages of ``page`` tokens at the
+    attention geometry ``geo`` = (query heads, KV heads, head_dim):
+    sequence s owns ceil(kv_lens[s] / page) pages at random pool ids; page
+    0 stays the null page. ``extra_null`` pads every table row with
+    trailing null slots; ``sparse`` nulls every other slot."""
     hq, hkv, d = geo
     g = torch.Generator().manual_seed(seed)
-    n_pages = [-(-k // PAGE) for k in kv_lens]
+    n_pages = [-(-k // page) for k in kv_lens]
     W = max(n_pages) + extra_null
     P = 1 + sum(n_pages)
     perm = (1 + torch.randperm(P - 1, generator=g)).tolist()
@@ -386,7 +397,7 @@ def make_case(torch, q_lens, kv_lens, dtype, *, geo=(HQ, HKV, D),
         perm = perm[n:]
     if sparse:
         table[:, 1::2] = 0
-    pages = torch.randn((P, PAGE, 2 * hkv, d), generator=g)
+    pages = torch.randn((P, page, 2 * hkv, d), generator=g)
     pages[0] = 0
     q = torch.randn((sum(q_lens), hq, d), generator=g)
     cu = torch.tensor([0] + list(torch.tensor(q_lens).cumsum(0).tolist()),
@@ -404,18 +415,19 @@ def work(case, dtype_name):
     q, pages, table, cu, kl = case
     _, hq, d = q.shape
     item = q.element_size()
+    ps = pages.shape[1]
     cu_l, kl_l, tbl = cu.tolist(), kl.tolist(), table.tolist()
     row_bytes = pages.shape[2] * d * item
     n_bytes = 2 * q.numel() * item + 4 * (table.numel() + cu.numel() + kl.numel())
     flops = 0
     for s, kv_len in enumerate(kl_l):
         qlen = cu_l[s + 1] - cu_l[s]
-        for j, p in enumerate(tbl[s][:-(-kv_len // PAGE)]):
+        for j, p in enumerate(tbl[s][:-(-kv_len // ps)]):
             if not p:
                 continue
-            n_bytes += row_bytes * (min(kv_len, (j + 1) * PAGE) - j * PAGE)
+            n_bytes += row_bytes * (min(kv_len, (j + 1) * ps) - j * ps)
             flops += 4 * d * hq * sum(
-                max(0, min(kv_len - qlen + i + 1, (j + 1) * PAGE) - j * PAGE)
+                max(0, min(kv_len - qlen + i + 1, (j + 1) * ps) - j * ps)
                 for i in range(qlen))
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype_name]
     return (n_bytes, flops, max(t_bytes, t_ops) * 1e3,
@@ -511,9 +523,10 @@ def sdpa_inputs(torch, case):
     v = torch.zeros_like(k)
     qq = torch.zeros((S, hq, qmax, d), dtype=q.dtype, device=q.device)
     mask = torch.zeros((S, 1, qmax, L), dtype=torch.bool, device=q.device)
+    ps = pages.shape[1]
     for s in range(S):
-        n = -(-kl_l[s] // PAGE)
-        kv = pages[table[s, :n].long()].reshape(n * PAGE, 2 * hkv, d)[:kl_l[s]]
+        n = -(-kl_l[s] // ps)
+        kv = pages[table[s, :n].long()].reshape(n * ps, 2 * hkv, d)[:kl_l[s]]
         k[s, :, :kl_l[s]] = kv[:, 0::2].transpose(0, 1)
         v[s, :, :kl_l[s]] = kv[:, 1::2].transpose(0, 1)
         qlen = cu_l[s + 1] - cu_l[s]
@@ -545,6 +558,10 @@ def kernel_phase(torch, ops, ref, smi):
     # over many groups and, past 128 pages, several slots a split
     m_decode = ([1, 1, 1, 1], [41, 66, 80, 95])
     m_extend = ([32], [96])
+    # and long MLA contexts: 32 sequences of 4096, a 64-token chunk (1,024
+    # rows) at kv 4096; the latent head at pages of 16 and 64 tokens
+    m_batch32 = ([1] * 32, [4096] * 32)
+    m_chunk64 = ([64], [4096])
     cases = [("decode", qwen, decode, {}, {}),
              ("sparse_table", qwen, mixed, {"sparse": True}, {}),
              ("extend48", qwen, extend, {}, {}),
@@ -575,6 +592,16 @@ def kernel_phase(torch, ops, ref, smi):
                    {"cap": 30.0, "window": 40}),
                   (f"{tag}_long_decode", geo, long, {}, {}),
                   (f"{tag}_multi_slot_splits", geo, ([1, 3], [4500, 6000]), {}, {})]
+    cases += [("mla_decode_32x4096", MLA, m_batch32, {}, {}),
+              ("mla_chunk64_4096", MLA, m_chunk64, {}, {}),
+              ("mla_chunk64_4096_window", MLA, m_chunk64, {}, {"window": 1000})]
+    # pages of 8 and 24 tokens: no TMA box, the latent kernel copies by hand
+    for ps in (8, 16, 24, 64):
+        cases += [(f"mla_decode_ps{ps}", MLA, m_decode, {"page": ps}, {}),
+                  (f"mla_extend32_ps{ps}", MLA, m_extend, {"page": ps}, {}),
+                  (f"mla_long_decode_ps{ps}", MLA, long, {"page": ps}, {}),
+                  (f"mla_sparse_table_ps{ps}", MLA, ([5, 1, 32, 1], [37, 64, 96, 128]),
+                   {"page": ps, "sparse": True}, {"window": 60})]
     # mixtral-8x22b (a group of 6: a decode token spans two 16-row tiles),
     # internvl2-76b (a group of 8; 256 patch embeddings, so the serve path's
     # first chunk is 320 rows over 10 pages and the chunk after it 64) and
@@ -668,31 +695,46 @@ def kernel_phase(torch, ops, ref, smi):
             if not torch.equal(ext[-1:], dec):
                 raise AssertionError(f"{dname}: {geo}, kv {kv_len}, a row's "
                                      "decode and extend launches differ")
+        # a sequence decoded alone and as one of a batch of 32 (lengths 96
+        # to 4033: one split to 32), at the latent head
+        kls = [96 + 127 * i for i in range(32)]
+        q, pages, table, cu, kl = make_case(torch, [1] * 32, kls, dtype, geo=MLA, seed=7)
+        batch = rpa(q, pages, table, cu, kl, scale=scale_of(MLA), max_q_len=1)
+        one = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+        for i in range(32):
+            alone = rpa(q[i:i + 1].contiguous(), pages, table[i:i + 1].contiguous(), one,
+                        kl[i:i + 1].contiguous(), scale=scale_of(MLA), max_q_len=1)
+            if not torch.equal(batch[i:i + 1], alone):
+                raise AssertionError(f"{dname}: MLA kv {kls[i]}: a sequence decoded "
+                                     "alone differs from the same one in a batch of 32")
     emit("kernel_check", kernel="ragged_paged_attention", max_abs_err=errs,
          tolerance={"rtol": TOL, "atol": atols}, padding_bit_equal=True,
-         decode_equals_extend_row=True)
+         decode_equals_extend_row=True, alone_equals_batch32=True)
 
     # -- times at the main paths' bf16 shapes ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     timing = {}
-    for name, geo, (ql, kl) in (("decode", qwen, ([1, 1, 1, 1], [72, 80, 88, 96])),
-                                ("extend", qwen, ([48], [80])),
-                                ("long_decode", qwen, ([1, 1, 1, 1], [4096] * 4)),
-                                ("hymba_decode", HYMBA, ([1, 1, 1, 1], [170, 190, 210, 230])),
-                                ("hymba_first_chunk", HYMBA, h_first),
-                                ("mla_decode", MLA, ([1, 1, 1, 1], [72, 80, 88, 96])),
-                                ("mla_extend32", MLA, m_extend),
-                                ("mla_long_decode", MLA, ([1, 1, 1, 1], [4096] * 4)),
-                                ("mixtral_decode", MIXTRAL, ([1, 1, 1, 1], [72, 80, 88, 96])),
-                                ("internvl2_decode", INTERNVL2,
-                                 ([1, 1, 1, 1], [328, 336, 344, 352])),
-                                ("internvl2_first_chunk", INTERNVL2, v_first),
-                                ("musicgen_decode", MUSICGEN, ([1, 1, 1, 1], [72, 80, 88, 96])),
-                                # gemma2-27b's paged decode at the ring case's lengths
-                                ("gemma2_decode", GEMMA2,
-                                 ([1, 1, 1, 1], [1000, 2300, 3700, 4700]))):
+    serve4 = ([1, 1, 1, 1], [72, 80, 88, 96])
+    shapes = [("decode", qwen, serve4), ("extend", qwen, ([48], [80])),
+              ("long_decode", qwen, ([1, 1, 1, 1], [4096] * 4)),
+              ("hymba_decode", HYMBA, ([1, 1, 1, 1], [170, 190, 210, 230])),
+              ("hymba_first_chunk", HYMBA, h_first),
+              ("mla_decode", MLA, serve4), ("mla_extend32", MLA, m_extend),
+              ("mla_long_decode", MLA, ([1, 1, 1, 1], [4096] * 4)),
+              ("mla_decode_32x4096", MLA, m_batch32), ("mla_chunk64_4096", MLA, m_chunk64),
+              ("mixtral_decode", MIXTRAL, serve4),
+              ("internvl2_decode", INTERNVL2, ([1, 1, 1, 1], [328, 336, 344, 352])),
+              ("internvl2_first_chunk", INTERNVL2, v_first),
+              ("musicgen_decode", MUSICGEN, serve4),
+              # gemma2-27b's paged decode at the ring case's lengths
+              ("gemma2_decode", GEMMA2, ([1, 1, 1, 1], [1000, 2300, 3700, 4700]))]
+    shapes = [(*sh, PAGE) for sh in shapes] + [
+        (f"mla_{tag}_ps{ps}", MLA, shape, ps) for ps in (16, 64)
+        for tag, shape in (("decode", serve4), ("extend32", m_extend),
+                           ("long_decode", ([1, 1, 1, 1], [4096] * 4)))]
+    for name, geo, (ql, kl), ps in shapes:
         scale = scale_of(geo)
-        case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5)
+        case = make_case(torch, ql, kl, torch.bfloat16, geo=geo, seed=5, page=ps)
         n_bytes, flops, bound_ms, bound_by = work(case, "bfloat16")
         qq, k, v, mask = sdpa_inputs(torch, case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -702,20 +744,24 @@ def kernel_phase(torch, ops, ref, smi):
         if geo == MLA:     # D 576: name the backend that takes it
             backend, lib = sdpa_backend(torch, lib)
         kernel = lambda: rpa(*case, scale=scale, max_q_len=max(ql))  # noqa: E731
+        # the plain version loops over the table's slots: a couple of calls
+        # at 32 x 4096
+        plain_iters = 2 if len(kl) * max(kl) > 4 * 4096 else 20
         timing[name] = {
-            "geometry": list(geo), "q_lens": ql, "kv_lens": kl, "bytes": n_bytes,
-            "library_backend": backend,
-            "flops": flops,
+            "geometry": list(geo), "q_lens": ql if len(ql) <= 4 else f"{len(ql)} x {ql[0]}",
+            "kv_lens": kl if len(kl) <= 4 else f"{len(kl)} x {kl[0]}", "page_size": ps,
+            "bytes": n_bytes, "library_backend": backend, "flops": flops,
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, lambda: rpa_ref(*case, scale=scale),
-                                flush, iters=20),
+                                flush, iters=plain_iters, warmup=min(5, plain_iters)),
             "library_ms": time_ms(torch, lib, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # the card's time alone (main kernel and, when spread, the merge)
+            # the card's time alone (every ragged_paged_attention kernel of the call)
             "device_ms": device_ms(torch, kernel, flush,
                                    lambda key: "ragged_paged_attention" in key),
             "library_device_ms": device_ms(torch, lib, flush),
         }
+        del case, qq, k, v, mask
     emit("kernel_time", kernel="ragged_paged_attention", dtype="bfloat16",
          nvidia_smi=smi, shapes=timing)
     return max_err, timing
@@ -955,8 +1001,9 @@ def latent_ring_kernel_phase(torch, ops, ref, smi):
     - deepseek-v2-lite-16b's latent head (16 query heads on one KV head of
       D 576; the bf16 latent kernel, the fp32 kernel) and its reduced D 80,
       on 128-slot rings read as 4 pages of 32: decodes of 4 over rings with
-      empty slots, over wrapped rings, and a 48-row extend; each in one
-      plane (V from K, ``v_from_k``: the ring) and in two ([c, kr] / [c,
+      empty slots, over wrapped rings, and a 48-row extend, and (D 576)
+      decodes of 4 over wrapped 4096-slot rings, full and 2% empty; each in
+      one plane (V from K, ``v_from_k``: the ring) and in two ([c, kr] / [c,
       0]: the paged pool's layout), whose lanes [0, r) must be bit-equal;
       and, on pages of the paged layout, the slot-derived positions written
       out bit-equal to the slot-derived mode, in both layouts;
@@ -964,9 +1011,9 @@ def latent_ring_kernel_phase(torch, ops, ref, smi):
       its window of 2048 (and a binding 64): decode of 4 and a 32-row chunk.
 
     Every output is bit-stable across two launches. Times the bf16 latent
-    decode (the serve ring's lengths) and extend, one plane and two, the
-    hymba decode: kernel (events and device time), plain version, SDPA with
-    the stored positions' mask, bound."""
+    decode (the serve ring's lengths, and 4096-slot rings) and extend, one
+    plane and two, the hymba decode: kernel (events and device time), plain
+    version, SDPA with the stored positions' mask, bound."""
     rpa, rpa_ref = ops.ragged_paged_attention, ref.ragged_paged_attention_ref
     C = LATENT_RING
     cases = {   # name: (geo, spans, q_lens, ring slots, empty, window)
@@ -978,6 +1025,10 @@ def latent_ring_kernel_phase(torch, ops, ref, smi):
     all_cases = [(f"{tag}_{name}", geo, *rest) for tag, geo in (("mla", MLA),
                                                                 ("mla_reduced", MLA_REDUCED))
                  for name, rest in cases.items()]
+    # four wrapped 4096-slot rings: the long latent decode the ring path reads
+    ring4096 = [(0, n) for n in (4096, 4500, 5000, 6000)]
+    all_cases += [("mla_decode_4096", MLA, ring4096, [1] * 4, 4096, 0.0, None),
+                  ("mla_decode_4096_empty", MLA, ring4096, [1] * 4, 4096, 0.02, None)]
     all_cases += [("hymba_decode_window2048", HYMBA, [(0, n) for n in (161, 183, 207, 230)],
                    [1] * 4, HYMBA_RING, 0.02, 2048),
                   ("hymba_decode_window64", HYMBA, [(0, n) for n in (161, 183, 207, 230)],
@@ -1057,6 +1108,7 @@ def latent_ring_kernel_phase(torch, ops, ref, smi):
     for name, geo, spans, ql, ring, window in (
             ("mla_decode", MLA, [(0, n) for n in (72, 80, 88, 96)], [1] * 4, C, None),
             ("mla_extend48", MLA, [(0, 96)], [48], C, None),
+            ("mla_decode_4096", MLA, ring4096, [1] * 4, 4096, None),
             ("hymba_decode", HYMBA, [(0, n) for n in (170, 190, 210, 230)], [1] * 4,
              HYMBA_RING, 2048)):
         case, q_pos, kv_pos = ring_case(torch, spans, ql, ring, torch.bfloat16, geo=geo,
@@ -3965,6 +4017,8 @@ def main() -> int:
         "library_ms": dec["library_ms"], "device_ms": dec["device_ms"],
         "hymba_decode": times(timing["hymba_decode"]),
         "mla_decode": times(timing["mla_decode"]),
+        **{name: times(timing[name]) for name in timing
+           if name.startswith("mla_") and name != "mla_decode"},
         "mixtral_decode": times(timing["mixtral_decode"]),
         "internvl2_decode": times(timing["internvl2_decode"]),
         "musicgen_decode": times(timing["musicgen_decode"]),
@@ -3994,7 +4048,9 @@ def main() -> int:
         **times(latent_timing["mla_decode"]),
         "two_planes": times(latent_timing["mla_decode_two_planes"]),
         "mla_extend48": times(latent_timing["mla_extend48"]),
-        "mla_extend48_two_planes": times(latent_timing["mla_extend48_two_planes"])}, {
+        "mla_extend48_two_planes": times(latent_timing["mla_extend48_two_planes"]),
+        "mla_decode_4096": times(latent_timing["mla_decode_4096"]),
+        "mla_decode_4096_two_planes": times(latent_timing["mla_decode_4096_two_planes"])}, {
         "name": "ssd_scan", "route": "cuda",
         "source": str(sops.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:59",

@@ -13,6 +13,16 @@ fold every group in one CTA. Both fold in the same order, so a row's bits
 do not depend on the mode. The library decides the mode and says how much
 fp32 scratch it needs; the wrapper allocates that (``torch.empty``).
 
+The bf16 latent head (D 576, MLA) has a plan of its own and one launch: a
+sequence's keys are cut into splits of about 192 keys (whole pages, a
+function of the page size alone), 8 consecutive splits run as a cluster of
+CTAs that fold their partials on chip, and the clusters of a longer
+sequence fold through fp32 scratch, the last to finish found by an int32
+counter. The counters must be zero at launch and every launch leaves them
+zero; the wrapper keeps one buffer a device and stream (``_counters``).
+Decode holds one 16-row tile a CTA, anything longer two, sharing each
+staged block; a row's bits are the same in either.
+
 With ``q_pos``/``kv_pos_pages`` the kernel reads key positions from the
 given plane and query positions from ``q_pos`` (the explicit-position
 mode a ring cache reads through); it then visits every table slot up to
@@ -21,7 +31,7 @@ kernel, the latent-head (MLA) one included.
 
 ``v_from_k=True`` reads a single-plane pool ``(P, ps, 1, D)``, one KV head
 whose value row is its key row: the MLA ring's stored ``[c, kr]``, read
-by every kernel (at D 576 the bf16 latent kernel with stage rows of one
+by every kernel (at D 576 the bf16 latent kernel with staged units of one
 plane).
 """
 from __future__ import annotations
@@ -50,11 +60,28 @@ def _library():
                        I, I, I, I, I, I, I, I, I,   # T S W P ps Hq Hkv D max_q_len
                        I,                           # v_from_k
                        F, I, F, I, I,               # scale has_cap cap has_win win
-                       I, P, P]                     # dtype scratch stream
+                       I, P, P, P]                  # dtype scratch counters stream
         fn.restype = ctypes.c_int
-        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 7
+        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 9
         lib.ragged_paged_attention_scratch_floats.restype = ctypes.c_longlong
+        lib.ragged_paged_attention_counters.argtypes = [I] * 8
+        lib.ragged_paged_attention_counters.restype = ctypes.c_longlong
     return lib
+
+
+# The latent kernel's fold counters, by (device, stream): int32, zero
+# between launches (each launch leaves them zero), grown on demand. One
+# buffer a stream, so the launches that share it run in order.
+_COUNTERS: dict = {}
+
+
+def _counters(n: int, device, stream: int):
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _check_positions(q, kv_pages, q_pos, kv_pos_pages):
@@ -159,12 +186,15 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     max_q_len = T if max_q_len is None else int(max_q_len)
     out = torch.empty_like(q)
     lib = _library()
-    n_scratch = lib.ragged_paged_attention_scratch_floats(T, Hq, Hkv, D, W, max_q_len,
-                                                          _DTYPES[q.dtype])
+    dtype = _DTYPES[q.dtype]
+    n_scratch = lib.ragged_paged_attention_scratch_floats(T, S, Hq, Hkv, D, W, ps,
+                                                          max_q_len, dtype)
+    n_counters = lib.ragged_paged_attention_counters(S, Hq, Hkv, D, W, ps, max_q_len, dtype)
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(n_counters, q.device, stream) if n_counters else None
         rc = lib.ragged_paged_attention_launch(
             q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
             cu_q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
@@ -173,7 +203,8 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
             T, S, W, P, ps, Hq, Hkv, D, max_q_len, int(v_from_k),
             float(scale), cap is not None, float(cap or 0.0),
             window is not None, int(window or 0),
-            _DTYPES[q.dtype], None if scratch is None else scratch.data_ptr(), stream)
+            dtype, None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {rc}")
     ragged_paged_attention.launches += 1
