@@ -768,6 +768,175 @@ def kernel_phase(torch, ops, ref, smi):
 
 
 # ---------------------------------------------------------------------------
+# Launch plans (tune.py) and the gather count, at the served geometries
+# ---------------------------------------------------------------------------
+
+# (name, geometry, page size): qwen3-8b at pages of 64 and at the serve
+# default of 32, hymba-1.5b (D 64, a group of 5) at 32
+TUNE_GEOS = (("qwen3-8b_ps64", (HQ, HKV, D), 64), ("qwen3-8b_ps32", (HQ, HKV, D), PAGE),
+             ("hymba-1.5b_ps32", HYMBA, PAGE))
+# decode over 1 to 4 slots a split; a sparse-table extend; a binding
+# window; the explicit-position mode (the ring view's), page 0 included
+TUNE_CASES = {"decode": (([1, 1, 1, 1], [100, 1500, 4500, 9000]), {}, {}),
+              "sparse_extend": (([5, 1, 48, 20], [37, 64, 600, 900]), {"sparse": True}, {}),
+              "window": (([20, 3, 1], [1000, 600, 4500]), {}, {"window": 300}),
+              "positions": (([5, 1, 48], [37, 900, 4100]), {"sparse": True},
+                            {"positions": True})}
+
+
+def tile_plans(tune, ops, dtype):
+    """The (block_q, num_buffers, head dim) plans the tiles library of
+    ``dtype`` instantiates: every plan but the default one that fits the
+    card, at every head dim of the per-warp kernels."""
+    return [(bq, nb, d) for bq in tune.CANDIDATE_BLOCK_Q for nb in tune.CANDIDATE_BUFFERS
+            for d in ops._HEAD_DIMS
+            if (bq, nb) != (tune.MMA_ROWS, 2) and not tune.is_latent(d, dtype)
+            and (bq == tune.MMA_ROWS or d <= tune.WIDE_MAX_D)
+            and tune.smem_bytes(d, dtype, bq, nb) <= tune.SMEM_BYTES]
+
+
+def slot_positions(torch, case):
+    """A make_case batch's slot-derived positions written out as explicit
+    ones (``q_pos``, ``kv_pos_pages``): the key at row r of the page in slot
+    j sits at j * ps + r below kv_len, every other row -1."""
+    q, pages, table, cu, kl = case
+    ps = pages.shape[1]
+    kv_pos = torch.full((pages.shape[0], ps), -1, dtype=torch.int32)
+    q_pos = []
+    cu_l, kl_l, tbl = cu.tolist(), kl.tolist(), table.tolist()
+    for s, kv_len in enumerate(kl_l):
+        for j, p in enumerate(tbl[s][:-(-kv_len // ps)]):
+            if p:
+                n = min(ps, kv_len - j * ps)
+                kv_pos[p, :n] = torch.arange(j * ps, j * ps + n, dtype=torch.int32)
+        q_pos += range(kv_len - (cu_l[s + 1] - cu_l[s]), kv_len)
+    return torch.tensor(q_pos, dtype=torch.int32).cuda(), kv_pos.cuda()
+
+
+def tune_phase(torch, ops, ref, tune, smi):
+    """The launch plans on the card. At each of ``TUNE_GEOS``, in bf16 and
+    fp32, every candidate plan (tune.py's grid, as the card resolves it) on
+    each of ``TUNE_CASES``: agrees with the plain version within the
+    tolerance, is bit-equal across two launches and to the default rows
+    and stages at the same block_kv (a row's bits depend on its split
+    boundaries alone), and its ``gathered`` counter equals
+    ``pages_gathered``. The latent kernel's counter likewise, on its own
+    plan, one plane and two. Then ``autotune`` on a decode and an extend
+    case at each geometry (bf16): every candidate's device ms beside the
+    default's, and the winner. The tuned plans are dropped at the end, so
+    the phases after this one launch the default plan. Returns the tuning
+    results by geometry."""
+    import dataclasses
+    rpa, rpa_ref = ops.ragged_paged_attention, ref.ragged_paged_attention_ref
+    grid = [tune.KernelConfig(bq, bkv, nb) for bq in tune.CANDIDATE_BLOCK_Q
+            for bkv in tune.CANDIDATE_BLOCK_KV for nb in tune.CANDIDATE_BUFFERS]
+
+    def launch(case, pos, geo, ql, kw, plan=None, gathered=None, v_from_k=False):
+        extra = dict(q_pos=pos[0], kv_pos_pages=pos[1]) if pos else {}
+        plan = {} if plan is None else dict(block_q=plan.block_q, block_kv=plan.block_kv,
+                                            num_buffers=plan.num_buffers)
+        return rpa(*case, scale=scale_of(geo), max_q_len=max(ql), v_from_k=v_from_k,
+                   gathered=gathered, **extra, **plan, **kw)
+
+    def counted(case, pos, geo, ql, kw, plan=None, v_from_k=False):
+        n = torch.zeros(1, dtype=torch.int32, device="cuda")
+        out = launch(case, pos, geo, ql, kw, plan, n, v_from_k)
+        torch.cuda.synchronize()
+        return out, int(n.item())
+
+    def replica(case, geo, ql, dtype, kw, pos, plan=None):
+        _, pages, table, cu, kl = case
+        return ops.pages_gathered(
+            table, cu, kl, page_size=pages.shape[1], max_q_len=max(ql),
+            block_q=plan and plan.block_q, block_kv=plan and plan.block_kv,
+            window=kw.get("window"), num_q_heads=geo[0], num_kv_heads=geo[1],
+            head_dim=geo[2], dtype=dtype, positions=pos is not None,
+            num_pages=pages.shape[0])
+
+    saved = dict(tune._CACHE)
+    checks, errs, counts, tuned = {}, {}, {}, {}
+    try:
+        for gname, geo, ps in TUNE_GEOS:
+            for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+                for cname, ((ql, kl), mk, kw) in TUNE_CASES.items():
+                    kw = dict(kw)
+                    case = make_case(torch, ql, kl, dtype, geo=geo, page=ps, seed=11, **mk)
+                    pos = slot_positions(torch, case) if kw.pop("positions", False) else None
+                    extra = dict(q_pos=pos[0], kv_pos_pages=pos[1]) if pos else {}
+                    want = rpa_ref(*case, scale=scale_of(geo), **extra, **kw).float()
+                    tol = TOL[dname]
+                    atol = tol if dname == "float32" else tol * min(1.0, want.abs().max().item())
+                    base = {}
+                    tag = f"{gname}/{dname}/{cname}"
+                    for plan in grid:
+                        eff = tune.resolve_config(ps, geo[2], max(ql), case[2].shape[1],
+                                                  plan.block_q, plan.block_kv,
+                                                  plan.num_buffers, dtype=dtype,
+                                                  group=geo[0] // geo[1])
+                        out, n = counted(case, pos, geo, ql, kw, plan)
+                        again = launch(case, pos, geo, ql, kw, plan)
+                        if eff.block_kv not in base:
+                            base[eff.block_kv] = launch(case, pos, geo, ql, kw, tune.KernelConfig(
+                                16, eff.block_kv, 2))
+                        key = f"{tag}/{eff.block_q},{eff.block_kv},{eff.num_buffers}"
+                        errs[key] = (out.float() - want).abs().max().item()
+                        counts[key] = n
+                        checks[f"{key} close"] = torch.allclose(out.float(), want, atol=atol,
+                                                                rtol=tol)
+                        checks[f"{key} bit-stable"] = torch.equal(out, again)
+                        checks[f"{key} default bits"] = torch.equal(out, base[eff.block_kv])
+                        checks[f"{key} gathered"] = n == replica(case, geo, ql, dtype, kw,
+                                                                 pos, plan) > 0
+                    del case, want, base
+        # the latent kernel (bf16 D 576) on its own plan, one plane and two
+        for cname, ((ql, kl), mk, kw) in TUNE_CASES.items():
+            kw = dict(kw)
+            case = make_case(torch, ql, kl, torch.bfloat16, geo=MLA, seed=12, **mk)
+            pos = slot_positions(torch, case) if kw.pop("positions", False) else None
+            for planes, v_from_k in ((2, False), (1, True)):
+                args = case if not v_from_k else [case[0], case[1][:, :, :1].contiguous(),
+                                                  *case[2:]]
+                _, n = counted(args, pos, MLA, ql, kw, v_from_k=v_from_k)
+                key = f"mla/bfloat16/{cname}/planes{planes}"
+                counts[key] = n
+                checks[f"{key} gathered"] = n == replica(case, MLA, ql, torch.bfloat16, kw,
+                                                         pos) > 0
+            del case
+        emit("tune_check", kernel="ragged_paged_attention", max_abs_err=errs,
+             tolerance=TOL, gathered=counts)
+        _require("tune", checks)
+        for gname, geo, ps in TUNE_GEOS:
+            hq, hkv, d = geo
+            # decode and a ragged extend at 2048 keys, and decode at 16384
+            # (256 or 512 pages: splits of up to 4 or 8 slots, where
+            # block_kv decides)
+            cases = [tune._bench_case(ps, d, device="cuda", n_kv_heads=hkv, group=hq // hkv,
+                                      seqs=4, pages_per_seq=keys // ps, decode=dec, seed=13)
+                     for keys, dec in ((2048, True), (2048, False), (16384, True))]
+            default = tune.resolve_config(ps, d, 1 << 20, tune.MAX_SPLIT_SLOTS,
+                                          *dataclasses.astuple(tune.KernelConfig()))
+            timings = {}
+            win = tune.autotune(ps, d, cases=cases, timings=timings, cache_path="")
+            tuned[gname] = {
+                "page_size": ps, "geometry": list(geo), "device_name": tune._arch(),
+                "cases": [{"q_lens": c["cu_q_lens"].diff().tolist(),
+                           "kv_lens": c["kv_lens"].tolist()} for c in cases],
+                "default": [default.block_q, default.block_kv, default.num_buffers],
+                "default_ms": timings[default],
+                "winner": [win.block_q, win.block_kv, win.num_buffers],
+                "winner_ms": timings[win],
+                "candidates_ms": {f"{c.block_q},{c.block_kv},{c.num_buffers}": ms
+                                  for c, ms in timings.items()}}
+            del cases
+    finally:
+        tune._CACHE.clear()
+        tune._CACHE.update(saved)
+    emit("tune", nvidia_smi=smi, dtype="bfloat16", timing="CUDA events over 20 rounds "
+         "of the cases behind a device sleep: ms a round, device time", geometries=tuned)
+    return tuned
+
+
+# ---------------------------------------------------------------------------
 # The explicit-position mode: rings viewed as pages (gemma2-27b's geometry)
 # ---------------------------------------------------------------------------
 
@@ -1811,6 +1980,11 @@ def train_shape_times(torch, fops, fref, flush, B, S, H, Hkv, Dk, Dv, window, se
         t["bound_ms"], t["bound_by"] = _bound(flops, n_bytes, "bfloat16")
     res["flash_attention_fwd"].update(library_ms=med["sdpa_forward"],
                                       library_backend=fwd_backend)
+    # dK/dV alone has no library call: beside it, SDPA's whole backward (dQ,
+    # dK and dV; causal, no window)
+    res["flash_attention_bwd_dkdv"].update(
+        library_ms=med["sdpa_forward_backward"] - med["sdpa_forward"],
+        library_backend=f"{bwd_backend} backward")
     res["sdpa"] = {
         "forward_ms": med["sdpa_forward"], "forward_range": [min(runs["sdpa_forward"]),
                                                               max(runs["sdpa_forward"])],
@@ -2415,7 +2589,8 @@ def run_serve(torch, cfg_mod, tfm, serve, param, arch, kernels, layers=None,
     decode_tokens = rep["tokens_generated"] - rep["finished"]
     if keep is not None:
         keep.update(cfg=cfg, full=full, params=params, prompts=prompts,
-                    wall_s=wall_s, tokens={k: [int(t) for t in v]
+                    wall_s=wall_s, report=rep, launches=launches,
+                    tokens={k: [int(t) for t in v]
                                            for k, v in eng.outputs.items()})
     stats = dict(
         arch=cfg.name, layers=cfg.num_layers, published_layers=full.num_layers,
@@ -3143,6 +3318,97 @@ def fleet_serve_phase(torch, serve, param, kernels, smi, held):
             inject_launches)
 
 
+OVERRIDE_FLAGS = ["--kernel-block-kv", "4", "--kernel-buffers", "3"]
+
+
+def serve_overrides_phase(torch, serve, tune, kernels, smi, held):
+    """qwen3-8b at full width and depth on the ``serve`` phase's weights
+    (``held``: no second draw) through the launcher's flags
+    ``OVERRIDE_FLAGS``, which the engine pins in ``tune.py``'s cache for its
+    page geometry; the serve phase's traffic, driven as it drives it. Held:
+    the memory-plane report equals the default run's, and so does the
+    paged kernel's launch count; every request finished. Recorded, not
+    held: the share of tokens equal to the default run's (bf16 ties may
+    part them, ROADMAP §C.4). The pinned plan is dropped after the run.
+    Returns the run's launch counts."""
+    cfg, full, params, prompts = (held["cfg"], held["full"], held["params"],
+                                  held["prompts"])
+    args = serve.parser().parse_args(["--arch", "qwen3-8b", *OVERRIDE_FLAGS])
+    saved = dict(tune._CACHE)
+    try:
+        eng = serve.build_engine(args, cfg, full, params, device="cuda")
+        eng.ecfg.eos_token = -1      # as the serve phase: random weights may emit it
+        plan = tune.best_config(args.page_tokens, cfg.resolved_head_dim)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng.submit(prompts[0], max_new_tokens=args.max_new)
+        eng.run_until_idle()
+        for pr in prompts[1:]:
+            eng.submit(pr, max_new_tokens=args.max_new)
+        rep = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        same = sum(a == b for k, v in eng.outputs.items()
+                   for a, b in zip(v, held["tokens"][k]))
+        del eng
+    finally:
+        tune._CACHE.clear()
+        tune._CACHE.update(saved)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {"plan_pinned": plan == tune.KernelConfig(16, 4, 3),
+              "report_equals_default": json.dumps(rep, sort_keys=True, default=float)
+              == json.dumps(held["report"], sort_keys=True, default=float),
+              "launches_equal_default": launches["ragged_paged_attention"]
+              == held["launches"]["ragged_paged_attention"] > 0,
+              "finished": rep["finished"] == 8}
+    emit("serve_overrides", nvidia_smi=smi, arch=cfg.name, layers=cfg.num_layers,
+         flags=OVERRIDE_FLAGS, plan=[plan.block_q, plan.block_kv, plan.num_buffers],
+         wall_s=wall_s, default_wall_s=held["wall_s"], kernel_launches=launches,
+         tokens_equal_default_share=same / max(rep["tokens_generated"], 1), checks=checks)
+    _require("serve overrides", checks)
+    return launches
+
+
+def examples_phase(torch, smi):
+    """The example legs on the card, each as ``python <leg>`` would run it
+    (in this process): ``examples/quickstart_torch.py`` (reduced qwen3-8b
+    serving, prefix reuse, the reliability plane),
+    ``examples/serve_batched_mrm_torch.py`` (reduced gemma2-27b serving,
+    metered at full size) and ``examples/train_tiny_lm_torch.py`` at 40
+    steps and its 60-step resume (reduced deepseek-7b; at 6 steps of the
+    40-step warmup the loss, on a new batch each step, need not fall).
+    Each leg's own asserts must hold; their printed lines are recorded."""
+    import contextlib
+    import io
+    import runpy
+    import tempfile
+    printed, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for leg, argv in (("quickstart_torch", []), ("serve_batched_mrm_torch", []),
+                          ("train_tiny_lm_torch", ["--steps", "40", "--ckpt-dir", ckpt])):
+            path = ROOT / "examples" / f"{leg}.py"
+            argv0 = sys.argv
+            sys.argv = [str(path), *argv]
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    runpy.run_path(str(path), run_name="__main__")
+            finally:
+                sys.argv = argv0
+            torch.cuda.synchronize()
+            seconds[leg] = time.perf_counter() - t0
+            printed[leg] = buf.getvalue().splitlines()
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit("examples", nvidia_smi=smi, seconds=seconds, printed=printed,
+         checks={leg: True for leg in printed})
+
+
 RELIABILITY_ARMS = {"clean": (None, True, 0.8), "protected": (1e-3, True, 0.8),
                     "overaged": (1e-3, False, 8.0)}   # (rber, refresh, jump / deadline)
 
@@ -3815,7 +4081,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels import decode_attention as ring_view
-    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.paged_attention import ops, ref, tune
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.launch import serve
@@ -3832,7 +4098,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = [ops.SOURCE, sops.SOURCE, fops.SOURCE]
+    # the paged kernels' other launch plans (tune.py) build beside the rest
+    sources = [ops.SOURCE, sops.SOURCE, fops.SOURCE, *ops.TILES_SOURCES.values()]
     libs = _build.build_all(sources)
     build_s = time.perf_counter() - t0
     reports = {src.stem: _build.report(src) for src in sources}
@@ -3840,7 +4107,8 @@ def main() -> int:
                    for lib in ("flash_attention", "ragged_paged_attention", "ssd_scan")
                    for name, r in reports[lib].items()
                    if name.startswith(TC_KERNELS + MMA_KERNELS)}
-    emit("build", kernels=["ragged_paged_attention", "ssd_scan", "flash_attention"],
+    emit("build", kernels=["ragged_paged_attention", "ssd_scan", "flash_attention",
+                           "ragged_paged_attention_tiles", "ragged_paged_attention_tiles_fp32"],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs], build_s=build_s,
          ptxas=reports, tensor_core_instructions=tensor_core)
     # where the toolkit has cuobjdump, each bf16 instantiation of the
@@ -3856,6 +4124,16 @@ def main() -> int:
         if name.startswith(SSD_BWD_MMA_KERNELS)} | {
         "found": len(tensor_core) == 33,
         "ssd bwd found": sum(n.startswith(SSD_BWD_MMA_KERNELS) for n in tensor_core) == 3})
+    # the tiles libraries: one instantiation per plane count and plan that
+    # fits the card; every bf16 one on the tensor cores
+    for dtype, src in ops.TILES_SOURCES.items():
+        name = "ragged_paged_attention_mma_kernel" if dtype == torch.bfloat16 else \
+            "ragged_paged_attention_kernel<"
+        found = {k: r for k, r in reports[src.stem].items() if k.startswith(name)}
+        _require(f"{src.stem} build", {
+            "found": len(found) == 2 * len(tile_plans(tune, ops, dtype)),
+            **{f"{k} hmma": r.get("hmma") is None or r["hmma"] > 0
+               for k, r in found.items() if dtype == torch.bfloat16}})
 
     flash = [fops.flash_attention_fwd, fops.flash_attention_bwd_dkdv,
              fops.flash_attention_bwd_dq]
@@ -3873,6 +4151,7 @@ def main() -> int:
                                   ring_view, smi)
     latent_err, latent_timing = timed("latent ring kernel", latent_ring_kernel_phase,
                                       torch, ops, ref, smi)
+    tuned = timed("tune", tune_phase, torch, ops, ref, tune, smi)
     ssd_err, ssd_timing = timed("ssd kernel", ssd_kernel_phase, torch, sops, sref, smi)
     bwd_err, bwd_timing = timed("ssd bwd kernel", ssd_bwd_kernel_phase, torch, sops,
                                 sref, smi)
@@ -3908,6 +4187,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_serve_launches, inject_launches = timed(
         "fleet serve", fleet_serve_phase, torch, serve, param, kernels, smi, held)
+    override_launches = timed("serve overrides", serve_overrides_phase, torch, serve, tune,
+                              kernels, smi, held)
     del held
     gc.collect()                     # the qwen3-8b weights
     torch.cuda.empty_cache()
@@ -3949,6 +4230,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla_train = timed("mla train", mla_train_phase, torch, cfg_mod, tfm, param, optim,
                       train, data, kernels, smi)
+    gc.collect()                     # the deepseek-v2-lite-16b state
+    torch.cuda.empty_cache()
+    timed("examples", examples_phase, torch, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 
     # each serving path's counts, zeroed before it and read after it; an
@@ -3964,6 +4248,7 @@ def main() -> int:
             **{f"qwen3-8b fleet serve {clock}": n["ragged_paged_attention"]
                for clock, n in fleet_serve_launches.items()},
             "qwen3-8b inject serve": inject_launches["ragged_paged_attention"],
+            "qwen3-8b serve overrides": override_launches["ragged_paged_attention"],
             "reduced fleet": fleet_launches.get("ragged_paged_attention", 0),
             "reduced reliability": rel_launches},
         "ragged_paged_attention_positions": {
@@ -4015,6 +4300,9 @@ def main() -> int:
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"], "device_ms": dec["device_ms"],
+        # tune.py's winners at the served geometries, beside the default plan
+        "launch_plans": {g: {k: t[k] for k in ("default", "default_ms", "winner", "winner_ms")}
+                         for g, t in tuned.items()},
         "hymba_decode": times(timing["hymba_decode"]),
         "mla_decode": times(timing["mla_decode"]),
         **{name: times(timing[name]) for name in timing

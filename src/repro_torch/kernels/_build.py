@@ -4,8 +4,9 @@ Each kernel library is one ``csrc/*.cu`` file with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library at first
 use and loaded with ``ctypes``. The library lands in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
-its source and flags, so an edited source rebuilds and an unchanged one is
-reused. A failed build raises; nothing falls back. ptxas's resource report
+its source (with the files it includes by a quoted path) and flags, so an
+edited source rebuilds and an unchanged one is reused. A failed build
+raises; nothing falls back. ptxas's resource report
 (``-Xptxas -v``) is kept beside each library (``.log``), and ``report``
 reads it with the library's SASS: registers, spills and tensor-core
 instructions per kernel.
@@ -44,8 +45,24 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _texts(source: pathlib.Path) -> bytes:
+    """``source`` and, after it, every file it includes by a quoted path
+    (resolved beside it), recursively: what its library is built from."""
+    seen, out, todo = set(), [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out.append(text)
+        todo += [path.parent / m.decode()
+                 for m in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M)]
+    return b"".join(out)
+
+
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(source.read_bytes()
+    digest = hashlib.sha256(_texts(source)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 

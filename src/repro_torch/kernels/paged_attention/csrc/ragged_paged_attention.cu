@@ -32,10 +32,13 @@
 // - Rows. A tile is a fixed number of (token, group-head) rows of one
 //   (sequence, KV head), flattened token-major, so the G query heads of a KV
 //   head share every page the tile reads: 16 for bf16 (the M of mma.sync),
-//   4 for fp32. Decode of qwen3-8b (G 4) is one tile.
+//   4 for fp32, or twice that (the launch's block_q: two m16 tiles, or 8
+//   fp32 rows, on each staged block; up to D 128, where the accumulators
+//   still fit the registers). Decode of qwen3-8b (G 4) is one tile.
 // - Splits. The table's slots are cut at fixed boundaries counted from slot
 //   0: split i holds slots [n*i, n*i + n), n = split_slots(the sequence's
-//   pages), and a group holds kWarps consecutive splits. Each warp of a CTA
+//   pages, the launch's block_kv), and a group holds kWarps consecutive
+//   splits. Each warp of a CTA
 //   walks one split of the tile's reachable slots [lo, hi) in ascending
 //   order and keeps its own fp32 (m, l, acc) for all rows of the tile. A
 //   split with no live slot is an exact identity (l = 0) and every merge
@@ -52,8 +55,19 @@
 //   the other rows of the launch (decode vs extend) leave them unchanged. No
 //   atomics.
 // - Staging. Each warp streams its split in blocks of keys (16 for bf16,
-//   about 8 KB for fp32) by cp.async into 2 stages of its own, so block j+1
-//   loads while block j is computed; keys past a page's end are zero-filled.
+//   about 8 KB for fp32) by cp.async into NS stages of its own (the launch's
+//   num_buffers, 2 to 4, as shared memory allows), so blocks j+1 .. j+NS-1
+//   load while block j is computed; keys past a page's end are zero-filled.
+// - Launch plan. block_q, block_kv and num_buffers are arguments of the
+//   launch (tune.py chooses them; 16, 8, 2 by default). Rows and stages are
+//   compiled in: the default plan in this file's library, every other plan
+//   in the tiles libraries (ragged_paged_attention_tiles{,_fp32}.cu:
+//   RPA_TILES), built when first asked for. A row's bits depend on block_kv
+//   (the split boundaries) alone.
+// - Gather count. With a non-null counter each warp adds the (page, KV
+//   head) slabs it stages, one per live slot of its split (tune.py's
+//   pages_gathered replicates the count on the host); null on every normal
+//   launch.
 // - Arithmetic, bf16 (ragged_paged_attention_mma_kernel): S = Q Kᵀ and
 //   O += P V on the tensor cores by mma.sync.m16n8k16 (fp32 sums), P rounded
 //   to bf16; the softmax on the fragments.
@@ -91,8 +105,9 @@ namespace {
 
 constexpr int kWarps = 4;                     // splits per group (one per warp)
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;                      // (token, group-head) rows per tile
-constexpr int kMaxSlots = 8;                  // page slots per split, at most
+constexpr int kRows = 4;                      // fp32 (token, group-head) rows per tile
+constexpr int kMaxSplitSlots = 32;            // block_kv, at most: a lane per slot of a split
+constexpr int kWideMaxD = 128;                // the widest head of the wide tiles
 constexpr int kStageBytes = 8192;             // K and V rows of one block
 constexpr float kNegInf = -2.0e38f;           // the reference's NEG_INF
 
@@ -124,11 +139,12 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory"); }
 
 // Page slots per split for a sequence of n_pages pages: one (decode of a
-// few pages spreads over as many warps), more for long sequences, so a warp
-// streams several blocks and the sequence needs fewer CTAs. A function of
-// the sequence alone, never of the table width.
-__host__ __device__ __forceinline__ int split_slots(int n_pages) {
-  return max(1, min(kMaxSlots, n_pages / 64));
+// few pages spreads over as many warps), more for long sequences, up to
+// max_slots (the launch's block_kv), so a warp streams several blocks and
+// the sequence needs fewer CTAs. A function of the sequence and the launch
+// plan, never of the table width.
+__host__ __device__ __forceinline__ int split_slots(int n_pages, int max_slots) {
+  return max(1, min(max_slots, n_pages / 64));
 }
 
 // Folds the partial (m2, l2, a2[0..N)) into (m, l, a[0..N)): the
@@ -190,11 +206,15 @@ struct Params {
   float* part_acc;          // spread, n_groups > 1: (n_groups, T, Hq, D)
   float* part_ml;           // (n_groups, T, Hq, 2): m, l
   int* counters;            // the latent kernel's, zero between launches
+  int* gathered;            // null, or += the (page, KV head) slabs staged
   int tile_groups, max_clusters;   // the latent kernel's plan (launch_latent)
   int kv_tma;               // the latent kernel: 1, a TMA box a unit; 0, rows copied by hand
   CUtensorMap kv_map;       // the latent kernel's pool as (64 columns, rows, 64-column chunks)
   int num_tokens, num_pages, page_size, table_width, num_q_heads, num_kv_heads;
   int n_groups, spread;
+  int max_slots;            // block_kv: page slots a split holds, at most
+  int stages;               // num_buffers: cp.async stages a warp keeps; the launch picks
+                            // the per-warp kernels' instantiation by it and by block_q
   int planes;               // 2: K and V rows; 1: V is K (one KV head, v_from_k);
                             // the launch picks the kernel instantiation by it
   float scale;
@@ -219,12 +239,31 @@ struct Geo {
   static_assert(KPL >= 1 && KPL <= 32, "a block's keys fit the lanes' masks");
   static constexpr int ROW = 2 * D;                      // K row then V row, elements
   static constexpr int stage_elems = kBlockKeys * ROW;
-  // shared memory: q (fp32), then per warp 2 stages; the merge buffer
-  // (per warp kRows x (D + 2) fp32) reuses the stages
-  static constexpr size_t q_bytes = sizeof(float) * kRows * D;
-  static constexpr size_t bytes = q_bytes + (size_t)kWarps * 2 * stage_elems * sizeof(float);
-  static_assert(kWarps * kRows * (D + 2) <= kWarps * 2 * stage_elems, "merge buffer fits the stages");
+  // shared memory: q (fp32, R rows), then per warp NS stages; the merge
+  // buffer (per warp R x (D + 2) fp32) reuses the stages
+  __host__ __device__ static constexpr size_t q_bytes(int R) {
+    return sizeof(float) * R * D;
+  }
+  __host__ __device__ static constexpr size_t bytes(int R, int NS) {
+    return q_bytes(R) + (size_t)kWarps * NS * stage_elems * sizeof(float);
+  }
+  static_assert(2 * kRows * (D + 2) <= 2 * stage_elems, "merge buffer fits two stages");
 };
+
+// Adds the live slots [s_lo, s_hi) of a table row to *gathered: one
+// (page, KV head) slab each, as the warp stages them (a page id in
+// [pid_min, num_pages)). Called by a whole warp.
+__device__ __forceinline__ void count_gathered(int* gathered, const int* table_row, int s_lo,
+                                               int s_hi, int pid_min, int num_pages) {
+  const int lane = threadIdx.x % 32;
+  int n = 0;
+  for (int sl = s_lo + lane; sl < s_hi; sl += 32) {
+    const int pid = table_row[sl];
+    n += pid >= pid_min && pid < num_pages;
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (lane == 0 && n > 0) atomicAdd(gathered, n);
+}
 
 // The tile's rows from the merged state: the output, or (spread over
 // several groups) this group's fp32 partial.
@@ -258,7 +297,7 @@ __device__ __forceinline__ void write_rows(const Params& prm, const RowState<R, 
   }
 }
 
-template <int D, int kPlanes>
+template <int D, int kPlanes, int R, int NS>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const Params prm) {
   using GE = Geo<D>;
@@ -284,9 +323,9 @@ ragged_paged_attention_kernel(const Params prm) {
   const int q0 = prm.cu_q_lens[s];
   const int qlen = prm.cu_q_lens[s + 1] - q0;
   const int kv_len = prm.kv_lens[s];
-  const int row0 = tile * kRows;
+  const int row0 = tile * R;
   if (row0 >= qlen * G) return;           // whole CTA: nothing to do
-  const int row_end = min(row0 + kRows, qlen * G);
+  const int row_end = min(row0 + R, qlen * G);
 
   // The tile's reachable slots (kernel.py:108-118): causal — no key past
   // the tile's last query position; window — no key below the first one's
@@ -299,7 +338,7 @@ ragged_paged_attention_kernel(const Params prm) {
   const int hi = has_pos ? min(n_pages, prm.table_width)
                          : min(min(n_pages, last_qpos / ps + 1), prm.table_width);
   const int lo = prm.has_window && !has_pos ? max(first_qpos - prm.window + 1, 0) / ps : 0;
-  const int slots = split_slots(n_pages), group_slots = slots * kWarps;
+  const int slots = split_slots(n_pages, prm.max_slots), group_slots = slots * kWarps;
   int g_begin, g_end;   // the groups this CTA folds
   if (prm.spread) {
     g_begin = blockIdx.x % n_split_ctas;
@@ -310,28 +349,28 @@ ragged_paged_attention_kernel(const Params prm) {
   }
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);                         // kRows x D
-  T* stages = reinterpret_cast<T*>(smem + GE::q_bytes);
-  T* my_stage = stages + warp * 2 * GE::stage_elems;
+  float* q_s = reinterpret_cast<float*>(smem);                         // R x D
+  T* stages = reinterpret_cast<T*>(smem + GE::q_bytes(R));
+  T* my_stage = stages + warp * NS * GE::stage_elems;
   float* mbuf = reinterpret_cast<float*>(stages);                      // [warp][row][D + 2]
 
   const T* q = static_cast<const T*>(prm.q);
   const T* kv = static_cast<const T*>(prm.kv_pages);
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int fr = row0 + r;
     float x = 0.f;
     if (fr < row_end) x = q[((size_t)(q0 + fr / G) * Hq + h * G + fr % G) * D + d];
     q_s[i] = x;
   }
-  int qpos[kRows];   // a padded row (past row_end) sees no key in position mode
+  int qpos[R];   // a padded row (past row_end) sees no key in position mode
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < R; ++i)
     qpos[i] = !has_pos ? kv_len - qlen + (row0 + i) / G
             : row0 + i < row_end ? prm.q_pos[q0 + (row0 + i) / G] : -1;
   const int bpp = (ps + KB - 1) / KB;     // blocks per page
 
-  RowState<kRows, D> run;   // this thread's share of the tile's merged state
+  RowState<R, D> run;   // this thread's share of the tile's merged state
 
   for (int grp = g_begin; grp < g_end; ++grp) {
     __syncthreads();   // q staged; the previous group's merge buffer is read
@@ -339,9 +378,9 @@ ragged_paged_attention_kernel(const Params prm) {
     const int s_hi = min(hi, grp * group_slots + (warp + 1) * slots);
     const int n_blocks = s_hi > s_lo ? (s_hi - s_lo) * bpp : 0;
 
-    float m[kRows], l[kRows], acc[kRows][CPL];
+    float m[R], l[R], acc[R][CPL];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < R; ++i) {
       m[i] = kNegInf;
       l[i] = 0.f;
 #pragma unroll
@@ -360,7 +399,7 @@ ragged_paged_attention_kernel(const Params prm) {
         if (pid >= 0) {
           const int kb = (b % bpp) * KB;
           const int nk = min(KB, ps - kb);
-          T* dst = my_stage + (b & 1) * GE::stage_elems;
+          T* dst = my_stage + ((unsigned)b % NS) * GE::stage_elems;
           constexpr int CH = kPlanes * D * (int)sizeof(T) / 16;   // 16-byte chunks a key
           for (int c = lane; c < KB * CH; c += 32) {
             const int key = c / CH, e = (c % CH) * (16 / (int)sizeof(T));
@@ -374,14 +413,18 @@ ragged_paged_attention_kernel(const Params prm) {
       cp_async_commit();
     };
 
-    issue(0);
+    if (prm.gathered != nullptr)
+      count_gathered(prm.gathered, prm.page_table + (size_t)s * prm.table_width, s_lo, s_hi,
+                     has_pos ? 0 : 1, prm.num_pages);
+#pragma unroll
+    for (int b = 0; b < NS - 1; ++b) issue(b);
     for (int b = 0; b < n_blocks; ++b) {
-      issue(b + 1);
-      cp_async_wait<1>();
+      issue(b + NS - 1);
+      cp_async_wait<NS - 1>();
       __syncwarp();
       const int pid = page_of(b);
       if (pid >= 0) {
-        const T* st = my_stage + (b & 1) * GE::stage_elems;
+        const T* st = my_stage + ((unsigned)b % NS) * GE::stage_elems;
         const int kb = (b % bpp) * KB;
         const int kpos0 = (s_lo + b / bpp) * ps + kb;
         const int nk = min(KB, ps - kb);
@@ -392,9 +435,9 @@ ragged_paged_attention_kernel(const Params prm) {
           kpos[j] = key >= nk ? -1 : has_pos ? prm.kv_pos[(size_t)pid * ps + kb + key] : kpos0 + key;
         }
         // scores: lane partials over its columns, then summed over the 8 lanes of a key group
-        float sc[kRows][KPL];
+        float sc[R][KPL];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < KPL; ++j) sc[i][j] = 0.f;
 #pragma unroll
@@ -405,7 +448,7 @@ ragged_paged_attention_kernel(const Params prm) {
 #pragma unroll
           for (int j = 0; j < KPL; ++j) load_vec<VW>(st + (j * KG + kq) * ROW + col, kf[j]);
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) {
+          for (int i = 0; i < R; ++i) {
             float qf[VW];
             load_vec<VW>(q_s + i * D + col, qf);
 #pragma unroll
@@ -415,14 +458,14 @@ ragged_paged_attention_kernel(const Params prm) {
           }
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < KPL; ++j)
 #pragma unroll
             for (int o = 1; o < LPK; o <<= 1) sc[i][j] += __shfl_xor_sync(0xffffffffu, sc[i][j], o);
         // online softmax per row (m, l warp-uniform; each lane sums its own keys into l)
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
+        for (int i = 0; i < R; ++i) {
           uint32_t ok = 0;
           float mx = kNegInf;
 #pragma unroll
@@ -463,7 +506,7 @@ ragged_paged_attention_kernel(const Params prm) {
             float vf[VW];
             load_vec<VW>(st + (j * KG + kq) * ROW + voff + (c * LPK + dq) * VW, vf);
 #pragma unroll
-            for (int i = 0; i < kRows; ++i)
+            for (int i = 0; i < R; ++i)
 #pragma unroll
               for (int e = 0; e < VW; ++e)
                 acc[i][c * VW + e] = fmaf(sc[i][j], vf[e], acc[i][c * VW + e]);
@@ -476,7 +519,7 @@ ragged_paged_attention_kernel(const Params prm) {
 
     // the split's partial: sum acc and l over the key groups
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
       for (int o = LPK; o < 32; o <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
 #pragma unroll
@@ -486,9 +529,9 @@ ragged_paged_attention_kernel(const Params prm) {
     }
     __syncthreads();   // every warp is done with its stages: they become the merge buffer
     if (kq == 0) {
-      float* mw = mbuf + warp * kRows * (D + 2);
+      float* mw = mbuf + warp * R * (D + 2);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+      for (int i = 0; i < R; ++i) {
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
           if (live(c))
@@ -540,7 +583,8 @@ ragged_paged_attention_merge_kernel(const Params prm) {
 //
 // A tile is kMmaRows = 16 rows, the M of mma.sync.m16n8k16 (decode of
 // qwen3-8b fills 4 of them; a padded row costs tensor-core issue slots,
-// which decode has to spare). Per block of 16 keys a warp computes S = Q Kᵀ
+// which decode has to spare); a CTA holds NT = 1 or 2 tiles (block_q 16 or
+// 32) on each staged block, each row with the same arithmetic. Per block of 16 keys a warp computes S = Q Kᵀ
 // as 2 x D/16 mma (K's fragments by ldmatrix from the stage), the online
 // softmax on S's fragments (a row's 16 scores sit in 4 lanes), and O += P V
 // as D/8 mma with P rounded to bf16 as the A fragment and V by
@@ -588,18 +632,24 @@ struct MmaGeo {
   static constexpr int QS = D + 8;                       // padded Q row, elements
   static constexpr int RS = 2 * D + 8;                   // padded K|V row
   static constexpr int stage_elems = kMmaKeys * RS;
-  static constexpr size_t q_bytes = 2 * kMmaRows * QS;
-  static constexpr size_t bytes = q_bytes + (size_t)kWarps * 2 * stage_elems * 2;
-  static_assert((size_t)kWarps * kMmaRows * (D + 2) * sizeof(float)
-                <= (size_t)kWarps * 2 * stage_elems * 2, "merge buffer fits the stages");
+  // shared memory: Q (NT tiles), then per warp NS stages; the merge buffer
+  // (per warp NT x 16 rows x (D + 2) fp32) reuses the stages
+  __host__ __device__ static constexpr size_t q_bytes(int NT) {
+    return 2 * (size_t)NT * kMmaRows * QS;
+  }
+  __host__ __device__ static constexpr size_t bytes(int NT, int NS) {
+    return q_bytes(NT) + (size_t)kWarps * NS * stage_elems * 2;
+  }
+  static_assert((size_t)2 * kMmaRows * (D + 2) * sizeof(float) <= (size_t)2 * stage_elems * 2,
+                "merge buffer fits two stages");
 };
 
-template <int D, int kPlanes>
+template <int D, int kPlanes, int NT, int NS>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_mma_kernel(const Params prm) {
   using GE = MmaGeo<D>;
   using T = __nv_bfloat16;
-  constexpr int R = kMmaRows, KB = kMmaKeys, RS = GE::RS, QS = GE::QS;
+  constexpr int R = NT * kMmaRows, KB = kMmaKeys, RS = GE::RS, QS = GE::QS;
 
   const int n_split_ctas = prm.spread ? prm.n_groups : 1;
   const int tile = blockIdx.x / n_split_ctas;
@@ -637,7 +687,7 @@ ragged_paged_attention_mma_kernel(const Params prm) {
   const int hi = has_pos ? min(n_pages, prm.table_width)
                          : min(min(n_pages, last_qpos / ps + 1), prm.table_width);
   const int lo = prm.has_window && !has_pos ? max(first_qpos - prm.window + 1, 0) / ps : 0;
-  const int slots = split_slots(n_pages), group_slots = slots * kWarps;
+  const int slots = split_slots(n_pages, prm.max_slots), group_slots = slots * kWarps;
   int g_begin, g_end;   // the groups this CTA folds
   if (prm.spread) {
     g_begin = blockIdx.x % n_split_ctas;
@@ -649,20 +699,19 @@ ragged_paged_attention_mma_kernel(const Params prm) {
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);                                 // R x QS
-  T* stages = reinterpret_cast<T*>(smem + GE::q_bytes);
-  T* my_stage = stages + warp * 2 * GE::stage_elems;
+  T* stages = reinterpret_cast<T*>(smem + GE::q_bytes(NT));
+  T* my_stage = stages + warp * NS * GE::stage_elems;
   float* mbuf = reinterpret_cast<float*>(stages);                      // [warp][row][D + 2]
 
   const T* q = static_cast<const T*>(prm.q);
   const T* kv = static_cast<const T*>(prm.kv_pages);
-  // Q's A fragments (k-step ks: rows g8 / g8 + 8, columns 2 t4 (+8)) stay in
-  // registers up to D 128; at D 256 they come from q_s at each use, which
-  // leaves the registers to O
-  constexpr bool kQRegs = D <= 128;
-  uint32_t qa[kQRegs ? D / 16 : 1][4];
-  int qpos[2];
+  // Q's A fragments (tile t, k-step ks: rows 16 t + g8 / + 8, columns 2 t4
+  // (+8)) stay in registers while they leave room for O (NT x D <= 128);
+  // else they come from q_s at each use
+  constexpr bool kQRegs = NT * D <= 128;
+  uint32_t qa[kQRegs ? NT : 1][kQRegs ? D / 16 : 1][4];
+  int qpos[NT][2];
   const int bpp = (ps + KB - 1) / KB;
-  static_assert(kMaxSlots <= 32, "a lane per slot of a split");
 
   RowState<R, D> run;   // this thread's share of the tile's merged state
 
@@ -672,25 +721,34 @@ ragged_paged_attention_mma_kernel(const Params prm) {
     const int s_hi = min(hi, grp * group_slots + (warp + 1) * slots);
     const int n_blocks = s_hi > s_lo ? (s_hi - s_lo) * bpp : 0;
 
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    float o[D / 8][4];
+    float m[NT][2], l[NT][2];
+    float o[NT][D / 8][4];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int t = 0; t < NT; ++t) {
+      m[t][0] = m[t][1] = kNegInf;
+      l[t][0] = l[t][1] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[t][j][e] = 0.f;
+    }
 
     // the split's page ids, lane j holding slot s_lo + j (-1: null, skipped)
     int my_pid = spec_pid;
     if (!(prm.spread && slots == 1) && lane < s_hi - s_lo)
       my_pid = prm.page_table[s * prm.table_width + s_lo + lane];
     if (my_pid < (has_pos ? 0 : 1) || my_pid >= prm.num_pages) my_pid = -1;
+    if (prm.gathered != nullptr) {   // the slabs this warp stages: its split's live slots
+      const unsigned live = __ballot_sync(0xffffffffu, lane < s_hi - s_lo && my_pid >= 0);
+      if (lane == 0 && live) atomicAdd(prm.gathered, __popc(live));
+    }
     auto page_of = [&](int b) { return __shfl_sync(0xffffffffu, my_pid, b / bpp); };
     auto issue = [&](int b) {
       const int pid = page_of(b < n_blocks ? b : 0);
       if (b < n_blocks && pid >= 0) {
         const int kb = (b % bpp) * KB;
         const int nk = min(KB, ps - kb);
-        T* dst = my_stage + (b & 1) * GE::stage_elems;
+        T* dst = my_stage + ((unsigned)b % NS) * GE::stage_elems;
         constexpr int CH = kPlanes * D / 8;   // 16-byte chunks a key
         for (int c = lane; c < KB * CH; c += 32) {
           const int key = c / CH, e = (c % CH) * 8;
@@ -703,8 +761,9 @@ ragged_paged_attention_mma_kernel(const Params prm) {
       cp_async_commit();
     };
 
-    issue(0);
-    if (grp == g_begin) {   // Q, staged while the first block loads
+#pragma unroll
+    for (int b = 0; b < NS - 1; ++b) issue(b);
+    if (grp == g_begin) {   // Q, staged while the first blocks load
       for (int i = threadIdx.x; i < R * D / 8; i += kThreads) {
         const int r = i / (D / 8), d = (i % (D / 8)) * 8;
         const int fr = row0 + r;
@@ -716,23 +775,28 @@ ragged_paged_attention_mma_kernel(const Params prm) {
       __syncthreads();
       if constexpr (kQRegs) {
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks)
-          ldmatrix_x4(qa[ks], q_s + ((lane / 8 % 2) * 8 + lane % 8) * QS + ks * 16 + (lane / 16) * 8);
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks)
+            ldmatrix_x4(qa[t][ks], q_s + (kMmaRows * t + (lane / 8 % 2) * 8 + lane % 8) * QS
+                                       + ks * 16 + (lane / 16) * 8);
       }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int fr = row0 + g8 + 8 * hh;   // a padded row sees no key in position mode
-        qpos[hh] = !has_pos ? kv_len - qlen + fr / G
-                 : fr < row_end ? prm.q_pos[q0 + fr / G] : -1;
-      }
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int fr = row0 + kMmaRows * t + g8 + 8 * hh;   // a padded row sees no key in position mode
+          qpos[t][hh] = !has_pos ? kv_len - qlen + fr / G
+                      : fr < row_end ? prm.q_pos[q0 + fr / G] : -1;
+        }
     }
     for (int b = 0; b < n_blocks; ++b) {
-      issue(b + 1);
-      cp_async_wait<1>();
+      issue(b + NS - 1);
+      cp_async_wait<NS - 1>();
       __syncwarp();
       const int pid = page_of(b);
       if (pid >= 0) {
-        const T* st = my_stage + (b & 1) * GE::stage_elems;
+        const T* st = my_stage + ((unsigned)b % NS) * GE::stage_elems;
         const int kb = (b % bpp) * KB;
         const int kpos0 = (s_lo + b / bpp) * ps + kb;
         const int nk = min(KB, ps - kb);
@@ -745,79 +809,96 @@ ragged_paged_attention_mma_kernel(const Params prm) {
             kpos[n][c] = key >= nk ? -1
                        : has_pos ? prm.kv_pos[(size_t)pid * ps + kb + key] : kpos0 + key;
           }
-        // S = Q Kᵀ: n-tile n holds keys 8n..8n+7; sc[n][e]: row g8 + 8 (e / 2), key 8n + 2 t4 + e % 2
-        float sc[2][4];
+        // S = Q Kᵀ, each tile on the same K fragments: n-tile n holds keys
+        // 8n..8n+7; sc[t][n][e]: row 16 t + g8 + 8 (e / 2), key 8n + 2 t4 + e % 2
+        float sc[NT][2][4];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int t = 0; t < NT; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[t][n][e] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
           uint32_t kf[4];   // keys 0-7 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 0-7, keys 8-15 | d 8-15
           const int mi = lane / 8;
           ldmatrix_x4(kf, st + ((mi / 2) * 8 + lane % 8) * RS + ks * 16 + (mi % 2) * 8);
-          uint32_t qf[4];
-          if constexpr (kQRegs) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) qf[e] = qa[ks][e];
-          } else {
-            ldmatrix_x4(qf, q_s + ((mi % 2) * 8 + lane % 8) * QS + ks * 16 + (mi / 2) * 8);
+          for (int t = 0; t < NT; ++t) {
+            uint32_t qf[4];
+            if constexpr (kQRegs) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) qf[e] = qa[t][ks][e];
+            } else {
+              ldmatrix_x4(qf, q_s + (kMmaRows * t + (mi % 2) * 8 + lane % 8) * QS + ks * 16
+                                  + (mi / 2) * 8);
+            }
+            mma_bf16(sc[t][0], qf, kf[0], kf[1]);
+            mma_bf16(sc[t][1], qf, kf[2], kf[3]);
           }
-          mma_bf16(sc[0], qf, kf[0], kf[1]);
-          mma_bf16(sc[1], qf, kf[2], kf[3]);
         }
         // online softmax; a row's scores sit in the 4 lanes of one t4 group
-        uint32_t ok = 0;
-        float mx[2] = {kNegInf, kNegInf};
+        uint32_t pa[NT][4];   // P of each tile as an A fragment (keys 0-15)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int t = 0; t < NT; ++t) {
+          uint32_t ok = 0;
+          float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hh = e / 2, kp = kpos[n][e % 2];
-            float x = sc[n][e] * prm.scale;
-            if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
-            bool valid = kp >= 0 && kp <= qpos[hh];
-            if (prm.has_window) valid = valid && kp > qpos[hh] - prm.window;
-            if (valid) ok |= 1u << (4 * n + e);
-            sc[n][e] = valid ? x : kNegInf;
-            mx[hh] = fmaxf(mx[hh], sc[n][e]);
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e / 2, kp = kpos[n][e % 2];
+              float x = sc[t][n][e] * prm.scale;
+              if (prm.has_cap) x = tanhf(x / prm.cap) * prm.cap;
+              bool valid = kp >= 0 && kp <= qpos[t][hh];
+              if (prm.has_window) valid = valid && kp > qpos[t][hh] - prm.window;
+              if (valid) ok |= 1u << (4 * n + e);
+              sc[t][n][e] = valid ? x : kNegInf;
+              mx[hh] = fmaxf(mx[hh], sc[t][n][e]);
+            }
+          float corr[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+            mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+            const float m_new = fmaxf(m[t][hh], mx[hh]);
+            corr[hh] = fast_exp2((m[t][hh] - m_new) * kLog2e);
+            l[t][hh] *= corr[hh];
+            m[t][hh] = m_new;
           }
-        float corr[2];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-          const float m_new = fmaxf(m[hh], mx[hh]);
-          corr[hh] = fast_exp2((m[hh] - m_new) * kLog2e);
-          l[hh] *= corr[hh];
-          m[hh] = m_new;
-        }
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e / 2;
+              // explicit zeroing: while every key so far was masked, m is
+              // kNegInf and the exponent would be 0
+              sc[t][n][e] = (ok >> (4 * n + e)) & 1u ? fast_exp2((sc[t][n][e] - m[t][hh]) * kLog2e)
+                                                     : 0.f;
+              l[t][hh] += sc[t][n][e];
+            }
+          if (corr[0] != 1.f || corr[1] != 1.f) {   // a factor of 1 leaves O exact
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hh = e / 2;
-            // explicit zeroing: while every key so far was masked, m is
-            // kNegInf and the exponent would be 0
-            sc[n][e] = (ok >> (4 * n + e)) & 1u ? fast_exp2((sc[n][e] - m[hh]) * kLog2e) : 0.f;
-            l[hh] += sc[n][e];
+            for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[t][j][e] *= corr[e / 2];
           }
-        if (corr[0] != 1.f || corr[1] != 1.f) {   // a factor of 1 leaves O exact
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[j][e] *= corr[e / 2];
+          pa[t][0] = pack_bf16(sc[t][0][0], sc[t][0][1]);
+          pa[t][1] = pack_bf16(sc[t][0][2], sc[t][0][3]);
+          pa[t][2] = pack_bf16(sc[t][1][0], sc[t][1][1]);
+          pa[t][3] = pack_bf16(sc[t][1][2], sc[t][1][3]);
         }
-        // O += P V: P's A fragment (keys 0-15), V's B fragments by ldmatrix.trans
-        const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
-                                pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+        // O += P V, each tile on the same V fragments (ldmatrix.trans)
 #pragma unroll
         for (int dn = 0; dn < D / 16; ++dn) {
           uint32_t vf[4];   // keys 0-7 | d 0-7, keys 8-15 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 8-15
           const int mi = lane / 8;
           ldmatrix_x4_trans(vf, st + ((mi % 2) * 8 + lane % 8) * RS + voff + dn * 16 + (mi / 2) * 8);
-          mma_bf16(o[2 * dn], pa, vf[0], vf[1]);
-          mma_bf16(o[2 * dn + 1], pa, vf[2], vf[3]);
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            mma_bf16(o[t][2 * dn], pa[t], vf[0], vf[1]);
+            mma_bf16(o[t][2 * dn + 1], pa[t], vf[2], vf[3]);
+          }
         }
       }
       __syncwarp();
@@ -825,22 +906,28 @@ ragged_paged_attention_mma_kernel(const Params prm) {
     cp_async_wait<0>();
 
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-    }
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[t][hh] += __shfl_xor_sync(0xffffffffu, l[t][hh], 1);
+        l[t][hh] += __shfl_xor_sync(0xffffffffu, l[t][hh], 2);
+      }
     __syncthreads();   // every warp is done with its stages: they become the merge buffer
     {
       float* mw = mbuf + warp * R * (D + 2);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int t = 0; t < NT; ++t) {
+        float* mt = mw + kMmaRows * t * (D + 2);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mw[(g8 + 8 * (e / 2)) * (D + 2) + 8 * j + 2 * t4 + e % 2] = o[j][e];
-      if (t4 == 0) {
+        for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          mw[(g8 + 8 * hh) * (D + 2) + D] = m[hh];
-          mw[(g8 + 8 * hh) * (D + 2) + D + 1] = l[hh];
+          for (int e = 0; e < 4; ++e) mt[(g8 + 8 * (e / 2)) * (D + 2) + 8 * j + 2 * t4 + e % 2] = o[t][j][e];
+        if (t4 == 0) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            mt[(g8 + 8 * hh) * (D + 2) + D] = m[t][hh];
+            mt[(g8 + 8 * hh) * (D + 2) + D + 1] = l[t][hh];
+          }
         }
       }
     }
@@ -1119,6 +1206,17 @@ ragged_paged_attention_latent_kernel(const __grid_constant__ Params prm) {
   const int b_lo = kb > ka ? (ka - key0) / kLatentBlock : 0;  // blocks counted from key0
   const int n_blocks = kb > ka ? (kb - key0 + kLatentBlock - 1) / kLatentBlock - b_lo : 0;
   const int n_units = 2 * n_blocks;
+  if (prm.gathered != nullptr && warp == 0) {   // the (page, KV head) slabs this split stages
+    int n = 0;
+#pragma unroll
+    for (int j = 0; j < PIDS; ++j) {
+      const int sl = split * sp + lane + 32 * j;
+      n += lane + 32 * j < sp && sl * ps >= ka && sl * ps < kb && praw[j] >= (has_pos ? 0 : 1)
+           && praw[j] < prm.num_pages;
+    }
+    n = __reduce_add_sync(0xffffffffu, n);
+    if (lane == 0 && n > 0) atomicAdd(prm.gathered, n);
+  }
 
   const T* kv = static_cast<const T*>(prm.kv_pages);
   const T* q = static_cast<const T*>(prm.q);
@@ -1626,6 +1724,7 @@ long long latent_scratch_floats(const LatentPlan& p, int num_seqs, int num_kv_he
   return parts * p.nt * kMmaRows * (kLatentD + 2 * kLatentCluster);
 }
 
+#ifndef RPA_TILES   // the latent kernel lives in the default library alone
 template <int kPlanes, int NT>
 cudaError_t launch_latent_nt(const Params& prm, const LatentPlan& p, int num_seqs,
                              cudaStream_t stream) {
@@ -1713,6 +1812,14 @@ cudaError_t launch_latent(Params prm, int num_seqs, int max_q_len, cudaStream_t 
                          : launch_latent_nt<2, 2>(prm, p, num_seqs, stream);
 }
 
+#endif  // RPA_TILES
+
+// The per-warp kernels' instantiations: this library holds the default
+// plan (one m16 tile in bf16, kRows in fp32: block_q 16; 2 stages) and the
+// latent kernel; ragged_paged_attention_tiles.cu (RPA_TILES 1) every other
+// plan of the bf16 kernel, ragged_paged_attention_tiles_fp32.cu (RPA_TILES
+// 2) of the fp32 one, each built at the first launch that asks for it.
+
 template <typename K>
 cudaError_t launch_tiles(K kernel, size_t smem, int rows, const Params& prm, int num_seqs,
                          int max_q_len, cudaStream_t stream) {
@@ -1729,28 +1836,67 @@ cudaError_t launch_tiles(K kernel, size_t smem, int rows, const Params& prm, int
   return cudaGetLastError();
 }
 
+// The per-warp kernel of dtype T at head dim D with NT units of rows a CTA
+// (16 bf16 rows, kRows fp32 ones) and NS stages; a plan that does not fit
+// the card (shared memory, or two units' accumulators past kWideMaxD) is
+// refused and never instantiated.
+template <typename T, int D, int NT, int NS>
+cudaError_t launch_plan(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr size_t smem = bf16 ? MmaGeo<D>::bytes(NT, NS) : Geo<D>::bytes(NT * kRows, NS);
+  if constexpr (smem > (size_t)kSmemBytes || (NT > 1 && D > kWideMaxD)) {
+    return cudaErrorInvalidValue;
+  } else if constexpr (bf16) {
+    return prm.planes == 1
+        ? launch_tiles(ragged_paged_attention_mma_kernel<D, 1, NT, NS>, smem, NT * kMmaRows, prm,
+                       num_seqs, max_q_len, stream)
+        : launch_tiles(ragged_paged_attention_mma_kernel<D, 2, NT, NS>, smem, NT * kMmaRows, prm,
+                       num_seqs, max_q_len, stream);
+  } else {
+    return prm.planes == 1
+        ? launch_tiles(ragged_paged_attention_kernel<D, 1, NT * kRows, NS>, smem, NT * kRows,
+                       prm, num_seqs, max_q_len, stream)
+        : launch_tiles(ragged_paged_attention_kernel<D, 2, NT * kRows, NS>, smem, NT * kRows,
+                       prm, num_seqs, max_q_len, stream);
+  }
+}
+
+// The plan (units x 16 bf16 rows or x kRows fp32 rows a CTA, prm.stages
+// stages), if this library holds it.
 template <typename T, int D>
-cudaError_t launch(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return prm.planes == 1
-        ? launch_tiles(ragged_paged_attention_mma_kernel<D, 1>, MmaGeo<D>::bytes, kMmaRows, prm,
-                       num_seqs, max_q_len, stream)
-        : launch_tiles(ragged_paged_attention_mma_kernel<D, 2>, MmaGeo<D>::bytes, kMmaRows, prm,
-                       num_seqs, max_q_len, stream);
-  else
-    return prm.planes == 1
-        ? launch_tiles(ragged_paged_attention_kernel<D, 1>, Geo<D>::bytes, kRows, prm,
-                       num_seqs, max_q_len, stream)
-        : launch_tiles(ragged_paged_attention_kernel<D, 2>, Geo<D>::bytes, kRows, prm,
-                       num_seqs, max_q_len, stream);
+cudaError_t launch(const Params& prm, int units, int num_seqs, int max_q_len,
+                   cudaStream_t stream) {
+  const int plan = 8 * units + prm.stages;
+#ifndef RPA_TILES
+  if (plan == 8 * 1 + 2) return launch_plan<T, D, 1, 2>(prm, num_seqs, max_q_len, stream);
+  return cudaErrorInvalidValue;   // the other plans: the tiles libraries
+#else
+  if constexpr (std::is_same<T, __nv_bfloat16>::value != (RPA_TILES == 1)) {
+    return cudaErrorInvalidValue;   // the other dtype's tiles library
+  } else {
+    switch (plan) {
+      case 8 * 1 + 3: return launch_plan<T, D, 1, 3>(prm, num_seqs, max_q_len, stream);
+      case 8 * 1 + 4: return launch_plan<T, D, 1, 4>(prm, num_seqs, max_q_len, stream);
+      case 8 * 2 + 2: return launch_plan<T, D, 2, 2>(prm, num_seqs, max_q_len, stream);
+      case 8 * 2 + 3: return launch_plan<T, D, 2, 3>(prm, num_seqs, max_q_len, stream);
+      case 8 * 2 + 4: return launch_plan<T, D, 2, 4>(prm, num_seqs, max_q_len, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+#endif
 }
 
 template <typename T, int D>
-cudaError_t launch_and_merge(const Params& prm, int num_seqs, int max_q_len, cudaStream_t stream) {
+cudaError_t launch_and_merge(const Params& prm, int units, int num_seqs, int max_q_len,
+                             cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D == kLatentD) {
+#ifdef RPA_TILES
+    return cudaErrorInvalidValue;
+#else
     return launch_latent(prm, num_seqs, max_q_len, stream);   // folds in the same launch
+#endif
   } else {
-    const cudaError_t e = launch<T, D>(prm, num_seqs, max_q_len, stream);
+    const cudaError_t e = launch<T, D>(prm, units, num_seqs, max_q_len, stream);
     if (e != cudaSuccess || !prm.spread || prm.n_groups == 1 || prm.num_tokens == 0) return e;
     ragged_paged_attention_merge_kernel<T, D>
         <<<dim3(prm.num_tokens, prm.num_q_heads), D, 0, stream>>>(prm);
@@ -1759,15 +1905,15 @@ cudaError_t launch_and_merge(const Params& prm, int num_seqs, int max_q_len, cud
 }
 
 template <typename T>
-cudaError_t dispatch_head_dim(const Params& prm, int head_dim, int num_seqs,
+cudaError_t dispatch_head_dim(const Params& prm, int head_dim, int units, int num_seqs,
                               int max_q_len, cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return launch_and_merge<T, 32>(prm, num_seqs, max_q_len, stream);
-    case 64: return launch_and_merge<T, 64>(prm, num_seqs, max_q_len, stream);
-    case 80: return launch_and_merge<T, 80>(prm, num_seqs, max_q_len, stream);
-    case 128: return launch_and_merge<T, 128>(prm, num_seqs, max_q_len, stream);
-    case 256: return launch_and_merge<T, 256>(prm, num_seqs, max_q_len, stream);
-    case kLatentD: return launch_and_merge<T, kLatentD>(prm, num_seqs, max_q_len, stream);
+    case 32: return launch_and_merge<T, 32>(prm, units, num_seqs, max_q_len, stream);
+    case 64: return launch_and_merge<T, 64>(prm, units, num_seqs, max_q_len, stream);
+    case 80: return launch_and_merge<T, 80>(prm, units, num_seqs, max_q_len, stream);
+    case 128: return launch_and_merge<T, 128>(prm, units, num_seqs, max_q_len, stream);
+    case 256: return launch_and_merge<T, 256>(prm, units, num_seqs, max_q_len, stream);
+    case kLatentD: return launch_and_merge<T, kLatentD>(prm, units, num_seqs, max_q_len, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1778,10 +1924,13 @@ constexpr int kSpreadRows = 16;   // (token, group-head) rows a sequence, at mos
 // slots can need: on each range of page counts where split_slots is
 // constant the count grows with the pages, so the most is at a range's end
 // or at W.
-int max_groups(int table_width) {
-  auto groups = [&](int n) { return (n + split_slots(n) * kWarps - 1) / (split_slots(n) * kWarps); };
+int max_groups(int table_width, int max_slots) {
+  auto groups = [&](int n) {
+    const int g = split_slots(n, max_slots) * kWarps;
+    return (n + g - 1) / g;
+  };
   int most = groups(table_width);
-  for (int end = 127; end < 64 * (kMaxSlots + 1); end += 64)
+  for (int end = 127; end < 64 * (max_slots + 1); end += 64)
     most = std::max(most, groups(std::min(end, table_width)));
   return most;
 }
@@ -1801,14 +1950,14 @@ bool is_latent(int head_dim, int dtype) { return dtype == 1 && head_dim == kLate
 // its partials (0: none); the caller passes that much to the launch.
 extern "C" long long ragged_paged_attention_scratch_floats(
     int num_tokens, int num_seqs, int num_q_heads, int num_kv_heads, int head_dim,
-    int table_width, int page_size, int max_q_len, int dtype) {
+    int table_width, int page_size, int max_q_len, int block_kv, int dtype) {
   if (num_kv_heads <= 0 || table_width <= 0 || page_size <= 0) return 0;
   if (is_latent(head_dim, dtype))
     return latent_scratch_floats(
         latent_plan(num_q_heads, num_kv_heads, table_width, page_size, max_q_len),
         num_seqs, num_kv_heads);
   if (!spreads(num_q_heads, num_kv_heads, max_q_len)) return 0;
-  const int n_groups = max_groups(table_width);
+  const int n_groups = max_groups(table_width, std::max(1, std::min(block_kv, kMaxSplitSlots)));
   return n_groups == 1 ? 0 : (long long)n_groups * num_tokens * num_q_heads * (head_dim + 2);
 }
 
@@ -1829,10 +1978,16 @@ extern "C" long long ragged_paged_attention_counters(
 // dtype: 0 = float32, 1 = bfloat16. has_cap / has_window switch the softcap
 // and the sliding window on. q_pos / kv_pos: both null (slot-derived
 // positions) or both given (explicit positions). v_from_k: the pool is one
-// plane (P, ps, num_kv_heads = 1, D) whose value is its key. scratch:
+// plane (P, ps, num_kv_heads = 1, D) whose value is its key. block_q (16 or
+// 32: the bf16 rows of a CTA, four times the fp32 ones), block_kv (1-32:
+// page slots a split holds, at most) and num_buffers (2-4 stages, as shared
+// memory allows): the per-warp kernels' plan (tune.py), the default (16, 2
+// stages) in this library and the others in the tiles libraries; the latent
+// kernel keeps its own. scratch:
 // ragged_paged_attention_scratch_floats floats (null when that is 0);
-// counters: ragged_paged_attention_counters int32s, zero (null when 0).
-// Returns the launch's cudaError_t (0 = success).
+// counters: ragged_paged_attention_counters int32s, zero (null when 0);
+// gathered: null, or one int32 that the launch adds its (page, KV head)
+// slab loads to. Returns the launch's cudaError_t (0 = success).
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* kv_pages, const void* page_table,
     const void* cu_q_lens, const void* kv_lens, void* out,
@@ -1840,15 +1995,19 @@ extern "C" int ragged_paged_attention_launch(
     int num_tokens, int num_seqs, int table_width, int num_pages, int page_size,
     int num_q_heads, int num_kv_heads, int head_dim, int max_q_len, int v_from_k,
     float scale, int has_cap, float cap, int has_window, int window,
-    int dtype, void* scratch, void* counters, void* stream) {
+    int block_q, int block_kv, int num_buffers,
+    int dtype, void* scratch, void* counters, void* gathered, void* stream) {
   if (page_size <= 0 || num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0
       || table_width <= 0 || (q_pos == nullptr) != (kv_pos == nullptr))
     return (int)cudaErrorInvalidValue;
   // one plane: a latent ring, one KV head
   if (v_from_k && num_kv_heads != 1) return (int)cudaErrorInvalidValue;
   const bool latent = is_latent(head_dim, dtype);   // its own plan (launch_latent)
+  if (block_kv < 1 || block_kv > kMaxSplitSlots || num_buffers < 2 || num_buffers > 4
+      || (block_q != kMmaRows && block_q != 2 * kMmaRows))
+    return (int)cudaErrorInvalidValue;
   const int spread = !latent && spreads(num_q_heads, num_kv_heads, max_q_len);
-  const int n_groups = latent ? 1 : max_groups(table_width);
+  const int n_groups = latent ? 1 : max_groups(table_width, block_kv);
   if (spread && n_groups > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc == nullptr || latent
@@ -1865,6 +2024,7 @@ extern "C" int ragged_paged_attention_launch(
   prm.part_acc = part_acc;
   prm.part_ml = part_ml;
   prm.counters = static_cast<int*>(counters);
+  prm.gathered = static_cast<int*>(gathered);
   prm.tile_groups = prm.max_clusters = 0;
   prm.num_tokens = num_tokens;
   prm.num_pages = num_pages;
@@ -1874,6 +2034,8 @@ extern "C" int ragged_paged_attention_launch(
   prm.num_kv_heads = num_kv_heads;
   prm.n_groups = n_groups;
   prm.spread = spread;
+  prm.max_slots = block_kv;
+  prm.stages = num_buffers;
   prm.planes = v_from_k ? 1 : 2;
   prm.scale = scale;
   prm.has_cap = has_cap;
@@ -1883,9 +2045,10 @@ extern "C" int ragged_paged_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_head_dim<float>(prm, head_dim, num_seqs, max_q_len, st);
+    e = dispatch_head_dim<float>(prm, head_dim, block_q / kMmaRows, num_seqs, max_q_len, st);
   else if (dtype == 1)
-    e = dispatch_head_dim<__nv_bfloat16>(prm, head_dim, num_seqs, max_q_len, st);
+    e = dispatch_head_dim<__nv_bfloat16>(prm, head_dim, block_q / kMmaRows, num_seqs, max_q_len,
+                                         st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

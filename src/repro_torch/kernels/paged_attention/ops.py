@@ -33,6 +33,15 @@ kernel, the latent-head (MLA) one included.
 whose value row is its key row: the MLA ring's stored ``[c, kr]``, read
 by every kernel (at D 576 the bf16 latent kernel with staged units of one
 plane).
+
+The per-warp kernels launch under a plan (``block_q``, ``block_kv``,
+``num_buffers``: ``tune.py``), by default the tuned or default plan of the
+geometry on this card. Rows and stages are compiled in: a plan other than
+the default 16 rows and 2 stages loads its dtype's tiles library
+(``csrc/ragged_paged_attention_tiles.cu``, ``..._tiles_fp32.cu``), built at
+its first use. The plain version ignores the plan. ``gathered`` (one
+int32 on the card) receives the launch's (page, KV head) slab loads,
+which ``pages_gathered`` replicates on the host.
 """
 from __future__ import annotations
 
@@ -40,18 +49,23 @@ import ctypes
 import pathlib
 from typing import Optional
 
+import numpy as np
 import torch
 
+from . import tune
 from .ref import ragged_paged_attention_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ragged_paged_attention.cu"
+# every other plan of the per-warp kernels, by dtype (RPA_TILES), built at first use
+TILES_SOURCES = {torch.bfloat16: SOURCE.with_name("ragged_paged_attention_tiles.cu"),
+                 torch.float32: SOURCE.with_name("ragged_paged_attention_tiles_fp32.cu")}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128, 256, 576)
 
 
-def _library():
+def _library(source=SOURCE):
     from repro_torch.kernels import _build
-    lib = _build.load(str(SOURCE))
+    lib = _build.load(str(source))
     fn = lib.ragged_paged_attention_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,9 +74,10 @@ def _library():
                        I, I, I, I, I, I, I, I, I,   # T S W P ps Hq Hkv D max_q_len
                        I,                           # v_from_k
                        F, I, F, I, I,               # scale has_cap cap has_win win
-                       I, P, P, P]                  # dtype scratch counters stream
+                       I, I, I,                     # block_q block_kv num_buffers
+                       I, P, P, P, P]               # dtype scratch counters gathered stream
         fn.restype = ctypes.c_int
-        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 9
+        lib.ragged_paged_attention_scratch_floats.argtypes = [I] * 10
         lib.ragged_paged_attention_scratch_floats.restype = ctypes.c_longlong
         lib.ragged_paged_attention_counters.argtypes = [I] * 8
         lib.ragged_paged_attention_counters.restype = ctypes.c_longlong
@@ -151,12 +166,29 @@ def _check(q, kv_pages, page_table, cu_q_lens, kv_lens, v_from_k=False):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_gathered(q, gathered):
+    """One int32 on the card, beside q."""
+    if gathered is None:
+        return
+    if q.device.type != "cuda":
+        raise ValueError("gathered counts the CUDA kernel's page loads; on "
+                         f"{q.device} the plain version runs")
+    if (gathered.dtype != torch.int32 or gathered.numel() != 1
+            or gathered.device != q.device):
+        raise ValueError("gathered must be one int32 on q's device, got "
+                         f"{gathered.dtype} {tuple(gathered.shape)} on {gathered.device}")
+
+
 def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
                            scale: float, cap: Optional[float] = None,
                            window: Optional[int] = None,
                            max_q_len: Optional[int] = None,
                            q_pos=None, kv_pos_pages=None,
-                           v_from_k: bool = False):
+                           v_from_k: bool = False,
+                           block_q: Optional[int] = None,
+                           block_kv: Optional[int] = None,
+                           num_buffers: Optional[int] = None,
+                           gathered=None):
     """Attend T concatenated query rows against paged KV storage.
 
     q: (T, Hq, D); kv_pages: (P, ps, 2*Hkv, D) fused head-interleaved;
@@ -167,9 +199,12 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     ``kv_pos_pages`` (P, ps), int32, both or neither, switch on explicit
     positions (-1 in ``kv_pos_pages``: an empty row). ``v_from_k`` reads
     a single-plane pool (P, ps, 1, D) whose rows are key and value at
-    once. Returns (T, Hq, D) in q's dtype."""
+    once. ``block_q``/``block_kv``/``num_buffers`` override the launch plan
+    (``tune.resolve_config``); ``gathered`` receives the slab loads.
+    Returns (T, Hq, D) in q's dtype."""
     _check_positions(q, kv_pages, q_pos, kv_pos_pages)
     _check_planes(kv_pages, v_from_k)
+    _check_gathered(q, gathered)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, kv_pages, page_table, cu_q_lens,
                                           kv_lens, scale=scale, cap=cap,
@@ -184,11 +219,15 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
     Hkv = H2 if v_from_k else H2 // 2
     S, W = page_table.shape
     max_q_len = T if max_q_len is None else int(max_q_len)
+    cfg = (tune.KernelConfig() if tune.is_latent(D, q.dtype) else
+           tune.resolve_config(ps, D, max_q_len, W, block_q, block_kv, num_buffers,
+                               dtype=q.dtype, group=Hq // Hkv))
     out = torch.empty_like(q)
-    lib = _library()
+    default = (cfg.block_q, cfg.num_buffers) == (tune.MMA_ROWS, 2)
+    lib = _library(SOURCE if default else TILES_SOURCES[q.dtype])
     dtype = _DTYPES[q.dtype]
     n_scratch = lib.ragged_paged_attention_scratch_floats(T, S, Hq, Hkv, D, W, ps,
-                                                          max_q_len, dtype)
+                                                          max_q_len, cfg.block_kv, dtype)
     n_counters = lib.ragged_paged_attention_counters(S, Hq, Hkv, D, W, ps, max_q_len, dtype)
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
@@ -203,8 +242,10 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
             T, S, W, P, ps, Hq, Hkv, D, max_q_len, int(v_from_k),
             float(scale), cap is not None, float(cap or 0.0),
             window is not None, int(window or 0),
+            cfg.block_q, cfg.block_kv, cfg.num_buffers,
             dtype, None if scratch is None else scratch.data_ptr(),
-            None if counters is None else counters.data_ptr(), stream)
+            None if counters is None else counters.data_ptr(),
+            None if gathered is None else gathered.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {rc}")
     ragged_paged_attention.launches += 1
@@ -212,3 +253,71 @@ def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
 
 
 ragged_paged_attention.launches = 0
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def pages_gathered(page_table, cu_q_lens, kv_lens, *, page_size: int,
+                   max_q_len: int, block_q: Optional[int] = None,
+                   block_kv: Optional[int] = None,
+                   window: Optional[int] = None,
+                   skip_blocks: bool = True, num_q_heads: int = 1,
+                   num_kv_heads: int = 1, head_dim: int = 128,
+                   dtype=torch.bfloat16, positions: bool = False,
+                   num_pages: Optional[int] = None) -> int:
+    """Host-side replica of one launch's page loads under its plan, the
+    counterpart of the TPU kernel's ``pages_gathered``
+    (``src/repro/kernels/paged_attention/kernel.py:325``), in every mode.
+
+    The unit is one (page, KV head) slab: each CTA reads only its own KV
+    head's rows of a page, ``ps`` rows of ``planes`` x ``D`` elements, so a
+    launch reads ``count * ps * planes * D * itemsize`` bytes of KV (planes
+    2, or 1 with ``v_from_k``). A CTA holds one tile of a (sequence, KV
+    head): ``block_q`` rows in bf16, a quarter of that in fp32, and the
+    latent kernel's 16 or 32 (its own plan); the CTAs that hold a tile's
+    splits stage, between them, each live slot of the tile's reachable
+    range once:
+
+    - slot-derived positions (default): slots [lo, hi), hi past the tile's
+      last query position, lo at its first one's ``window``; null slots
+      (page 0, or ``num_pages`` and beyond) are skipped;
+    - ``positions`` (``q_pos``/``kv_pos_pages``, the ring view): every slot
+      below ``ceil(kv_len / ps)``, page 0 included.
+
+    ``skip_blocks=False`` gives the count that visits every slot below
+    ``ceil(kv_len / ps)`` of every tile, nulls included. ``block_kv`` only
+    moves split boundaries, which leave the count as it is. The kernel
+    adds the same count to its ``gathered`` counter."""
+    tbl, cu, kvl = _host(page_table), _host(cu_q_lens), _host(kv_lens)
+    S, W = tbl.shape
+    ps = int(page_size)
+    G = int(num_q_heads) // int(num_kv_heads)
+    if tune.is_latent(head_dim, dtype):
+        rows = 16 if max(1, max_q_len) * G <= tune.MMA_ROWS else 2 * tune.MMA_ROWS
+    else:
+        cfg = tune.resolve_config(ps, head_dim, max_q_len, W, block_q, block_kv,
+                                  dtype=dtype, group=G)
+        rows = tune.tile_rows(cfg.block_q, dtype)
+    live = tbl >= (0 if positions else 1)
+    if num_pages is not None:
+        live &= tbl < int(num_pages)
+    total = 0
+    for s in range(S):
+        qlen, kv_len = int(cu[s + 1] - cu[s]), int(kvl[s])
+        n_pages = min(-(-kv_len // ps), W)
+        for row0 in range(0, max(1, max_q_len) * G, rows):
+            if row0 >= qlen * G:
+                break
+            if not skip_blocks:
+                total += n_pages
+                continue
+            row_end = min(row0 + rows, qlen * G)
+            first_qpos = kv_len - qlen + row0 // G
+            last_qpos = kv_len - qlen + (row_end - 1) // G
+            hi = n_pages if positions else min(n_pages, last_qpos // ps + 1)
+            lo = (max(first_qpos - int(window) + 1, 0) // ps
+                  if window is not None and not positions else 0)
+            total += int(np.count_nonzero(live[s, lo:hi]))
+    return total * int(num_kv_heads)

@@ -32,9 +32,10 @@ say (DESIGN.md §11).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --replicas 2 --migrate-prefixes --clock event --shared-prefix-tokens 32
 
-What the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item: the TPU autotuner's
-``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` (A.9).
+``--kernel-block-q/--kernel-block-kv/--kernel-buffers`` pin the paged
+kernels' launch plan for the page geometry (``kernels/paged_attention/
+tune.py``): rows a CTA (16 or 32), page slots a split, cp.async stages;
+the plain version on the CPU ignores them.
 """
 from __future__ import annotations
 
@@ -126,11 +127,15 @@ def parser() -> argparse.ArgumentParser:
                          "plane (DESIGN.md §10); 'off' runs per-slot ring "
                          "caches (attention-only stacks)")
     ap.add_argument("--kernel-block-q", type=int, default=None,
-                    help="TPU kernel tuning override (not ported)")
+                    help="paged kernel: (token, group-head) rows a CTA holds, "
+                         "16 or 32 (fp32: a quarter); default the tuned or "
+                         "default plan; ignored on the CPU")
     ap.add_argument("--kernel-block-kv", type=int, default=None,
-                    help="TPU kernel tuning override (not ported)")
+                    help="paged kernel: page slots a warp's split holds, at "
+                         "most (1-32); ignored on the CPU")
     ap.add_argument("--kernel-buffers", type=int, default=None,
-                    help="TPU kernel tuning override (not ported)")
+                    help="paged kernel: cp.async stages a warp keeps (2-4, as "
+                         "shared memory allows); ignored on the CPU")
     ap.add_argument("--tail-copy", choices=("on", "off"), default="on",
                     help="sub-page tail reuse: copy the shared mid-page "
                          "tail into the borrower's page and resume prefill "

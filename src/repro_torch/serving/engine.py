@@ -47,9 +47,10 @@ turns away any tree that is not this backend's. Fault injection
 (``inject_rber``, DESIGN.md §11) draws each visit's flips on the host and
 XORs only the flipped words into the compute page where it lives.
 
-What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the TPU autotuner's launch overrides (``kernel_block_q/kv``,
-``kernel_buffers``, A.9). Hybrid stacks (hymba)
+The launch overrides (``kernel_block_q/kv``, ``kernel_buffers``) pin the
+paged kernels' plan for the engine's page geometry in
+``kernels/paged_attention/tune.py``'s cache, as the reference pins its
+TPU tiles; on the CPU the plain version ignores them. Hybrid stacks (hymba)
 serve on one page table that holds KV pages and state pages together.
 Multi-codebook stacks (musicgen) carry a token as a K-tuple: prompts are
 (L, K), ``last_tokens`` (B, 1, K), greedy sampling is per codebook, the
@@ -117,8 +118,10 @@ class EngineConfig:
     # the pages PagedKVManager owns. False is the ring path (per-slot ring
     # caches), the default as in the JAX package
     paged_kernel: bool = False
-    # TPU autotuner launch overrides (kernels/paged_attention/tune.py in
-    # the JAX package): not ported, any value raises
+    # paged-attention launch plan overrides: rows a CTA, page slots a
+    # split, cp.async stages (None = the tuned or default plan of this
+    # geometry on this card; kernels/paged_attention/tune.py). The plain
+    # version on the CPU ignores them
     kernel_block_q: Optional[int] = None
     kernel_block_kv: Optional[int] = None
     kernel_buffers: Optional[int] = None
@@ -614,9 +617,17 @@ class ServeEngine:
                     ring_page_size(cache_len_for(spec.window, ecfg.max_cache_len),
                                    ecfg.page_tokens)
         if ecfg.kernel_block_q or ecfg.kernel_block_kv or ecfg.kernel_buffers:
-            raise NotImplementedError("kernel launch overrides tune the TPU "
-                                      "kernel's grid (tune.py), which is not "
-                                      "ported (ROADMAP A.9)")
+            # pin the paged kernels' launch plan for this page geometry:
+            # every ragged_paged_attention launch consults the tune cache
+            from repro_torch.kernels.paged_attention.tune import (KernelConfig,
+                                                                  best_config,
+                                                                  set_config)
+            base = best_config(ecfg.page_tokens, cfg.resolved_head_dim)
+            set_config(ecfg.page_tokens, cfg.resolved_head_dim,
+                       KernelConfig(
+                           block_q=ecfg.kernel_block_q or base.block_q,
+                           block_kv=ecfg.kernel_block_kv or base.block_kv,
+                           num_buffers=ecfg.kernel_buffers or base.num_buffers))
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"params are on {leaf.device}, the engine "
