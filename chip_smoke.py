@@ -307,7 +307,19 @@ Phases, each printing one JSON line:
                  ``train.step.make_train_step``: finite, step-0 loss within
                  3 of ln(vocab), aux loss positive, the flash forward twice
                  and dK/dV and dQ once per layer and step at Dk 192 / Dv
-                 128, peak under 72 GB; step ms, tokens/s and peak.
+                 128, peak under 72 GB; step ms, tokens/s and peak;
+19. dryrun     — the dry run (``repro_torch.launch.dryrun``, on this host's
+                 CPU, nothing on the card): (a) gemma-2b x train_4k on the
+                 16 x 16 production mesh (its verbose line: per-device GB,
+                 the three roofline terms with the H100's datasheet
+                 constants, the dominant one); (b) a mesh of one at each
+                 training phase's configuration and batch (train, ssm_train,
+                 hybrid_train, mla_train, audio_train), its predicted peak
+                 and roofline bound beside the peak and steady step those
+                 phases measured, and their ratios; (c) full-width gemma-2b
+                 cut to 2 layers, one bf16 step on the card under
+                 ``hlo_analysis.analyze``: its FLOPs and bytes must equal the
+                 dry run's meta count of the same step, no collectives.
 
 Then a ``phase_seconds`` line with each phase's wall time and the total,
 a line ``{"kernels": [...]}`` with each kernel's launches (summed
@@ -362,7 +374,11 @@ SSD_TOL = 2e-4
 # times the largest |y| (fp32 sums taken in another order before rounding)
 
 
+EMITTED: dict = {}   # each phase's line by name: the dry run reads the trains'
+
+
 def emit(phase: str, **kw) -> None:
+    EMITTED[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -4067,6 +4083,86 @@ def train_phase(torch, cfg_mod, train_cli, kernels, smi):
     return launches
 
 
+# the training phases the dry run predicts: (phase, arch, overrides, B, S)
+DRYRUN_TRAINS = (("train", "gemma-2b", None, 4, 2048),
+                 ("ssm_train", "mamba2-2.7b", None, 4, 2048),
+                 ("hybrid_train", "hymba-1.5b", None, 2, 2048),
+                 ("mla_train", "deepseek-v2-lite-16b", {"num_layers": MLA_TRAIN_LAYERS}, 4, 2048),
+                 ("audio_train", "musicgen-large", None, 4, 2048))
+DRYRUN_CHECK_LAYERS = 2   # (c): gemma-2b at full width, 2 of its 18 layers
+
+
+def dryrun_phase(torch, cfg_mod, tfm, optim, train, data, smi):
+    """The dry run beside the card. (a) gemma-2b x train_4k x single, the
+    reference's own example; (b) on a mesh of one, each training phase's
+    step as the phase ran it (``EMITTED``): predicted peak bytes and
+    roofline bound (``bound_s``, H100 datasheet constants) beside the
+    measured ``peak_mem_bytes`` and ``steady_step_ms``; step over bound is
+    the step's share of its roofline, read as bound / step; (c) one real
+    bf16 step of gemma-2b cut to 2 layers on the card under ``analyze``
+    equals the meta trace of the same step in FLOPs and bytes, with no
+    collectives (gated)."""
+    import dataclasses
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell("gemma-2b", "train_4k", "single")
+    a_s = time.perf_counter() - t0
+    predicted = {}
+    for phase, arch, over, B, S in DRYRUN_TRAINS:
+        res = dryrun.run_cell(arch, f"{phase}_{B}x{S}", "host", overrides=over,
+                              shape=cfg_mod.ShapeConfig(f"{phase}_{B}x{S}", S, B, "train"),
+                              verbose=False)
+        got = EMITTED[phase]
+        rt = res["roofline"]
+        peak = res["memory"]["per_device_gib"] * 2 ** 30
+        predicted[phase] = {
+            "arch": arch, "batch": B, "seq_len": S, "overrides": over,
+            "predicted_peak_bytes": peak, "measured_peak_bytes": got["peak_mem_bytes"],
+            "peak_measured_over_predicted": got["peak_mem_bytes"] / peak,
+            "bound_ms": rt["bound_s"] * 1e3, "dominant": rt["dominant"],
+            "compute_ms": rt["compute_s"] * 1e3, "memory_ms": rt["memory_s"] * 1e3,
+            "measured_steady_step_ms": got["steady_step_ms"],
+            "step_over_bound": got["steady_step_ms"] / (rt["bound_s"] * 1e3),
+            "roofline_share": rt["bound_s"] * 1e3 / got["steady_step_ms"],
+            "model_flops": res["model_flops"]["model_flops"],
+            "useful_ratio": res["model_flops"]["useful_ratio"],
+            "trace_s": res["trace_s"]}
+    b_s = time.perf_counter() - t0 - a_s
+    # (c): the same step on the card, counted, against its meta trace
+    L, B, S = DRYRUN_CHECK_LAYERS, 4, 2048
+    cfg = dataclasses.replace(cfg_mod.get_config("gemma-2b"), num_layers=L)
+    meta = dryrun.run_cell("gemma-2b", "check", "host", overrides={"num_layers": L},
+                           shape=cfg_mod.ShapeConfig("check", S, B, "train"), verbose=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tfm.init_params(cfg, 0, device="cuda")
+    opt_state = optim.init_opt_state(params)
+    pipe = data.SyntheticPipeline(cfg, data.DataConfig(seq_len=S, global_batch=B, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    step_fn = train.make_train_step(cfg, optim.OptConfig())
+    card = analyze(step_fn, params, opt_state, batch)
+    torch.cuda.synchronize()
+    del params, opt_state, batch
+    keys = ("flops", "dot_flops", "elementwise_flops", "transcendentals", "bytes_accessed")
+    checks = {**{f"{k}_equal": card[k] == meta["hlo_analysis"][k] for k in keys},
+              "kernels_equal": card["kernels"] == meta["kernels"],
+              "no_collectives": card["collectives"] == {} and meta["collectives"] == {},
+              "a_ok": cell["ok"], "a_n_devices": cell["n_devices"] == 256}
+    emit("dryrun", nvidia_smi=smi,
+         constants={"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12, "nvlink_bw": 450e9,
+                    "source": "NVIDIA H100 SXM5 datasheet, not measured"},
+         a={"cell": "gemma-2b x train_4k x single", "memory": cell["memory"],
+            "roofline": cell["roofline"], "useful_ratio": cell["model_flops"]["useful_ratio"],
+            "collectives": cell["collectives"], "trace_s": cell["trace_s"], "wall_s": a_s},
+         b=predicted, b_wall_s=b_s,
+         c={"arch": "gemma-2b", "layers": L, "batch": B, "seq_len": S,
+            "card": {k: card[k] for k in keys}, "meta": {k: meta["hlo_analysis"][k] for k in keys},
+            "kernels": card["kernels"]},
+         wall_s=time.perf_counter() - t0, checks=checks)
+    _require("dryrun", checks)
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -4232,6 +4328,7 @@ def main() -> int:
                       train, data, kernels, smi)
     gc.collect()                     # the deepseek-v2-lite-16b state
     torch.cuda.empty_cache()
+    timed("dryrun", dryrun_phase, torch, cfg_mod, tfm, optim, train, data, smi)
     timed("examples", examples_phase, torch, smi)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - start)
 

@@ -107,10 +107,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like) -> Tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, like, shardings=None,
+            mesh=None) -> Tuple[Any, dict]:
     """Restore into the structure of ``like`` (a tree of tensors): every
-    leaf takes its ``like`` leaf's dtype and device. Returns (tree,
-    extra)."""
+    leaf takes its ``like`` leaf's dtype and device. ``shardings``: an
+    optional tree of DTensor placements (``runtime.sharding.
+    param_shardings``) on the DeviceMesh ``mesh``: each leaf is then
+    distributed with its placements, every device keeping its own shard (a
+    resharding restore: the format on disk is the unsharded arrays, so it
+    works across mesh shapes). Returns (tree, extra)."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as z:
@@ -125,4 +130,9 @@ def restore(ckpt_dir: str, step: int, like) -> Tuple[Any, dict]:
             raise ValueError(f"{key}: shape {tuple(a.shape)} != {tuple(leaf.shape)}")
         leaves.append(a.to(device=leaf.device, dtype=leaf.dtype))
     it = iter(leaves)
-    return tree_map(lambda _: next(it), like), manifest["extra"]
+    tree = tree_map(lambda _: next(it), like)
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        tree = tree_map(lambda a, pl: distribute_tensor(a, mesh, pl, src_data_rank=None),
+                        tree, shardings)
+    return tree, manifest["extra"]

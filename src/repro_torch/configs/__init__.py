@@ -20,8 +20,21 @@ from repro_torch.configs.mixtral_8x22b import MIXTRAL_8X22B
 from repro_torch.configs.musicgen_large import MUSICGEN_LARGE
 from repro_torch.configs.qwen3_8b import QWEN3_8B
 
+ASSIGNED_ARCHS = (
+    "mamba2-2.7b",
+    "deepseek-7b",
+    "gemma-2b",
+    "qwen3-8b",
+    "gemma2-27b",
+    "mixtral-8x22b",
+    "deepseek-v2-lite-16b",
+    "musicgen-large",
+    "hymba-1.5b",
+    "internvl2-76b",
+)
+
 __all__ = [
     "ModelConfig", "LayerSpec", "ScanGroup", "REGISTRY", "get_config",
     "reduced", "register", "SHAPES", "ShapeConfig", "get_shape", "cells",
-    "LONG_CONTEXT_OK", "LONG_CONTEXT_SKIP",
+    "LONG_CONTEXT_OK", "LONG_CONTEXT_SKIP", "ASSIGNED_ARCHS",
 ]

@@ -26,9 +26,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
 from repro_torch.kernels.paged_attention import ragged_paged_attention
+from repro_torch.runtime import sharding as shd
 
 
 def ring_page_size(C: int, page_size: int) -> int:
@@ -55,6 +58,9 @@ def ring_pages(kv_cache, cache_pos, page_size: int):
 
 def _attend(q, kv_cache, cache_pos, q_pos, *, scale, cap, window, page_size):
     """q: (B, S, H, D) at absolute positions q_pos (B*S,) int32."""
+    if shd.is_dtensor(kv_cache):
+        return _attend_sharded(q, kv_cache, cache_pos, q_pos, scale=scale,
+                               cap=cap, window=window, page_size=page_size)
     B, S, H, D = q.shape
     C = kv_cache.shape[1]
     kv_pages, kv_pos, table = ring_pages(kv_cache, cache_pos, page_size)
@@ -66,6 +72,42 @@ def _attend(q, kv_cache, cache_pos, q_pos, *, scale, cap, window, page_size):
         scale=scale, cap=cap, window=window, max_q_len=S, q_pos=q_pos,
         kv_pos_pages=kv_pos, v_from_k=kv_cache.shape[2] == 1)
     return out.reshape(B, S, H, D)
+
+
+def _attend_sharded(q, kv_cache, cache_pos, q_pos, *, scale, cap, window,
+                    page_size):
+    """The ring view on DTensors. Each mesh dim splits the ring's batch
+    (q follows), its heads (q's heads follow) or its slots (flash-decoding:
+    q is replicated there, each device attends its slots and the partial
+    (out, m, l) are merged over that mesh dim: an all-reduce of (B*S, H,
+    D + 2) fp32, which is what the merge moves)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = kv_cache.device_mesh
+    qp, pp, split = [], [], []
+    for i, p in enumerate(shd.replicated(kv_cache)):
+        if p.is_replicate() or p.is_shard(0):
+            qp.append(p), pp.append(p)
+        elif p.is_shard(2):
+            qp.append(p), pp.append(Replicate())
+        elif p.is_shard(1):
+            qp.append(Replicate()), pp.append(p), split.append(i)
+        else:
+            raise NotImplementedError(f"the ring view takes a ring split on batch, "
+                                      f"slots or heads, not {p} on mesh dim {i}")
+    B, S, H, D = q.shape
+    ql = shd.local_of(shd._as_dtensor(q, mesh), qp)
+    kvl = kv_cache.to_local()
+    posl = shd.local_of(shd._as_dtensor(cache_pos, mesh), pp)
+    qpl = q_pos.to_local() if shd.is_dtensor(q_pos) else q_pos
+    qpl = qpl[:ql.shape[0] * S].contiguous()
+    out = _attend(ql, kvl, posl, qpl, scale=scale, cap=cap, window=window,
+                  page_size=math.gcd(page_size, kvl.shape[1]))
+    for i in split:
+        stats = torch.empty(out.shape[:-1] + (D + 2,), dtype=torch.float32,
+                            device=out.device)
+        funcol.wait_tensor(funcol.all_reduce(stats, "sum", mesh.get_group(i)))
+    return shd.global_of(out, mesh, qp, (B, S, H, D))
 
 
 def decode_attention(q, kv_cache, cache_pos, cur_pos, *, scale: float,

@@ -18,7 +18,10 @@ Tensors on the CPU take the plain versions (``ref.flash_fwd_ref``,
 ``ref.flash_bwd_ref``), chunked by ``q_chunk``/``kv_chunk`` as the JAX
 package chunks, at any head dims; the kernels use tiles of their own. A
 CUDA tensor launches the kernel or raises — there is no fallback. Each
-kernel wrapper adds one to its ``.launches`` where it launches.
+kernel wrapper adds one to its ``.launches`` where it launches. ``meta``
+tensors get outputs of the kernels' shapes and no arithmetic; DTensors
+sharded on batch or heads run on each device's shards (``_shard``); an
+active analysis records each call's work (``kernels/_work.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import pathlib
 from typing import List, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import _work
 
 from .ref import flash_bwd_ref, flash_fwd_ref
 
@@ -157,6 +162,110 @@ def _common(q, k, v, scale, cap, window):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def visible_pairs(Sq: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs of causal self-attention over Sq tokens, under
+    an optional sliding window."""
+    if window is None or window >= Sq:
+        return Sq * (Sq + 1) // 2
+    return window * (window + 1) // 2 + (Sq - window) * window
+
+
+def flash_work(q, k, v, window=None):
+    """{kernel: (flops, bytes)} of the three kernels on these shapes (the
+    formulas of PERF.md's bound column): every input read once, every
+    output written once; per visible (query, key) pair and head, 2 flops
+    per product dim of each matrix product — Dk for QKᵀ, dSᵀ Q and dS K, Dv
+    for PV, dO Vᵀ and Pᵀ dO."""
+    B, S, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    item = q.element_size()
+    pairs = visible_pairs(S, window) * B * H
+    qk, qv = B * S * H * D * item, B * S * H * Dv * item
+    kk, kv = B * Skv * Hkv * D * item, B * Skv * Hkv * Dv * item
+    stats = B * H * S * 4
+    return {"flash_attention_fwd": (2 * (D + Dv) * pairs, qk + qv + kk + kv + 2 * stats),
+            "flash_attention_bwd_dkdv": (4 * (D + Dv) * pairs,
+                                         qk + qv + 2 * kk + 2 * kv + 3 * stats),
+            "flash_attention_bwd_dq": (2 * (2 * D + Dv) * pairs,
+                                       2 * qk + qv + kk + kv + 3 * stats)}
+
+
+def _work_of(name):
+    def work(q, k, v, *rest, window=None, **_):
+        return flash_work(q, k, v, window)[name]
+    return work
+
+
+def _meta_fwd(q, k, v, **_):
+    B, Sq, H, _ = q.shape
+    m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return q.new_empty((B, Sq, H, v.shape[-1])), m, torch.empty_like(m)
+
+
+def _meta_dkdv(q, k, v, *rest, **_):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _meta_dq(q, *rest, **_):
+    return torch.empty_like(q)
+
+
+def _shard(wrapper, q, k, v, *rest, **kw):
+    """A kernel on DTensors: q (and dout) sharded on batch (dim 0) or heads
+    (dim 2) of each mesh dim, k and v then on batch, and on heads where
+    their heads split as evenly, else replicated with each device reading
+    the KV heads of its query heads (its K/V gradients then partial sums);
+    m, l and delta follow q. Any other placement raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.runtime import sharding as shd
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    qp, sp, kp, gp = [], [], [], []     # q-like, stats, k-like, k-gradient
+    lo_hi = None
+    for i, p in enumerate(shd.replicated(q)):
+        if p.is_replicate():
+            qp.append(p), sp.append(p), kp.append(p), gp.append(p)
+        elif p.is_shard(0):
+            qp.append(p), sp.append(Shard(0)), kp.append(p), gp.append(p)
+        elif p.is_shard(2):
+            qp.append(p), sp.append(Shard(1))
+            n = mesh.size(i)
+            if Hkv % n == 0:
+                kp.append(p), gp.append(p)
+            else:
+                lo_hi = shd.head_slice(H, Hkv, n, mesh.get_local_rank(i))
+                kp.append(Replicate()), gp.append(shd.partial_placement())
+        else:
+            raise NotImplementedError(f"flash attention takes q sharded on batch "
+                                      f"or heads, not {p} on mesh dim {i}")
+    kl, vl = shd.local_of(k, kp), shd.local_of(v, kp)
+    k_local, v_local = tuple(kl.shape), tuple(vl.shape)
+    if lo_hi is not None:
+        kl, vl = kl[:, :, lo_hi[0]:lo_hi[1]], vl[:, :, lo_hi[0]:lo_hi[1]]
+    local = [shd.local_of(q, qp), kl.contiguous(), vl.contiguous()]
+    if rest:                                        # m, l, dout, delta
+        m, l, dout, delta = rest
+        local += [shd.local_of(m, sp), shd.local_of(l, sp),
+                  shd.local_of(dout, qp).contiguous(), shd.local_of(delta, sp)]
+    out = wrapper(*local, **kw)
+    B, Sq = q.shape[:2]
+    if wrapper is flash_attention_fwd:
+        o, m, l = out
+        stat = (B, H, Sq)
+        return (shd.global_of(o, mesh, qp, (B, Sq, H, v.shape[-1])),
+                shd.global_of(m, mesh, sp, stat), shd.global_of(l, mesh, sp, stat))
+    if wrapper is flash_attention_bwd_dq:
+        return shd.global_of(out, mesh, qp, tuple(q.shape))
+
+    def grad(g, like, local_shape):
+        if lo_hi is not None:
+            full = g.new_zeros(local_shape)
+            full[:, :, lo_hi[0]:lo_hi[1]] = g
+            g = full
+        return shd.global_of(g, mesh, gp, tuple(like.shape))
+    return grad(out[0], k, k_local), grad(out[1], v, v_local)
+
+
 def _cuda_only(name, t):
     if t.device.type != "cuda":
         raise ValueError(f"no {name} for device {t.device}")
@@ -168,6 +277,7 @@ def _raise_on(rc, name, q, v):
                            f"{v.shape[-1]}): CUDA error {rc}")
 
 
+@_work.entry(_work_of("flash_attention_fwd"), _meta_fwd, _shard)
 def flash_attention_fwd(q, k, v, *, scale: float, cap: Optional[float] = None,
                         window: Optional[int] = None, q_chunk: int = 512,
                         kv_chunk: int = 1024):
@@ -201,6 +311,7 @@ def _bwd_extra(q, v, m, l, dout, delta):
             ("dout", dout, (B, Sq, H, v.shape[-1]), q.dtype)]
 
 
+@_work.entry(_work_of("flash_attention_bwd_dkdv"), _meta_dkdv, _shard)
 def flash_attention_bwd_dkdv(q, k, v, m, l, dout, delta, *, scale: float,
                              cap: Optional[float] = None,
                              window: Optional[int] = None):
@@ -244,6 +355,7 @@ def _dkdv_launch(q, k, v, m, l, dout, delta, scale, cap, window,
     return dk, dv
 
 
+@_work.entry(_work_of("flash_attention_bwd_dq"), _meta_dq, _shard)
 def flash_attention_bwd_dq(q, k, v, m, l, dout, delta, *, scale: float,
                            cap: Optional[float] = None,
                            window: Optional[int] = None):
@@ -275,10 +387,12 @@ def flash_attention_bwd(q, k, v, out, m, l, dout, *, scale: float,
                         kv_chunk: int = 1024):
     """(dq, dk, dv) of ``flash_attention_fwd``'s output given its cotangent
     ``dout``. delta = rowsum(dO * O) in fp32 (B, H, Sq); on CUDA the dK/dV
-    kernel and the dQ kernel then launch once each."""
+    kernel and the dQ kernel then launch once each, as on meta tensors,
+    DTensors and under an analysis (where the CPU runs each kernel's plain
+    version)."""
     acc = torch.promote_types(out.dtype, torch.float32)
     delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
-    if q.device.type == "cpu":
+    if _work.TRACE is None and type(q) is torch.Tensor and q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, m, l, dout, delta, scale=scale, cap=cap,
                              window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
     kw = dict(scale=scale, cap=cap, window=window)

@@ -41,7 +41,9 @@ the default 16 rows and 2 stages loads its dtype's tiles library
 (``csrc/ragged_paged_attention_tiles.cu``, ``..._tiles_fp32.cu``), built at
 its first use. The plain version ignores the plan. ``gathered`` (one
 int32 on the card) receives the launch's (page, KV head) slab loads,
-which ``pages_gathered`` replicates on the host.
+which ``pages_gathered`` replicates on the host. ``meta`` tensors get an
+output of the kernel's shape and no arithmetic; an active analysis records
+each call's work (``kernels/_work.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import _work
 
 from . import tune
 from .ref import ragged_paged_attention_ref
@@ -179,6 +183,32 @@ def _check_gathered(q, gathered):
                          f"{gathered.dtype} {tuple(gathered.shape)} on {gathered.device}")
 
 
+def paged_work(q, kv_pages, page_table, cu_q_lens, kv_lens, *, window=None,
+               q_pos=None, **_):
+    """(flops, bytes) of a launch from shapes alone: q and the output once,
+    the descriptors, and every slot of every table row (each row's K and V
+    planes, and its position with ``q_pos``) once; 4*D flops per (query
+    head, key), each query attending every slot of its row, or ``window``
+    of them. A full cache (a decode at its last position) attends exactly
+    that; a shorter one attends less than this count."""
+    T, Hq, D = q.shape
+    _, ps, H2, _ = kv_pages.shape
+    S, W = page_table.shape
+    item = q.element_size()
+    slots = W * ps
+    keys = slots if window is None else min(slots, window)
+    n_bytes = (2 * q.numel() * item + 4 * (page_table.numel() + S + 1 + S)
+               + S * slots * H2 * D * item)
+    if q_pos is not None:
+        n_bytes += 4 * (T + S * slots)
+    return 4 * D * Hq * T * keys, n_bytes
+
+
+def _meta(q, *_, **__):
+    return torch.empty_like(q)
+
+
+@_work.entry(paged_work, _meta)
 def ragged_paged_attention(q, kv_pages, page_table, cu_q_lens, kv_lens, *,
                            scale: float, cap: Optional[float] = None,
                            window: Optional[int] = None,

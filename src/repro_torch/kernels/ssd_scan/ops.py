@@ -8,7 +8,10 @@ allocates the gradients and scratch and launches the backward kernels
 forward, ``ssd_scan_bwd`` backward. Tensors on the CPU take the plain
 versions (``ref.ssd_scan_ref``, ``ref.ssd_scan_bwd_ref``); a CUDA tensor
 launches the kernels or raises — there is no fallback. Each launch adds
-one to the wrapper's ``launches``.
+one to the wrapper's ``launches``. ``meta`` tensors get outputs of the
+kernels' shapes and no arithmetic; DTensors sharded on batch or heads run
+on each device's shards (``_shard``); an active analysis records each
+call's work (``kernels/_work.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import pathlib
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import _work
 
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
@@ -133,6 +138,118 @@ def _check_tensor_core_tiles(x, b, c, init_state):
         raise ValueError("bf16: init_state must start 16-byte aligned")
 
 
+def _blocks(S: int, block: int = BLOCK):
+    for t0 in range(0, S, block):
+        yield min(block, S - t0)
+
+
+def ssd_work(x, dt, a, b, c, *, init_state=None, **_):
+    """(flops, bytes) of the scan on these shapes (PERF.md's bound column):
+    x, b, c, dt, a and the initial state read once, y and the final state
+    written once; per (batch, head) and 32-token block of L tokens the
+    lower triangle of C.B^T (N*L*(L+1)) and of its product with x*dt
+    (P*L*(L+1)), and the carried-state output and state update (2*L*P*N
+    each)."""
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    item = x.element_size()
+    n_bytes = (2 * x.numel() * item + (b.numel() + c.numel()) * item
+               + 4 * (dt.numel() + a.numel() + B * H * P * N)
+               + (0 if init_state is None else 4 * init_state.numel()))
+    flops = sum(N * L * (L + 1) + P * L * (L + 1) + 4 * L * P * N
+                for L in _blocks(S)) * B * H
+    return flops, n_bytes
+
+
+def ssd_bwd_work(x, dt, a, b, c, dy, *, init_state=None, d_final=None, **_):
+    """(flops, bytes) of the backward on these shapes: x, dt, a, b, c, dy,
+    the initial state and d_final read once, dx, d_dt, d_a, db, dc, d_init
+    written once; per (batch, head) and 32-token block M/Q/G over the
+    lower triangle, dxdt, dC, dB and the dState update, two flops an FMA
+    (the block-start states the kernels recompute are not counted)."""
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    item = x.element_size()
+    state_bytes = 4 * B * H * P * N
+    n_bytes = (3 * x.numel() * item + 2 * (b.numel() + c.numel()) * item
+               + 4 * (2 * dt.numel() + 2 * a.numel()) + state_bytes
+               + (0 if init_state is None else state_bytes)
+               + (0 if d_final is None else state_bytes))
+    fma = sum(L * P * N + L * (L + 1) // 2 * (N + P) + P * (L * (L + 1) // 2 + L * N)
+              + 2 * N * (L * (L + 1) // 2 + L * P) for L in _blocks(S))
+    return 2 * fma * B * H, n_bytes
+
+
+def _meta_fwd(x, dt, a, b, c, **_):
+    B, S, H, P = x.shape
+    return (x.new_empty((B, S, H, P)),
+            torch.empty((B, H, P, b.shape[3]), dtype=torch.float32, device=x.device))
+
+
+def _meta_bwd(x, dt, a, b, c, dy, **_):
+    B, S, H, P = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (x.new_empty((B, S, H, P)), torch.empty((B, S, H), **f32),
+            torch.empty((H,), **f32), x.new_empty(tuple(b.shape)),
+            x.new_empty(tuple(c.shape)), torch.empty((B, H, P, b.shape[3]), **f32))
+
+
+def _shard(wrapper, x, dt, a, b, c, *rest, chunk, init_state=None, d_final=None):
+    """The scan on DTensors: x sharded on batch (dim 0) or heads (dim 2) of
+    each mesh dim; dt, the states and dy follow it, a follows the heads; b
+    and c follow the batch, and the heads where their groups split as
+    evenly, else (one group) are replicated with partial-sum gradients.
+    Any other placement raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.runtime import sharding as shd
+    mesh = x.device_mesh
+    H, G = x.shape[2], b.shape[2]
+    xp, dp, ap, bp, stp, agp, bgp = [], [], [], [], [], [], []
+    for i, p in enumerate(shd.replicated(x)):
+        n = mesh.size(i)
+        if p.is_replicate():
+            for lst in (xp, dp, ap, bp, stp, agp, bgp):
+                lst.append(p)
+        elif p.is_shard(0):
+            xp.append(p), dp.append(p), bp.append(p), stp.append(p), bgp.append(p)
+            ap.append(Replicate()), agp.append(shd.partial_placement())
+        elif p.is_shard(2):
+            xp.append(p), dp.append(p), stp.append(Shard(1))
+            ap.append(Shard(0)), agp.append(Shard(0))
+            if G % n == 0:
+                bp.append(p), bgp.append(p)
+            elif G == 1:
+                bp.append(Replicate()), bgp.append(shd.partial_placement())
+            else:
+                raise NotImplementedError(f"{G} groups over {n} devices")
+        else:
+            raise NotImplementedError(f"the SSD scan takes x sharded on batch or "
+                                      f"heads, not {p} on mesh dim {i}")
+    init = shd.local_of(init_state, stp)
+    local = [shd.local_of(x, xp), shd.local_of(dt, dp).contiguous(),
+             shd.local_of(a, ap).contiguous(), shd.local_of(b, bp),
+             shd.local_of(c, bp)]
+    state = (x.shape[0], H, x.shape[3], b.shape[3])
+    if wrapper is ssd_scan:
+        y, final = wrapper(*local, chunk=chunk,
+                           init_state=None if init is None else init.contiguous())
+        return (shd.global_of(y, mesh, xp, tuple(x.shape)),
+                shd.global_of(final, mesh, stp, state))
+    (dy,) = rest
+    df = shd.local_of(d_final, stp)
+    dx, d_dt, d_a, db, dc, d_init = wrapper(
+        *local, shd.local_of(dy, xp), chunk=chunk,
+        init_state=None if init is None else init.contiguous(),
+        d_final=None if df is None else df.contiguous())
+    return (shd.global_of(dx, mesh, xp, tuple(x.shape)),
+            shd.global_of(d_dt, mesh, dp, tuple(dt.shape)),
+            shd.global_of(d_a, mesh, agp, tuple(a.shape)),
+            shd.global_of(db, mesh, bgp, tuple(b.shape)),
+            shd.global_of(dc, mesh, bgp, tuple(c.shape)),
+            shd.global_of(d_init, mesh, stp, state))
+
+
+@_work.entry(ssd_work, _meta_fwd, _shard)
 def ssd_scan(x, dt, a, b, c, *, chunk: int,
              init_state: Optional[torch.Tensor] = None):
     """Mamba2 SSD scan in the model layout, continuing from ``init_state``.
@@ -177,6 +294,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int,
 ssd_scan.launches = 0
 
 
+@_work.entry(ssd_bwd_work, _meta_bwd, _shard)
 def ssd_scan_bwd(x, dt, a, b, c, dy, *, chunk: int,
                  init_state: Optional[torch.Tensor] = None,
                  d_final: Optional[torch.Tensor] = None):

@@ -40,6 +40,8 @@ from repro_torch.kernels.paged_attention import (interleave_kv,
                                                  write_tokens_to_pages)
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef
+from repro_torch.runtime.sharding import (constrain_active, is_dtensor, kv_active,
+                                         write_ring_local)
 
 # ---------------------------------------------------------------------------
 # Param defs
@@ -113,6 +115,10 @@ def fill_cache_from_prefill(cache: dict, k, v) -> dict:
     ``pos % C``, keeping the last C tokens. In place; returns ``cache``."""
     S, C = k.shape[1], cache["kv"].shape[1]
     take = min(S, C)
+    if is_dtensor(cache["kv"]):
+        write_ring_local(cache["kv"], cache["pos"],
+                         interleave_kv(k[:, S - take:], v[:, S - take:]))
+        return cache
     pos = torch.arange(S - take, S, device=k.device)
     slots = pos % C
     cache["kv"][:, slots] = interleave_kv(k[:, S - take:], v[:, S - take:]).to(
@@ -126,6 +132,8 @@ def write_rows_to_ring(ring, ring_pos, rows, positions) -> None:
     ``positions`` (S,) of every sequence into the ring (B, C, H2, D) at slot
     ``pos % C``, and the positions into ``ring_pos`` (B, C) (a chunk longer
     than the ring would collide with itself). In place."""
+    if is_dtensor(ring):
+        return write_ring_local(ring, ring_pos, rows)
     C = ring.shape[1]
     positions = torch.as_tensor(positions, device=rows.device).to(torch.int64)
     slots = positions % C
@@ -138,6 +146,8 @@ def append_row_to_ring(ring, ring_pos, row, pos, active=None) -> None:
     scalar or (B,)): row b's slot ``pos[b] % C``. ``active`` ((B,) bool)
     keeps the rows where it is False as they were — a masked write (the
     old row read back where inactive), so no host sync. In place."""
+    if is_dtensor(ring):
+        return write_ring_local(ring, ring_pos, row[:, None])
     C, B = ring.shape[1], ring_pos.shape[0]
     dev = ring.device
     pos = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1).expand(B)
@@ -231,6 +241,7 @@ def attention_sublayer(
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain_active(q, ("act_batch", None, "act_heads", None))
     Hq, hd = q.shape[2], q.shape[3]
     scale, cap = _q_scale(cfg), cfg.attn_softcap
     if mode in ("train", "prefill"):
@@ -241,14 +252,14 @@ def attention_sublayer(
             out = chunked_attention(q, k, v, window=window, cap=cap, scale=scale,
                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         if mode == "prefill":
-            fill_cache_from_prefill(cache, k, v)
+            kv_active(cfg, fill_cache_from_prefill(cache, k, v))
         out = out.reshape(B * S, Hq * v.shape[3]) @ p["wo"].reshape(-1, d)
         return out.reshape(B, S, d), cache
     if "kv_pages" not in cache:
         if page_table is not None:
             raise ValueError("a ring cache takes no page table")
         if mode == "decode":
-            append_to_cache(cache, k, v, cur_pos, active=decode_active)
+            kv_active(cfg, append_to_cache(cache, k, v, cur_pos, active=decode_active))
             out = decode_attention(q, cache["kv"], cache["pos"], cur_pos,
                                    window=window, cap=cap, scale=scale,
                                    page_size=page_tokens)
@@ -257,7 +268,7 @@ def attention_sublayer(
             # on a windowed ring of ``window`` slots a chunk that wraps it
             # overwrites keys its own early queries' windows still cover
             # (ROADMAP §C.7)
-            write_chunk_to_cache(cache, k, v, positions)
+            kv_active(cfg, write_chunk_to_cache(cache, k, v, positions))
             out = extend_attention(q, cache["kv"], cache["pos"], positions,
                                    window=window, cap=cap, scale=scale,
                                    page_size=page_tokens)

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamDef
+from repro_torch.runtime.sharding import constrain_active, embedding, is_dtensor
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -105,6 +106,7 @@ def mlp(cfg: ModelConfig, p: dict, x):
         h = act(x @ p["w_gate"]) * up
     else:
         h = act(up)
+    h = constrain_active(h, ("act_batch", "act_seq", "act_ff"))
     return h @ p["w_down"]
 
 
@@ -128,7 +130,18 @@ def embed(cfg: ModelConfig, p: dict, tokens):
     """tokens: (B, S) int or (B, S, K) for multi-codebook audio."""
     e = p["embedding"]
     tokens = tokens.long()
-    if cfg.n_codebooks > 1:
+    if is_dtensor(e):
+        # the dry run: vocab-parallel lookups, reduced at once
+        def look(table, t):
+            return constrain_active(embedding(t, table),
+                                    ("act_batch", "act_seq_res", "act_embed"))
+        if cfg.n_codebooks > 1:
+            out = look(e[0], tokens[..., 0])
+            for k in range(1, cfg.n_codebooks):
+                out = out + look(e[k], tokens[..., k])
+        else:
+            out = look(e, tokens)
+    elif cfg.n_codebooks > 1:
         # sum codebook embeddings: e (K, V, D), tokens (B, S, K)
         out = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=e.dtype,
                           device=e.device)

@@ -55,6 +55,7 @@ from repro_torch.models.attention import (_project, append_row_to_ring,
                                           write_rows_to_ring)
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import ParamDef
+from repro_torch.runtime.sharding import constrain_active
 
 
 def mla_defs(cfg: ModelConfig) -> dict:
@@ -120,6 +121,12 @@ def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                               device=device)}
 
 
+def _constrain_ring(ring: dict) -> None:
+    """Latents shard over (batch, ring slots), in place in ``ring``."""
+    for k, v in ring.items():
+        ring[k] = constrain_active(v, ("act_batch", "act_kv_seq", None, None)[:v.dim()])
+
+
 def _ring_attention(mode, q_f, ring, row, *, positions, cur_pos,
                     decode_active, scale, page_tokens):
     """Write the new latent rows (B, S, 1, r + dr) into the ring, in place,
@@ -129,6 +136,7 @@ def _ring_attention(mode, q_f, ring, row, *, positions, cur_pos,
     if mode == "decode":
         append_row_to_ring(ring["ckr"], ring["pos"], row[:, 0], cur_pos,
                            active=decode_active)
+        _constrain_ring(ring)
         return decode_attention(q_f, ring["ckr"], ring["pos"], cur_pos,
                                 scale=scale, page_size=page_tokens)
     if mode not in ("prefill", "extend"):
@@ -137,6 +145,7 @@ def _ring_attention(mode, q_f, ring, row, *, positions, cur_pos,
         raise ValueError(f"a {mode} chunk of {S} tokens does not fit an MLA "
                          f"ring of {C} slots")
     write_rows_to_ring(ring["ckr"], ring["pos"], row, positions)
+    _constrain_ring(ring)
     return extend_attention(q_f, ring["ckr"], ring["pos"], positions,
                             scale=scale, page_size=page_tokens)
 

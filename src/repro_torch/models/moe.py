@@ -23,8 +23,12 @@ order. Training differentiates through the same index moves: a kept pair's
 gradient flows back through its scatter and gather, a dropped pair's (the
 spare row, weight 0) is zero, as the reference's one-hot contractions
 give it, and the router's through the kept weights and the Switch aux
-loss. Shared experts run densely for every token. The reference's
-sharding hook ``sh`` is dropped.
+loss. Shared experts run densely for every token. On DTensors (the dry
+run) ``_moe_sharded`` places the layer where the reference's ``sh``
+constraints do (``repro/models/moe.py:82, 122, 125, 143``): the experts,
+or each expert's d_ff where the experts do not divide the model axis,
+and the shared experts' d_ff split over the model axis, tokens over the
+batch axes.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation
 from repro_torch.models.param import ParamDef
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import is_dtensor
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -98,7 +104,8 @@ def capacity_slots(idx, n_experts: int, cap: int):
     """idx: (N, g*k) expert ids of each group's (token, choice) pairs in
     flattened order -> (slot (N, g*k): how many earlier pairs of the group
     chose the same expert, keep (N, g*k): slot < cap)."""
-    oh = torch.nn.functional.one_hot(idx, n_experts).to(torch.int32)   # (N, g*k, E)
+    experts = torch.arange(n_experts, device=idx.device)
+    oh = (idx[..., None] == experts).to(torch.int32)                   # (N, g*k, E)
     slot = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)
     return slot, slot < cap
 
@@ -114,6 +121,8 @@ def _expert_ffn(cfg: ModelConfig, p: dict, xe):
 def moe_sublayer(cfg: ModelConfig, p: dict, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss scalar). Groups are chunks
     of each sequence; every (sequence, group) has its own capacity."""
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x)
     B, S, d = x.shape
     k, E = cfg.moe_top_k, cfg.n_experts
     g = _group_size(cfg, S)
@@ -128,7 +137,7 @@ def moe_sublayer(cfg: ModelConfig, p: dict, x) -> Tuple[torch.Tensor, torch.Tens
     # a spare last row that no expert computes
     row = torch.where(keep, grp * cap + slot, N * cap)
     tok = x.reshape(N, g, d)[grp, torch.arange(g * k, device=dev)[None] // k]   # (N, g*k, d)
-    buf = x.new_zeros((E, N * cap + 1, d))
+    buf = x.new_zeros((p["w_up"].shape[0], N * cap + 1, d))
     buf[idx_all.reshape(N, g * k), row] = tok
     ye = _expert_ffn(cfg, p, buf[:, :N * cap])
     y = ye[idx_all.reshape(N, g * k), torch.where(keep, row, 0)]                 # (N, g*k, d)
@@ -141,3 +150,30 @@ def moe_sublayer(cfg: ModelConfig, p: dict, x) -> Tuple[torch.Tensor, torch.Tens
         h = act(x @ p["shared_gate"]) * up if "shared_gate" in p else act(up)
         out = out + h @ p["shared_down"]
     return out, aux
+
+
+def _moe_sharded(cfg: ModelConfig, p: dict, x):
+    """``moe_sublayer`` on DTensors (the dry run). Each device routes its
+    batch shard over every expert (the router gathered) and computes the
+    slots of the experts it holds — experts split over a mesh dim, or each
+    expert's d_ff where the experts do not divide it — on its own weight
+    shards, with the shared experts' d_ff likewise; the partial outputs are
+    then summed over the mesh dims that split the weights."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    xp = tuple(q if q.is_shard(0) else Replicate() for q in shd.replicated(x))
+
+    def weights(v):   # a mesh dim that splits the batch holds whole weights
+        return tuple(Replicate() if xp[i].is_shard() else q
+                     for i, q in enumerate(shd.replicated(v)))
+
+    wp = {name: ((Replicate(),) * mesh.ndim if name == "router" else weights(v))
+          for name, v in p.items()}
+    local = {name: shd.local_of(v, wp[name]) for name, v in p.items()}
+    split = {i for pl in wp.values() for i, q in enumerate(pl) if q.is_shard()}
+    out, aux = moe_sublayer(cfg, local, shd.local_of(x, xp))
+    out_p = tuple(q if q.is_shard() else shd.partial_placement() if i in split
+                  else Replicate() for i, q in enumerate(xp))
+    out = shd.global_of(out, mesh, out_p, tuple(x.shape)).redistribute(mesh, xp)
+    aux_p = tuple(shd.partial_placement() if q.is_shard() else Replicate() for q in xp)
+    return out, shd.global_of(aux, mesh, aux_p, ())

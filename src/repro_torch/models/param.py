@@ -145,6 +145,21 @@ def materialize(defs, key, device: torch.device, default_dtype: str = "bfloat16"
     return tree_map(one, defs, is_leaf=is_def)
 
 
+def abstract(defs, default_dtype: str = "bfloat16", shardings=None, mesh=None):
+    """Tensors on the ``meta`` device (shape and dtype, nothing allocated)
+    for a def tree; with ``shardings`` (a tree of DTensor placements,
+    ``runtime.sharding.param_shardings``) and ``mesh``, meta DTensors whose
+    local shards are each device's."""
+    def dtype(d):
+        return torch_dtype(d.dtype or default_dtype)
+    if shardings is None:
+        return tree_map(lambda d: torch.empty(d.shape, dtype=dtype(d), device="meta"),
+                        defs, is_leaf=is_def)
+    from repro_torch.runtime.sharding import abstract_tensor
+    return tree_map(lambda d, pl: abstract_tensor(d.shape, dtype(d), mesh, pl),
+                    defs, shardings, is_leaf=is_def)
+
+
 def count_params(defs) -> int:
     leaves = tree_leaves(defs, is_leaf=is_def)
     return int(sum(int(np.prod(d.shape)) for d in leaves))

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamDef
+from repro_torch.runtime.sharding import constrain_active, merge_last, split_last
 
 
 def ssm_defs(cfg: ModelConfig) -> dict:
@@ -252,7 +253,7 @@ def _ssm_mix(cfg: ModelConfig, p: dict, x, conv_in, state, mode: str):
     xbc = torch.cat([xi, b, c], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_in)
     xi, b, c = xbc[..., :di], xbc[..., di:di + ng * ns], xbc[..., di + ng * ns:]
-    xh = xi.reshape(B, S, nh, hd)
+    xh = constrain_active(split_last(xi, nh, hd), ("act_batch", None, "act_heads", None))
     bg = b.reshape(B, S, ng, ns)
     cg = c.reshape(B, S, ng, ns)
 
@@ -265,6 +266,6 @@ def _ssm_mix(cfg: ModelConfig, p: dict, x, conv_in, state, mode: str):
         y, new_state = ssd_scan(xh, dt, a, bg, cg, chunk=cfg.ssm_chunk,
                                 init_state=state)
     y = y + xh.float().to(y.dtype) * p["d_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B, S, di)
+    y = merge_last(y)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_g"], cfg.norm_eps)
     return y @ p["out_proj"], new_conv, new_state

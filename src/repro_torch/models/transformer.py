@@ -63,6 +63,7 @@ from repro_torch.models.moe import moe_defs, moe_sublayer
 from repro_torch.models.param import ParamDef
 from repro_torch.models.ssm import (ssm_cache_init, ssm_defs, ssm_paged_init,
                                     ssm_sublayer)
+from repro_torch.runtime import sharding as shd
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +109,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
                            resolve_device(device), cfg.param_dtype)
 
 
+def abstract_params(cfg: ModelConfig, shardings=None, mesh=None):
+    """The parameters as ``meta`` tensors (``param.abstract``), or meta
+    DTensors placed by ``shardings`` on ``mesh``."""
+    return prm.abstract(model_defs(cfg), cfg.param_dtype, shardings, mesh)
+
+
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
@@ -151,7 +158,7 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
                                           page_tokens=page_tokens)
     if cfg.post_norms:
         h = rmsnorm(h, p["post_norm1"], cfg.norm_eps)
-    x = x + h
+    x = shd.constrain_active(x + h, ("act_batch", "act_seq_res", "act_embed"))
     aux = None
     if spec.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -161,7 +168,7 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
             h = mlp(cfg, p["mlp"], h)
         if cfg.post_norms:
             h = rmsnorm(h, p["post_norm2"], cfg.norm_eps)
-        x = x + h
+        x = shd.constrain_active(x + h, ("act_batch", "act_seq_res", "act_embed"))
     return x, new_cache, aux
 
 
@@ -263,7 +270,7 @@ def _embed_inputs(cfg: ModelConfig, params, batch: dict):
             x.shape[0], cfg.n_meta_tokens, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
         prefix += cfg.n_meta_tokens
-    return x, prefix
+    return shd.constrain_active(x, ("act_batch", "act_seq_res", "act_embed")), prefix
 
 
 def _layers(tree, repeats: int) -> list:
@@ -361,8 +368,8 @@ def _ce_chunk(cfg: ModelConfig, xs, labels, embed_params):
     logits (B, chunk[, K], V) against labels (B, chunk[, K]); labels < 0
     are masked."""
     logits = lm_logits(cfg, embed_params, xs).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    lse = shd.logsumexp_last(logits)
+    gold = shd.gather_last(logits, labels.clamp(min=0).long())
     mask = (labels >= 0).float()
     return ((lse - gold) * mask).sum(), mask.sum(), (torch.square(lse) * mask).sum()
 
@@ -466,7 +473,8 @@ def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table,
     """Later chunks on the paged plane: ``tokens`` (B, S[, K]) at absolute
     positions ``offset + [0, S)``; earlier context is whatever the pages in
     ``page_table`` hold — including pages spliced in from a prefix hit."""
-    x = embed(cfg, params["embed"], tokens)
+    x = shd.constrain_active(embed(cfg, params["embed"], tokens),
+                             ("act_batch", "act_seq_res", "act_embed"))
     S = x.shape[1]
     _check_point_chunk(cfg, int(offset), S, page_tokens)
     positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
@@ -481,7 +489,8 @@ def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
     """One batched decode step on the paged plane. cur_pos: (B,) absolute
     positions; rows where ``active`` is False neither write their pages
     nor advance (their page-table row may be all null pages)."""
-    x = embed(cfg, params["embed"], last_tokens)
+    x = shd.constrain_active(embed(cfg, params["embed"], last_tokens),
+                             ("act_batch", None, "act_embed"))
     cp = cur_pos.to(torch.int32)
     x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
                              caches=caches, mode="decode", cur_pos=cp,
@@ -506,8 +515,16 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_cache_len=None,
     x, _ = _embed_inputs(cfg, params, batch)
     B, S_tot = x.shape[0], x.shape[1]
     positions = torch.arange(S_tot, dtype=torch.int32, device=x.device)
-    caches = init_caches(cfg, B, max_cache_len or S_tot,
-                         prm.torch_dtype(cfg.dtype), x.device)
+    L, dt = max_cache_len or S_tot, prm.torch_dtype(cfg.dtype)
+    if shd.is_dtensor(x):
+        # the dry run: rings placed by the active rules; the global shapes
+        # are read off meta tensors made outside any trace
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            shapes = init_caches(cfg, B, L, dt, "meta")
+        caches = shd.place_caches(shd.active(), cfg, shapes)
+    else:
+        caches = init_caches(cfg, B, L, dt, x.device)
     x, caches = apply_groups(cfg, params, x, positions=positions,
                              caches=caches, mode="prefill",
                              page_tokens=page_tokens)
@@ -520,7 +537,8 @@ def extend(cfg: ModelConfig, params, caches, tokens, offset, *,
     positions ``offset + [0, S)`` against the rings, which already hold
     every earlier chunk (written in place), read as pages of
     ``page_tokens`` slots. Returns (last-position logits, caches)."""
-    x = embed(cfg, params["embed"], tokens)
+    x = shd.constrain_active(embed(cfg, params["embed"], tokens),
+                             ("act_batch", "act_seq_res", "act_embed"))
     S = x.shape[1]
     positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
     x, caches = apply_groups(cfg, params, x, positions=positions,
@@ -535,7 +553,8 @@ def decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
     ``page_tokens`` slots. cur_pos: (B,) absolute positions; rows where
     ``active`` is False leave their rings as they were. Returns (logits
     (B, V[, K]), caches)."""
-    x = embed(cfg, params["embed"], last_tokens)
+    x = shd.constrain_active(embed(cfg, params["embed"], last_tokens),
+                             ("act_batch", None, "act_embed"))
     cp = cur_pos.to(torch.int32)
     x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
                              caches=caches, mode="decode", cur_pos=cp,

@@ -11,13 +11,14 @@ congruent with the parameters: ``{"m", "v", "step"}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Tuple
 
 import torch
 
-from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.models.param import ParamDef, is_def, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -41,6 +42,17 @@ def lr_at(oc: OptConfig, step):
                     / max(oc.total_steps - oc.warmup_steps, 1), 0.0, 1.0)
     cos = oc.min_lr_frac + (1 - oc.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * t))
     return oc.lr * warm * cos
+
+
+def opt_state_defs(param_defs) -> dict:
+    """ParamDef tree for the optimizer state (fp32 moments)."""
+    def f32(d: ParamDef) -> ParamDef:
+        return dataclasses.replace(d, dtype="float32", init="zeros")
+    return {
+        "m": tree_map(f32, param_defs, is_leaf=is_def),
+        "v": tree_map(f32, param_defs, is_leaf=is_def),
+        "step": ParamDef((), (), init="zeros", dtype="int32"),
+    }
 
 
 def init_opt_state(params) -> dict:

@@ -16,17 +16,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.models.transformer import loss_and_metrics
 from repro_torch.optim.adamw import OptConfig, adamw_update
+from repro_torch.runtime.sharding import like
 
 
 def value_and_grad(cfg: ModelConfig, params, batch):
     """(loss, metrics, grads): grads a tree congruent with ``params`` in
-    the parameters' dtypes."""
+    the parameters' dtypes (and, for DTensor parameters, placements)."""
     with torch.enable_grad():
         leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = loss_and_metrics(cfg, leaves, batch)
         grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_map(lambda _: next(grads), params)
+    return loss.detach(), metrics, tree_map(lambda p: like(next(grads), p), params)
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig):

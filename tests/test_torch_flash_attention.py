@@ -121,9 +121,11 @@ def test_cuda_wrapper_checks_before_launch():
         ops._check(q.bfloat16(), k, k)
     with pytest.raises(ValueError, match="contiguous"):
         ops._check(q.transpose(1, 2), k, k)
-    with pytest.raises(ValueError, match="no flash_attention_fwd"):
-        ops.flash_attention_fwd(q.to("meta"), k.to("meta"), k.to("meta"),
-                                scale=1.0)
+    # meta tensors (the dry run) get the kernel's output shapes and dtypes
+    out, m, l = ops.flash_attention_fwd(q.to("meta"), k.to("meta"),
+                                        k.to("meta"), scale=1.0)
+    assert out.is_meta and (out.shape, m.shape, l.shape) == (
+        q.shape, (1, 4, 8), (1, 4, 8)) and m.dtype == l.dtype == torch.float32
     ops._check(q, k, k)                                    # accepted as is
 
 
