@@ -14,7 +14,8 @@ serves them again under ``torch.profiler`` and prints one JSON line: wall
 time, device-busy time and idle share, time per model call, launch and
 host-sync counts, and the top operators by device time and by host time,
 with the card's name and power limit. The device-busy time is the union of
-the device activities' intervals (``device_busy_s``). Needs one card.
+the device activities' intervals (``bench/trace.py``'s ``device_busy_s``).
+Needs one card.
 """
 from __future__ import annotations
 
@@ -35,32 +36,11 @@ TOP = 15
 ARCHS = ("qwen3-8b", "mamba2-2.7b")
 
 
-def device_busy_s(prof) -> float:
-    """Seconds in which the card ran anything (kernel, copy, memset): the
-    union of the device activities' intervals. Summing ``key_averages()``'
-    self device times would count a kernel twice — once under its own name
-    and once under the operator (or autograd node) that launched it."""
-    from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("Command Buffer"))
-    busy_us, cur_start, cur_end = 0.0, None, None
-    for start, end in spans:
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                busy_us += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    if cur_end is not None:
-        busy_us += cur_end - cur_start
-    return busy_us / 1e6
-
-
 def profile_arch(arch: str, smi: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from bench import trace
     from chip_smoke import SERVE_LAYERS
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -93,7 +73,8 @@ def profile_arch(arch: str, smi: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    busy_s = device_busy_s(prof)
+    (_, starts, ends), _ = trace.device_events(prof)
+    busy_s = trace.device_busy_s(starts, ends)
     by_dev = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     by_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
 

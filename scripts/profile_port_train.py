@@ -11,8 +11,8 @@ device-busy time and idle share, kernel launches per step, the device time
 of the flash-attention kernels and of the matrix products
 (``aten::mm``/``aten::bmm``/``aten::addmm``), and the top device kernels
 by time, with the card's name and power limit. The device-busy time is
-the union of the device activities' intervals (``profile_port_serve.
-device_busy_s``). Needs one card.
+the union of the device activities' intervals (``bench/trace.py``'s
+``device_busy_s``). Needs one card.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 ARCH, BATCH, SEQ, STEPS, TOP = "gemma-2b", 4, 2048, 2, 15
 # bf16 training runs the tensor-core forward, dK/dV (with its partial-sum
@@ -46,7 +47,7 @@ def main() -> int:
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.train import make_train_step
-    from profile_port_serve import device_busy_s
+    from bench import trace
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -72,7 +73,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    busy_s = device_busy_s(prof)
+    (_, starts, ends), _ = trace.device_events(prof)
+    busy_s = trace.device_busy_s(starts, ends)
     by_dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
 

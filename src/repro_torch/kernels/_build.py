@@ -26,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 
+from repro_torch.runtime.tracing import NOOP, TRACER
+
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,6 +76,14 @@ def build_all(sources) -> list:
     any build fails; every process started is waited for or killed."""
     sources = [pathlib.Path(s) for s in sources]
     outs = [library_path(s) for s in sources]
+    with (TRACER.span("kernels.build", sources=len(sources),
+                      nvcc=sum(not o.exists() for o in outs))
+          if TRACER.on else NOOP):
+        _build_missing(sources, outs)
+    return outs
+
+
+def _build_missing(sources, outs) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     try:
@@ -103,7 +113,6 @@ def build_all(sources) -> list:
                 proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return outs
 
 
 def build(source: pathlib.Path) -> pathlib.Path:
@@ -116,7 +125,9 @@ def build(source: pathlib.Path) -> pathlib.Path:
 def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library compiled from
     ``source``, a path to a ``.cu`` file. One handle per process."""
-    return ctypes.CDLL(str(build(pathlib.Path(source))))
+    with (TRACER.span("kernels.load", source=pathlib.Path(source).stem)
+          if TRACER.on else NOOP):
+        return ctypes.CDLL(str(build(pathlib.Path(source))))
 
 
 def _demangle(names):

@@ -64,6 +64,7 @@ from repro_torch.models.param import ParamDef
 from repro_torch.models.ssm import (ssm_cache_init, ssm_defs, ssm_paged_init,
                                     ssm_sublayer)
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.tracing import NOOP, TRACER
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +164,8 @@ def apply_block(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, positions,
     if spec.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
         if spec.mlp == "moe":
-            h, aux = moe_sublayer(cfg, p["mlp"], h)
+            with TRACER.span("model.moe") if TRACER.on else NOOP:
+                h, aux = moe_sublayer(cfg, p["mlp"], h)
         else:
             h = mlp(cfg, p["mlp"], h)
         if cfg.post_norms:
@@ -255,11 +257,16 @@ def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
 # ---------------------------------------------------------------------------
 
 
+def _embed(cfg: ModelConfig, params, tokens):
+    with TRACER.span("model.embed") if TRACER.on else NOOP:
+        return embed(cfg, params["embed"], tokens)
+
+
 def _embed_inputs(cfg: ModelConfig, params, batch: dict):
     """tokens (+ image embeds, then meta tokens, in front) -> x (B, S_total,
     d) in the order meta, image, text, and the index of the first 'real'
     position (the prefix's length)."""
-    x = embed(cfg, params["embed"], batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"])
     prefix = 0
     if cfg.frontend == "vision" and "image_embeds" in batch:
         img = batch["image_embeds"].to(x.dtype)
@@ -340,7 +347,9 @@ def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
                  page_tokens=None):
     """Run every layer in order in a serving mode. Paged modes: each
     layer's pool slice ``pool[i]`` is a contiguous view written in place,
-    so the caches come back as the same tensors. Returns (x, caches)."""
+    so the caches come back as the same tensors. Returns (x, caches).
+    Traced, each block is a span ``model.<kind>`` with its layer index."""
+    layer = 0
     for gi, g in enumerate(cfg.scan_groups()):
         gp = params["groups"][gi]
         layer_params = [_layers(gp[u], g.repeats) for u in range(len(g.unit))]
@@ -348,13 +357,16 @@ def apply_groups(cfg: ModelConfig, params, x, *, positions, caches, mode,
                         for u in range(len(g.unit))]
         for i in range(g.repeats):
             for u, spec in enumerate(g.unit):
-                x, _, _ = apply_block(cfg, spec, layer_params[u][i], x,
-                                      positions=positions,
-                                      cache=layer_caches[u][i], mode=mode,
-                                      cur_pos=cur_pos,
-                                      decode_active=decode_active,
-                                      page_table=page_table,
-                                      page_tokens=page_tokens)
+                with (TRACER.span(f"model.{spec.kind}", layer=layer)
+                      if TRACER.on else NOOP):
+                    x, _, _ = apply_block(cfg, spec, layer_params[u][i], x,
+                                          positions=positions,
+                                          cache=layer_caches[u][i], mode=mode,
+                                          cur_pos=cur_pos,
+                                          decode_active=decode_active,
+                                          page_table=page_table,
+                                          page_tokens=page_tokens)
+                layer += 1
     return x, caches
 
 
@@ -428,8 +440,9 @@ def snapshot_kind(cfg: ModelConfig) -> str:
 
 
 def _head(cfg: ModelConfig, params, x):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params["embed"], x)
+    with TRACER.span("model.head") if TRACER.on else NOOP:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return lm_logits(cfg, params["embed"], x)
 
 
 def _check_point_chunk(cfg: ModelConfig, offset: int, S: int,
@@ -473,7 +486,7 @@ def paged_extend(cfg: ModelConfig, params, caches, tokens, offset, page_table,
     """Later chunks on the paged plane: ``tokens`` (B, S[, K]) at absolute
     positions ``offset + [0, S)``; earlier context is whatever the pages in
     ``page_table`` hold — including pages spliced in from a prefix hit."""
-    x = shd.constrain_active(embed(cfg, params["embed"], tokens),
+    x = shd.constrain_active(_embed(cfg, params, tokens),
                              ("act_batch", "act_seq_res", "act_embed"))
     S = x.shape[1]
     _check_point_chunk(cfg, int(offset), S, page_tokens)
@@ -489,7 +502,7 @@ def paged_decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
     """One batched decode step on the paged plane. cur_pos: (B,) absolute
     positions; rows where ``active`` is False neither write their pages
     nor advance (their page-table row may be all null pages)."""
-    x = shd.constrain_active(embed(cfg, params["embed"], last_tokens),
+    x = shd.constrain_active(_embed(cfg, params, last_tokens),
                              ("act_batch", None, "act_embed"))
     cp = cur_pos.to(torch.int32)
     x, caches = apply_groups(cfg, params, x, positions=cp[:, None],
@@ -537,7 +550,7 @@ def extend(cfg: ModelConfig, params, caches, tokens, offset, *,
     positions ``offset + [0, S)`` against the rings, which already hold
     every earlier chunk (written in place), read as pages of
     ``page_tokens`` slots. Returns (last-position logits, caches)."""
-    x = shd.constrain_active(embed(cfg, params["embed"], tokens),
+    x = shd.constrain_active(_embed(cfg, params, tokens),
                              ("act_batch", "act_seq_res", "act_embed"))
     S = x.shape[1]
     positions = int(offset) + torch.arange(S, dtype=torch.int32, device=x.device)
@@ -553,7 +566,7 @@ def decode(cfg: ModelConfig, params, caches, last_tokens, cur_pos,
     ``page_tokens`` slots. cur_pos: (B,) absolute positions; rows where
     ``active`` is False leave their rings as they were. Returns (logits
     (B, V[, K]), caches)."""
-    x = shd.constrain_active(embed(cfg, params["embed"], last_tokens),
+    x = shd.constrain_active(_embed(cfg, params, last_tokens),
                              ("act_batch", None, "act_embed"))
     cp = cur_pos.to(torch.int32)
     x, caches = apply_groups(cfg, params, x, positions=cp[:, None],

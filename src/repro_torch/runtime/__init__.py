@@ -1,1 +1,2 @@
-"""Runtime control: fault tolerance for the training loop."""
+"""Runtime control: fault tolerance for the training loop, and the
+in-memory tracer (``tracing.TRACER``)."""

@@ -72,6 +72,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.param import (torch_dtype, tree_leaves, tree_map,
                                       tree_same_structure)
+from repro_torch.runtime.tracing import NOOP, TRACER
 from repro_torch.serving.kv_cache import PagedKVManager
 from repro_torch.serving.radix import PrefixMatch
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
@@ -374,7 +375,10 @@ class ComputeBackend:
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _tensor(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        a = np.asarray(a)
+        if TRACER.on:
+            TRACER.count("backend.h2d_copies")
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     # -- StepPlan execution --------------------------------------------
     def run_prefill_chunk(self, ck: PrefillChunk,
@@ -384,7 +388,15 @@ class ComputeBackend:
         on the ring path a first chunk into a fresh ring copied into the
         slot, a later one in place on the slot's rings. Returns the sampled
         next token when the chunk completes the prompt, else None."""
-        toks = self._tensor(np.asarray(ck.tokens, np.int32))[None]
+        with (TRACER.span("backend.prefill_chunk", ck.request_id,
+                          tokens=len(ck.tokens), offset=ck.offset)
+              if TRACER.on else NOOP):
+            return self._prefill_chunk(ck, page_table)
+
+    def _prefill_chunk(self, ck: PrefillChunk, page_table) -> Optional[np.ndarray]:
+        with TRACER.span("backend.inputs") if TRACER.on else NOOP:
+            toks = self._tensor(np.asarray(ck.tokens, np.int32))[None]
+            table = self._tensor(page_table)[None] if self.paged else None
         batch = {"tokens": toks}
         if ck.first and self.cfg.frontend == "vision":
             # the vision frontend is a stub: zero patch embeddings, as the
@@ -392,29 +404,31 @@ class ComputeBackend:
             batch["image_embeds"] = torch.zeros(
                 (1, self.cfg.n_frontend_tokens, self.cfg.d_model),
                 dtype=torch_dtype(self.cfg.dtype), device=self.device)
-        if not self.paged:
-            if ck.first:
-                logits, caches1 = tfm.prefill(
-                    self.cfg, self.params, batch,
-                    max_cache_len=self.ecfg.max_cache_len,
+        with TRACER.span("model.forward") if TRACER.on else NOOP:
+            if not self.paged:
+                if ck.first:
+                    logits, caches1 = tfm.prefill(
+                        self.cfg, self.params, batch,
+                        max_cache_len=self.ecfg.max_cache_len,
+                        page_tokens=self.page_tokens)
+                    self._insert_slot(ck.slot, caches1)
+                else:
+                    logits, _ = tfm.extend(self.cfg, self.params,
+                                           self._extract_slot(ck.slot), toks,
+                                           ck.offset, page_tokens=self.page_tokens)
+            elif ck.first:
+                logits, self.paged_caches = tfm.paged_prefill(
+                    self.cfg, self.params, batch, self.paged_caches, table,
                     page_tokens=self.page_tokens)
-                self._insert_slot(ck.slot, caches1)
             else:
-                logits, _ = tfm.extend(self.cfg, self.params,
-                                       self._extract_slot(ck.slot), toks,
-                                       ck.offset, page_tokens=self.page_tokens)
-        elif ck.first:
-            logits, self.paged_caches = tfm.paged_prefill(
-                self.cfg, self.params, batch, self.paged_caches,
-                self._tensor(page_table)[None], page_tokens=self.page_tokens)
-        else:
-            logits, self.paged_caches = tfm.paged_extend(
-                self.cfg, self.params, self.paged_caches, toks, ck.offset,
-                self._tensor(page_table)[None], page_tokens=self.page_tokens)
+                logits, self.paged_caches = tfm.paged_extend(
+                    self.cfg, self.params, self.paged_caches, toks, ck.offset,
+                    table, page_tokens=self.page_tokens)
         self.model_calls += 1
         if not ck.last:
             return None
-        tok = self.sample(logits).cpu().numpy()
+        with TRACER.span("backend.sample_sync") if TRACER.on else NOOP:
+            tok = self.sample(logits).cpu().numpy()
         self.last_tokens[ck.slot] = tok
         self.positions[ck.slot] = ck.offset + len(ck.tokens) - 1
         return tok
@@ -430,6 +444,10 @@ class ComputeBackend:
         and are the ones audited, every cache family of them (attention
         KV, MLA latents, conv and SSD state). Returns the sampled tokens for
         all B rows ((B,), or (B, K) for K codebooks)."""
+        with TRACER.span("backend.decode", rows=len(slots)) if TRACER.on else NOOP:
+            return self._decode(slots, page_tables, audit_pages)
+
+    def _decode(self, slots, page_tables, audit_pages) -> np.ndarray:
         B = self.ecfg.max_slots
         act = np.zeros((B,), bool)
         act[slots] = True
@@ -440,16 +458,18 @@ class ComputeBackend:
             idx = torch.as_tensor(watched, dtype=torch.long, device=self.device)
             # the decode below writes the caches in place: take the copy now
             before = [leaf[:, idx].clone() for leaf in tree_leaves(caches)]
-        pos = self._tensor(np.maximum(self.positions + 1, 0))
-        tokens, active = self._tensor(self.last_tokens), self._tensor(act, torch.bool)
-        if self.paged:
-            logits, _ = tfm.paged_decode(
-                self.cfg, self.params, caches, tokens, pos,
-                self._tensor(page_tables), active=active,
-                page_tokens=self.page_tokens)
-        else:
-            logits, _ = tfm.decode(self.cfg, self.params, caches, tokens, pos,
-                                   active=active, page_tokens=self.page_tokens)
+        with TRACER.span("backend.inputs") if TRACER.on else NOOP:
+            pos = self._tensor(np.maximum(self.positions + 1, 0))
+            tokens, active = self._tensor(self.last_tokens), self._tensor(act, torch.bool)
+            tables = self._tensor(page_tables) if self.paged else None
+        with TRACER.span("model.forward") if TRACER.on else NOOP:
+            if self.paged:
+                logits, _ = tfm.paged_decode(
+                    self.cfg, self.params, caches, tokens, pos, tables,
+                    active=active, page_tokens=self.page_tokens)
+            else:
+                logits, _ = tfm.decode(self.cfg, self.params, caches, tokens, pos,
+                                       active=active, page_tokens=self.page_tokens)
         self.model_calls += 1
         if before is not None:
             # clobbering guard: a paged round writes exactly one row of each
@@ -464,7 +484,8 @@ class ComputeBackend:
                         "(paged masking regression)" if self.paged else
                         "decode wrote an inactive slot's cache (active-slot "
                         "masking regression)")
-        next_np = self.sample(logits).cpu().numpy()
+        with TRACER.span("backend.sample_sync") if TRACER.on else NOOP:
+            next_np = self.sample(logits).cpu().numpy()
         for slot in slots:
             self.positions[slot] += 1
             self.last_tokens[slot] = next_np[slot]
@@ -561,16 +582,19 @@ class MemoryPlane:
 
     # -- per-step metering ---------------------------------------------
     def begin_step(self) -> None:
-        self._snap = self.mem.snapshot()
+        with TRACER.span("memplane.begin_step") if TRACER.on else NOOP:
+            self._snap = self.mem.snapshot()
 
     def weight_pass(self) -> None:
         """One model pass streams the active weights from the weight tier."""
-        self.mem.read_region(self.weight_region, self.active_weight_bytes)
+        with TRACER.span("memplane.weight_pass") if TRACER.on else NOOP:
+            self.mem.read_region(self.weight_region, self.active_weight_bytes)
 
     def finish_step(self):
         """Per-tier step latency: each tier's traffic at its own read/write
         bandwidth, tiers in parallel -> the slowest bounds the step."""
-        return self.mem.step_latency_since(self._snap)
+        with TRACER.span("memplane.finish_step") if TRACER.on else NOOP:
+            return self.mem.step_latency_since(self._snap)
 
     def report(self) -> dict:
         return self.mem.report()
@@ -1202,19 +1226,20 @@ class ServeEngine:
         point layer pulls exactly one recurrent-state snapshot. Bytes are
         charged at the accounting scale per layer, against each page's
         actual tier."""
-        pages = self.kv.sessions[rid].pages
-        pt = self.kv.page_tokens
-        hi = -(-q1 // pt)  # pages the kernel gathers: [lo_layer, hi)
-        rs = q0 // pt - 1 if q0 % pt == 0 else q0 // pt  # state-read slot
-        page_bytes = [0.0] * len(pages)
-        for lb, w, sb in self._acct_layers:
-            if lb:
-                lo = 0 if w is None else max(0, q0 - w + 1) // pt
-                for j in range(lo, min(hi, len(pages))):
-                    page_bytes[j] += pt * lb
-            if sb and 0 <= rs < len(pages):
-                page_bytes[rs] += sb
-        self.kernel_read_bytes += self.kv.read_pages(rid, page_bytes)
+        with TRACER.span("memplane.meter_reads", rid) if TRACER.on else NOOP:
+            pages = self.kv.sessions[rid].pages
+            pt = self.kv.page_tokens
+            hi = -(-q1 // pt)  # pages the kernel gathers: [lo_layer, hi)
+            rs = q0 // pt - 1 if q0 % pt == 0 else q0 // pt  # state-read slot
+            page_bytes = [0.0] * len(pages)
+            for lb, w, sb in self._acct_layers:
+                if lb:
+                    lo = 0 if w is None else max(0, q0 - w + 1) // pt
+                    for j in range(lo, min(hi, len(pages))):
+                        page_bytes[j] += pt * lb
+                if sb and 0 <= rs < len(pages):
+                    page_bytes[rs] += sb
+            self.kernel_read_bytes += self.kv.read_pages(rid, page_bytes)
 
     def _inject_faults(self, slots: List[int]) -> None:
         """Reliability-plane injection point (DESIGN.md §11): before the
@@ -1271,73 +1296,121 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> dict:
         """One engine step: prefill chunks + one decode round, metered."""
-        plan = self._plan_step()
-        self.memplane.begin_step()
-        rpt = StepReport()
-        first_token_reqs: List[Request] = []
+        with TRACER.span("engine.step") if TRACER.on else NOOP:
+            with TRACER.span("engine.plan") if TRACER.on else NOOP:
+                plan = self._plan_step()
+            if TRACER.on:
+                TRACER.annotate(chunks=len(plan.prefill), rows=len(plan.decode))
+            self.memplane.begin_step()
+            rpt = StepReport()
+            first_token_reqs: List[Request] = []
 
-        # --- prefill phase (whole prompts or chunks) ------------------
-        for ck in plan.prefill:
-            st = self._inflight[ck.slot]
-            if self.paged:
-                # pages must exist BEFORE compute: the kernel writes this
-                # chunk's KV into the session's own pages in place
-                self._account_chunk_kv(ck)
-                tok = self.backend.run_prefill_chunk(
-                    ck, page_table=self._session_table(ck.request_id))
-                self.memplane.weight_pass()
-                # meter the kernel's actual page-gather stream: queries at
-                # [q0, q1) — the first chunk's oldest query is position 0
-                q0 = 0 if ck.first else ck.offset
-                self._meter_paged_reads(ck.request_id, q0,
-                                        ck.offset + len(ck.tokens))
-            else:
-                tok = self.backend.run_prefill_chunk(ck, page_table=None)
-                self.memplane.weight_pass()
-                self._account_chunk_kv(ck)
-            self.prefill_chunks_run += 1
-            self.sched.stats.prefill_chunks += 1
-            st.done += len(ck.tokens)
-            st.req.prompt_pos = min(st.done, st.req.prompt_len)
-            # point stacks: the state is capturable only at the boundary
-            # itself (chunks end on the page grid, so they land there)
-            if st.snap_match_at is not None and st.done == st.snap_match_at:
-                self._attach_match_snapshot(st, ck.slot)
-                st.snap_match_at = None
-            if (st.snap_end_at is not None and st.done == st.snap_end_at
-                    and st.point_caches is None):
-                st.point_caches = self.backend.snapshot_slot(ck.slot)
-            rpt.prefill_tokens += len(ck.tokens)
-            self.prefill_tokens_computed += len(ck.tokens)
-            if ck.last:
-                req = st.req
-                req.prefilled_at = self.mem.now
-                first_token_reqs.append(req)
-                self.outputs[req.request_id].append(int(np.asarray(tok).flat[0]))
-                req.generated += 1
-                self.tokens_generated += 1
-                if st.key is not None:
-                    self.kv.register_prefix(req.request_id, st.key,
-                                            payload=self._donation_fn(st, ck.slot))
-                self.sched.mark_decoding(ck.slot)
-                del self._inflight[ck.slot]
+            # --- prefill phase (whole prompts or chunks) --------------
+            for ck in plan.prefill:
+                with (TRACER.span("engine.prefill", ck.request_id,
+                                  tokens=len(ck.tokens), offset=ck.offset)
+                      if TRACER.on else NOOP):
+                    self._step_prefill(ck, rpt, first_token_reqs)
 
-        # --- decode round ---------------------------------------------
-        if plan.decode:
-            if self.paged:
-                # the new token's page must exist before the kernel writes
-                # its KV row in place
-                for slot in plan.decode:
-                    self.kv.append_tokens(self.sched.active[slot].request_id, 1)
-                self._inject_faults(plan.decode)
-                tables, audit = self._decode_tables(plan.decode)
-                next_np = self.backend.run_decode(plan.decode, page_tables=tables,
-                                                  audit_pages=audit)
-            else:
-                next_np = self.backend.run_decode(plan.decode)
+            # --- decode round -----------------------------------------
+            if plan.decode:
+                with (TRACER.span("engine.decode", rows=len(plan.decode))
+                      if TRACER.on else NOOP):
+                    self._step_decode(plan.decode, rpt)
+
+            # --- advance simulated time by the modelled step latency --
+            step_s, per_tier = self.memplane.finish_step()
+            self.mem.advance(step_s)
+            # the first token is out when the step that computed it completes
+            for req in first_token_reqs:
+                req.first_token_at = self.mem.now
+            with TRACER.span("kv.maintain") if TRACER.on else NOOP:
+                self.kv.maintain()   # cold-leaf decay runs on the advanced clock
+            self.steps += 1
+            rpt.step_s = step_s
+            rpt.bytes_by_tier = per_tier
+            return {"step_s": step_s, "bytes": rpt.bytes,
+                    "bytes_by_tier": rpt.bytes_by_tier,
+                    "prefill_tokens": rpt.prefill_tokens,
+                    "decode_tokens": rpt.decode_tokens,
+                    "finished": rpt.finished,
+                    "active": len(self.sched.active),
+                    "queued": len(self.sched.queue)}
+
+    def _step_prefill(self, ck: PrefillChunk, rpt: StepReport,
+                      first_token_reqs: List[Request]) -> None:
+        """One prefill chunk of a step: its KV pages, the model call, the
+        metering, and the request's progress."""
+        st = self._inflight[ck.slot]
+        if self.paged:
+            # pages must exist BEFORE compute: the kernel writes this
+            # chunk's KV into the session's own pages in place
+            with TRACER.span("kv.append_tokens", ck.request_id) if TRACER.on else NOOP:
+                self._account_chunk_kv(ck)
+            with (TRACER.span("engine.session_table", ck.request_id)
+                  if TRACER.on else NOOP):
+                table = self._session_table(ck.request_id)
+            tok = self.backend.run_prefill_chunk(ck, page_table=table)
             self.memplane.weight_pass()
-            finished: List[int] = []
-            for slot in plan.decode:
+            # meter the kernel's actual page-gather stream: queries at
+            # [q0, q1) — the first chunk's oldest query is position 0
+            q0 = 0 if ck.first else ck.offset
+            self._meter_paged_reads(ck.request_id, q0,
+                                    ck.offset + len(ck.tokens))
+        else:
+            tok = self.backend.run_prefill_chunk(ck, page_table=None)
+            self.memplane.weight_pass()
+            with TRACER.span("kv.append_tokens", ck.request_id) if TRACER.on else NOOP:
+                self._account_chunk_kv(ck)
+        self.prefill_chunks_run += 1
+        self.sched.stats.prefill_chunks += 1
+        st.done += len(ck.tokens)
+        st.req.prompt_pos = min(st.done, st.req.prompt_len)
+        # point stacks: the state is capturable only at the boundary
+        # itself (chunks end on the page grid, so they land there)
+        if st.snap_match_at is not None and st.done == st.snap_match_at:
+            self._attach_match_snapshot(st, ck.slot)
+            st.snap_match_at = None
+        if (st.snap_end_at is not None and st.done == st.snap_end_at
+                and st.point_caches is None):
+            st.point_caches = self.backend.snapshot_slot(ck.slot)
+        rpt.prefill_tokens += len(ck.tokens)
+        self.prefill_tokens_computed += len(ck.tokens)
+        if ck.last:
+            req = st.req
+            req.prefilled_at = self.mem.now
+            first_token_reqs.append(req)
+            self.outputs[req.request_id].append(int(np.asarray(tok).flat[0]))
+            req.generated += 1
+            self.tokens_generated += 1
+            if st.key is not None:
+                self.kv.register_prefix(req.request_id, st.key,
+                                        payload=self._donation_fn(st, ck.slot))
+            self.sched.mark_decoding(ck.slot)
+            del self._inflight[ck.slot]
+
+    def _step_decode(self, slots: List[int], rpt: StepReport) -> None:
+        """The decode round of a step over ``slots``: each session's new
+        row, the model call, the tokens out, the metering, the finished
+        requests."""
+        if self.paged:
+            # the new token's page must exist before the kernel writes
+            # its KV row in place
+            with TRACER.span("kv.append_tokens", rows=len(slots)) if TRACER.on else NOOP:
+                for slot in slots:
+                    self.kv.append_tokens(self.sched.active[slot].request_id, 1)
+            with TRACER.span("engine.inject_faults") if TRACER.on else NOOP:
+                self._inject_faults(slots)
+            with TRACER.span("engine.decode_tables") if TRACER.on else NOOP:
+                tables, audit = self._decode_tables(slots)
+            next_np = self.backend.run_decode(slots, page_tables=tables,
+                                              audit_pages=audit)
+        else:
+            next_np = self.backend.run_decode(slots)
+        self.memplane.weight_pass()
+        finished: List[int] = []
+        with TRACER.span("engine.emit", rows=len(slots)) if TRACER.on else NOOP:
+            for slot in slots:
                 req = self.sched.active[slot]
                 tok = next_np[slot]
                 self.outputs[req.request_id].append(int(np.asarray(tok).flat[0]))
@@ -1358,29 +1431,12 @@ class ServeEngine:
                          int(np.asarray(tok).flat[0]) == self.ecfg.eos_token))
                 if done:
                     finished.append(slot)
+        with TRACER.span("engine.finish", rows=len(finished)) if TRACER.on else NOOP:
             for slot in finished:
                 req = self.sched.finish(slot, self.mem.now)
                 self.kv.close_session(req.request_id)
                 self.backend.free_slot(slot)
                 rpt.finished += 1
-
-        # --- advance simulated time by the modelled step latency ------
-        step_s, per_tier = self.memplane.finish_step()
-        self.mem.advance(step_s)
-        # the first token is out when the step that computed it completes
-        for req in first_token_reqs:
-            req.first_token_at = self.mem.now
-        self.kv.maintain()   # cold-leaf decay runs on the advanced clock
-        self.steps += 1
-        rpt.step_s = step_s
-        rpt.bytes_by_tier = per_tier
-        return {"step_s": step_s, "bytes": rpt.bytes,
-                "bytes_by_tier": rpt.bytes_by_tier,
-                "prefill_tokens": rpt.prefill_tokens,
-                "decode_tokens": rpt.decode_tokens,
-                "finished": rpt.finished,
-                "active": len(self.sched.active),
-                "queued": len(self.sched.queue)}
 
     # ------------------------------------------------------------------
     def run_until_idle(self, max_steps: int = 10000,
